@@ -1,0 +1,32 @@
+"""peritext-tpu on PyTorch and CUDA: the batched rich-text CRDT merge.
+
+A port of the repository's JAX package (JAX on a TPU, the reference it is
+tested against) to PyTorch on an NVIDIA H100, module for module.  It
+imports neither JAX nor that package.
+
+* :mod:`peritext_tpu_torch.core` — the scalar document oracle (the
+  specification layer): changes, clocks, mark spans, cursors.
+* :mod:`peritext_tpu_torch.ops` — packed document state, host encode and
+  decode, and the batched phases: the RGA insert kernel
+  (``csrc/insert.cu``), deletes, marks, map registers and span resolution.
+* :mod:`peritext_tpu_torch.api` — ``DocBatch``, the batched merge.
+* :mod:`peritext_tpu_torch.testing` — seeded workload generators.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from .core import Change, CausalityError, Doc, Operation, PeritextError, span
+from .schema import ALL_MARKS, MARK_SPEC, MarkSchema, is_mark_type
+
+__all__ = [
+    "ALL_MARKS",
+    "Change",
+    "CausalityError",
+    "Doc",
+    "MARK_SPEC",
+    "MarkSchema",
+    "Operation",
+    "PeritextError",
+    "is_mark_type",
+    "span",
+]

@@ -1,0 +1,90 @@
+"""Build the package's CUDA sources into shared libraries, at first use.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
+``peritext_tpu_torch/_build/<name>-<hash>.so``, a library with a plain C
+interface that :func:`load_library` opens with ``ctypes``.  The hash covers
+the source and the flags, so an edited source builds anew and an unchanged
+one is reused.  Nothing is built when a module is imported: the first call
+of a kernel wrapper builds (the tests import every module on machines with
+no CUDA toolkit).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the PATH, else the
+    toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source and flags."""
+    source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
+    """Build every named source that has no current library, one ``nvcc``
+    per source, all started together.  Returns each library's path; the
+    compiler's report (``-Xptxas -v``) lands beside it as ``.log``.
+    Raises with the compiler's output if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in names}
+    jobs = {}
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        jobs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+        )
+    failed = []
+    for name, (proc, tmp) in jobs.items():
+        report, _ = proc.communicate()
+        paths[name].with_suffix(".log").write_text(report)
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{report}")
+            continue
+        os.replace(tmp, paths[name])  # atomic: a concurrent build sees all or nothing
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+    return paths
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = build_libraries([name])[name]
+            lib = _loaded[name] = ctypes.CDLL(str(path))
+        return lib
