@@ -1,23 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card, and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card, and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's error is passed over):
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: every CUDA source of the main path, one nvcc each, all at once;
-3. kernels: each kernel against its plain torch version on the card, bit for
-   bit, at the shapes the main path gives it and at the ``batch_8k`` bench
-   shape (8192 docs x 384 slots x 179 inserts, with and without
-   ``loop_slots``), the forced global-memory variant, and a long-doc shape
-   past the shared-memory budget; with CUDA-event times, the plain
-   version's time, and the least time the card could take (bound);
-4. slice: ``DocBatch(device="cuda").merge`` with cursors on 1024 fuzz docs
-   x 256 ops (BASELINE config 3; slots 512, marks 128, comment ids 64),
-   with the launch counts set to 0 just
-   before and read just after; no doc may fall back, and spans, roots and
-   cursors must equal the scalar oracle on a seeded sample of 64 docs.
+2. build: every CUDA source of the paths, one nvcc each, all at once;
+3. padded slice: ``DocBatch(device="cuda").merge`` with cursors on 1024
+   fuzz docs x 256 ops (BASELINE config 3; slots 512, marks 128, comment
+   ids 64), with the launch counts set to 0 just before and read just
+   after; no doc may fall back, and spans, roots and cursors must equal
+   the scalar oracle on a seeded sample of 64 docs;
+4. pooled slice: the same 1024 docs plus a long tail of 8 docs x 1024 ops
+   merged through each layout (padded, paged, ragged; slots 1024, marks
+   512, comment ids 64, pages of 64 slots), each with the launch counts
+   set to 0 just before and read just after: the ragged merge launches the
+   ragged insert kernel once and the padded one never, the paged merge the
+   padded one once per page-bucket group; no doc may fall back; paged and
+   ragged must equal padded on every doc, and a seeded sample of 64 docs
+   the scalar oracle;
+5. kernels: each kernel against its plain torch version on the card, bit
+   for bit, at the inputs each merge above gives it (for the insert kernel
+   the padded slice's, the pooled padded merge's and each paged group's,
+   gathered pages, padding rows and null-page entries included; for the
+   ragged one the ragged merge's) and at larger shapes: for the insert
+   kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
+   179 inserts, with and without ``loop_slots``), the forced global-memory
+   variant and a long-doc shape past the shared-memory budget; for the
+   ragged insert kernel ``batch_8k_ragged`` (the same streams over a page
+   pool), ``mixed_10k`` (10240 docs of 179, 1024 and 4096 inserts in
+   pages of 64, also with the global-memory variant forced) and
+   ``long_doc_ragged`` (64 docs x 32768 slots x 4096 inserts, whose window
+   takes the global variant unforced); with CUDA-event times, the plain
+   version's time, and the least time the card could take (bound).
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -33,6 +49,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM peaks (NVIDIA data sheet; Hopper white paper for int32): HBM3
@@ -46,6 +64,14 @@ LONG_DOC = dict(docs=64, slots=32768, inserts=4096)
 #: comment ids: at 32, one doc of this seed (35 distinct attrs) falls back
 SLICE = dict(docs=1024, ops=256, slot_capacity=512, mark_capacity=128,
              comment_capacity=64, sample=64, seed=7)
+#: the pooled layouts' merge: config 3 plus a long tail, at capacities the
+#: long docs fit (340-370 inserts, 285-320 mark ops, up to 64 attrs each)
+POOLED = dict(tail_docs=8, tail_ops=1024, tail_seed=8, slot_capacity=1024,
+              mark_capacity=512, comment_capacity=64, page_size=64, sample=64)
+#: BASELINE config 4's scale ("10K-doc batch, mixed ops ... 4K ops/doc") as
+#: a mixed drain: (docs, inserts per doc, synth seed) per size class
+MIXED_10K = dict(slots=4096, groups=((9216, 179, 1), (896, 1024, 2), (128, 4096, 3)))
+LONG_DOC_RAGGED = dict(docs=64, slots=32768, inserts=4096, seed=2)
 
 
 def log(*parts) -> None:
@@ -69,23 +95,15 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def insert_bound(args, loop_slots):
-    """(bound_ms, bound_by, bytes, ops) of one insert call on these inputs.
-
-    Bytes: every input read once and every output written once.  Operations:
-    what this run's data needs from a sequential algorithm, per live step
-    (p + 1) compares to find the reference, (q - p) to find the skip slot,
-    and 2 (n - q + 1) element moves to splice; replayed with the plain
-    version's own step arithmetic."""
+def replay_ops(elem, num_slots, ins_ref, ins_op, s_loop) -> int:
+    """Operations a sequential algorithm needs for these insert steps on a
+    window of ``s_loop`` slots: per live step (p + 1) compares to find the
+    reference, (q - p) to find the skip slot, and 2 (n - q + 1) element
+    moves to splice; replayed with the plain version's own step
+    arithmetic."""
     import torch
 
-    from peritext_tpu_torch.ops.insert import effective_loop_slots
-
-    elem_id, char, num_slots, overflow, ins_ref, ins_op, ins_char = args
-    d, s_cap = elem_id.shape
-    nbytes = 2 * (elem_id.numel() * 4 * 2 + d * 4 + d) + 3 * ins_op.numel() * 4
-    s_loop = effective_loop_slots(s_cap, loop_slots)
-    elem = elem_id[:, :s_loop].clone()
+    elem = elem[:, :s_loop].clone()
     n = num_slots.clone().to(torch.int64)
     pos = torch.arange(s_loop, device=elem.device)[None, :]
     ops = torch.zeros((), dtype=torch.int64, device=elem.device)
@@ -104,10 +122,56 @@ def insert_bound(args, loop_slots):
         new = torch.where(pos < q, elem, torch.where(pos == q, op, shifted))
         elem = torch.where(ok, new, elem)
         n = n + ok[:, 0]
-    nops = int(ops)
+    return int(ops)
+
+
+def bound(nbytes: int, nops: int):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the int32 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / INT32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, nops
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def insert_bound(args, loop_slots):
+    """(bound_ms, bound_by, bytes, ops) of one insert call on these inputs.
+
+    Bytes: every input read once and every output written once.
+    Operations: :func:`replay_ops`."""
+    from peritext_tpu_torch.ops.insert import effective_loop_slots
+
+    elem_id, char, num_slots, overflow, ins_ref, ins_op, ins_char = args
+    d, s_cap = elem_id.shape
+    nbytes = 2 * (elem_id.numel() * 4 * 2 + d * 4 + d) + 3 * ins_op.numel() * 4
+    nops = replay_ops(elem_id, num_slots, ins_ref, ins_op, effective_loop_slots(s_cap, loop_slots))
+    return (*bound(nbytes, nops), nbytes, nops)
+
+
+def ragged_bound(args):
+    """(bound_ms, bound_by, bytes, ops) of one ragged insert call on these
+    inputs (before it runs).
+
+    Bytes: each doc's pages gathered and scattered (both planes), its
+    streams read up to its own count, and per doc n and overflow in and
+    out, its page count, insert count and page-table row.  Operations:
+    :func:`replay_ops` per group of docs with one page count, each doc on
+    its own window (page_count * P slots) for its own steps."""
+    import torch
+
+    (pool_elem, _, _, _, _, page_count, page_table, num_slots, _, ins_counts,
+     ins_ref, ins_op, _) = args
+    p = pool_elem.shape[1]
+    b, gmax = page_table.shape
+    pages = int(page_count.sum())
+    nbytes = (2 * 2 * pages * p * 4 + 3 * int(ins_counts.sum()) * 4
+              + b * (2 * 4 + 2 * 1 + 4 + 4) + b * gmax * 4)
+    nops = 0
+    for g in torch.unique(page_count).tolist():
+        rows = (page_count == g).nonzero()[:, 0]
+        k = int(ins_counts[rows].max())
+        elem = pool_elem[page_table[rows, :g].long()].reshape(len(rows), g * p)
+        nops += replay_ops(elem, num_slots[rows], ins_ref[rows, :k], ins_op[rows, :k], g * p)
+    return (*bound(nbytes, nops), nbytes, nops)
 
 
 def check_insert(name, args, loop_slots=None, smem_budget=None, reps=20, plain_reps=2):
@@ -146,6 +210,53 @@ def check_insert(name, args, loop_slots=None, smem_budget=None, reps=20, plain_r
     return row
 
 
+def check_ragged(name, args, budgets=(None,), reps=5):
+    """Ragged kernel vs plain on the card (exact, every page of both pool
+    planes, n and overflow), once per shared-memory budget (None = the
+    default), then times and bound.  The plain version runs once for the
+    check, timed; the kernel is timed over ``reps`` launches
+    after warm-up (its docs start empty, so every launch does the same
+    work: the steps read only slots below n)."""
+    import torch
+
+    from peritext_tpu_torch.ops.insert import SMEM_BUDGET
+    from peritext_tpu_torch.ops.ragged_insert import ragged_insert, ragged_insert_reference
+
+    bound_ms, bound_by, nbytes, nops = ragged_bound(args)
+    fresh = lambda: [a.clone() if i < 2 else a for i, a in enumerate(args)]  # noqa: E731
+    plain = fresh()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = (plain[0], plain[1], *ragged_insert_reference(*plain))
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)  # one run: seconds long at the big shapes
+    rows = []
+    for budget in budgets:
+        budget = SMEM_BUDGET if budget is None else budget
+        mine = fresh()
+        got = (mine[0], mine[1], *ragged_insert(*mine, smem_budget=budget))
+        torch.cuda.synchronize()
+        for a, b, field in zip(got, want, ("pool_elem", "pool_char", "num_slots", "overflow")):
+            diff = (a.to(torch.int64) - b.to(torch.int64)).abs().max().item() if a.numel() else 0
+            if diff != 0:
+                raise AssertionError(f"ragged kernel != plain at {name}: {field} max |diff| {diff}")
+        ms = cuda_time_ms(lambda: ragged_insert(*mine, smem_budget=budget), reps)
+        b, gmax = args[6].shape
+        row = dict(shape=name if budget == SMEM_BUDGET else f"{name}_global_memory",
+                   docs=b, page_size=args[0].shape[1], gmax=gmax,
+                   pages=int(args[5].sum()), pool_pages=args[0].shape[0],
+                   inserts=int(args[9].sum()), max_count=int(args[9].max()),
+                   shared=2 * gmax * args[0].shape[1] * 4 <= budget,
+                   max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes, int_ops=nops,
+                   overflow_docs=int(got[3].sum().item()))
+        log("ragged_insert", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 def synth_args(device, docs, slots, inserts, seed):
     import torch
 
@@ -158,11 +269,48 @@ def synth_args(device, docs, slots, inserts, seed):
             *(torch.as_tensor(a).to(device) for a in streams)]
 
 
+def ragged_args(device, slots, streams):
+    """Ragged insert inputs for empty docs: a page store sized to the docs'
+    true page need (as the ragged merge sizes it), every row allocated, the
+    plan, and the streams (numpy (B, K) int32, left-packed)."""
+    import torch
+
+    from peritext_tpu_torch.ops.ragged import plan_arrays
+    from peritext_tpu_torch.store import DEFAULT_PAGE_SIZE, PagedDocStore, ragged_plan
+
+    refs, ops, chars = streams
+    counts = np.count_nonzero(ops, axis=1).astype(np.int32)
+    b = len(counts)
+    need = -(-np.maximum(counts, 1) // DEFAULT_PAGE_SIZE)
+    store = PagedDocStore(b, slots, 8, tomb_capacity=8, initial_pages=1 + int(need.sum()),
+                          device=device)
+    store.ensure_rows(np.arange(b), counts)
+    planes = plan_arrays(ragged_plan(store), device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return [store.pool_elem, store.pool_char, *planes[1:],
+            torch.zeros(b, dtype=torch.int32, device=device),
+            torch.zeros(b, dtype=torch.bool, device=device),
+            t(counts), t(refs), t(ops), t(chars)]
+
+
+def mixed_streams():
+    """MIXED_10K's streams: each size class from synth_streams, zero-padded
+    to the longest class, rows in a seeded shuffle (a drain mixes sizes)."""
+    from peritext_tpu_torch.testing.synth import synth_streams
+
+    width = max(k for _, k, _ in MIXED_10K["groups"])
+    planes = [[], [], []]
+    for docs, k, seed in MIXED_10K["groups"]:
+        for plane, a in zip(planes, synth_streams(docs, inserts_per_doc=k, seed=seed)[:3]):
+            plane.append(np.pad(a, ((0, 0), (0, width - k))))
+    order = np.random.default_rng(4).permutation(sum(d for d, _, _ in MIXED_10K["groups"]))
+    return [np.concatenate(p)[order] for p in planes]
+
+
 def run_slice(device):
-    """The main path: one padded merge of BASELINE config 3 on the card."""
-    from peritext_tpu_torch.api.batch import DocBatch, _oracle_doc
+    """The padded path: one padded merge of BASELINE config 3 on the card."""
+    from peritext_tpu_torch.api.batch import DocBatch
     from peritext_tpu_torch.ops.insert import insert_batch
-    from peritext_tpu_torch.ops.resolve import oracle_cursor_positions
     from peritext_tpu_torch.testing.fuzz import generate_workload, sample_cursors
 
     cfg = SLICE
@@ -186,20 +334,79 @@ def run_slice(device):
         raise AssertionError("slice: the insert kernel was not launched")
 
     sample = sorted(random.Random(cfg["seed"]).sample(range(cfg["docs"]), cfg["sample"]))
+    check_oracle("slice", workloads, cursors, report, sample)
+    return batch, workloads, cursors, launches
+
+
+def check_oracle(phase, workloads, cursors, report, sample) -> None:
+    from peritext_tpu_torch.api.batch import _oracle_doc
+    from peritext_tpu_torch.ops.resolve import oracle_cursor_positions
+
     for d in sample:
         doc = _oracle_doc(workloads[d])
         if report.spans[d] != doc.get_text_with_formatting(["text"]):
-            raise AssertionError(f"slice: doc {d} spans differ from the oracle")
+            raise AssertionError(f"{phase}: doc {d} spans differ from the oracle")
         if report.roots[d] != doc.root:
-            raise AssertionError(f"slice: doc {d} root differs from the oracle")
+            raise AssertionError(f"{phase}: doc {d} root differs from the oracle")
         if report.cursor_positions[d] != oracle_cursor_positions(doc, cursors[d]):
-            raise AssertionError(f"slice: doc {d} cursors differ from the oracle")
-    log(f"slice: {len(sample)} sampled docs equal the oracle (spans, roots, cursors)")
-    return batch, workloads, launches
+            raise AssertionError(f"{phase}: doc {d} cursors differ from the oracle")
+    log(f"{phase}: {len(sample)} sampled docs equal the oracle (spans, roots, cursors)")
+
+
+def run_pooled(device, workloads, cursors):
+    """The pooled slice: the same workloads, plus a long tail, through all
+    three layouts; returns the ragged DocBatch, the workloads and each
+    layout's launch counts."""
+    from peritext_tpu_torch.api.batch import DocBatch
+    from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.ops.ragged_insert import ragged_insert
+    from peritext_tpu_torch.testing.fuzz import generate_workload, sample_cursors
+
+    cfg = POOLED
+    t0 = time.perf_counter()
+    tail = generate_workload(cfg["tail_seed"], cfg["tail_docs"], cfg["tail_ops"])
+    workloads = workloads + tail
+    cursors = cursors + sample_cursors(tail, 4, cfg["tail_seed"])
+    log(f"pooled: generated {cfg['tail_docs']} docs x {cfg['tail_ops']} ops in "
+        f"{time.perf_counter() - t0:.1f} s; {len(workloads)} docs in all")
+    reports, launches, batches = {}, {}, {}
+    for layout in ("padded", "paged", "ragged"):
+        batch = batches[layout] = DocBatch(
+            slot_capacity=cfg["slot_capacity"], mark_capacity=cfg["mark_capacity"],
+            comment_capacity=cfg["comment_capacity"], page_size=cfg["page_size"],
+            layout=layout, device=device)
+        batch.merge(workloads[:8], cursors[:8])  # warm-up
+        insert_batch.launches = 0
+        ragged_insert.launches = 0
+        report = reports[layout] = batch.merge(workloads, cursors)
+        launches[layout] = {"rga_insert": insert_batch.launches,
+                            "ragged_insert": ragged_insert.launches}
+        log(f"pooled {layout} stats", json.dumps(report.stats.to_json()))
+        log(f"pooled {layout} launches", json.dumps(launches[layout]))
+        if report.fallback_docs:
+            raise AssertionError(f"pooled {layout}: docs fell back: {report.fallback_docs[:20]}")
+
+    groups = len(batches["paged"]._encode_paged(workloads))
+    expected = {"padded": {"rga_insert": 1, "ragged_insert": 0},
+                "paged": {"rga_insert": groups, "ragged_insert": 0},
+                "ragged": {"rga_insert": 0, "ragged_insert": 1}}
+    if launches != expected:
+        raise AssertionError(f"pooled: launches {launches}, expected {expected}")
+    padded = reports["padded"]
+    for layout in ("paged", "ragged"):
+        r = reports[layout]
+        for field in ("spans", "roots", "cursor_positions", "fallback_docs", "device_ops"):
+            if getattr(r, field) != getattr(padded, field):
+                raise AssertionError(f"pooled {layout}: {field} differ from the padded layout")
+    log(f"pooled: paged ({groups} groups) and ragged equal padded on all {len(workloads)} docs")
+    head = len(workloads) - cfg["tail_docs"]
+    sample = sorted(random.Random(cfg["tail_seed"]).sample(range(head), cfg["sample"] - cfg["tail_docs"]))
+    check_oracle("pooled", workloads, cursors, reports["ragged"], sample + list(range(head, len(workloads))))
+    return batches, workloads, launches
 
 
 def main_path_insert_args(batch, workloads):
-    """The insert kernel's inputs exactly as the slice's merge gives them."""
+    """The insert kernel's inputs exactly as the padded slice's merge gives them."""
     from peritext_tpu_torch.ops.kernel import encoded_arrays_of
     from peritext_tpu_torch.ops.packed import empty_docs
 
@@ -209,6 +416,51 @@ def main_path_insert_args(batch, workloads):
                        tomb_capacity=arrays[3].shape[1], map_capacity=batch.map_capacity,
                        device=batch.device)
     return [state.elem_id, state.char, state.num_slots, state.overflow, *arrays[:3]]
+
+
+def main_path_paged_args(batch, workloads):
+    """The insert kernel's inputs exactly as the paged merge gives them,
+    one list per page-bucket group (api/batch.py ``_run_paged`` ->
+    store/paged.apply_rows -> ops/kernel.apply_batch_paged): the group's
+    pages and aux rows gathered to (B, G*P), with padding rows and
+    null-page table entries, and the group's streams padded to B rows."""
+    from peritext_tpu_torch.ops.ragged import stream_counts
+    from peritext_tpu_torch.store.paged import PagedDocStore, group_stream_arrays
+    from peritext_tpu_torch.utils.shapes import next_pow2
+
+    encs = batch._encode_paged(workloads)
+    store = PagedDocStore(
+        len(workloads), slot_capacity=batch.slot_capacity, mark_capacity=batch.mark_capacity,
+        tomb_capacity=max(enc.del_target.shape[1] for _, _, enc in encs),
+        map_capacity=batch.map_capacity, page_size=batch.page_size, device=batch.device)
+    groups = []
+    for g, docs, enc in encs:
+        store.ensure_rows(docs, stream_counts(enc)[0])
+        b = next_pow2(len(docs))
+        state = store.materialize_rows(docs, g, pad_rows_to=b)  # the gather apply_rows makes
+        streams = group_stream_arrays(enc, None, b, batch.device)
+        groups.append((f"paged_g{g}_b{b}", [state.elem_id, state.char, state.num_slots,
+                                           state.overflow, *streams[:3]]))
+        store.apply_rows(docs, g, streams, pad_rows_to=b)  # the next group sees this one's pool
+    return groups
+
+
+def main_path_ragged_args(batch, workloads):
+    """The ragged insert kernel's inputs exactly as the ragged merge gives
+    them (api/batch.py ``_run_ragged`` -> ops/ragged.apply_batch_ragged)."""
+    import torch
+
+    from peritext_tpu_torch.ops.ragged import plan_arrays, stream_counts
+    from peritext_tpu_torch.store.paged import group_stream_arrays
+
+    enc = batch._encode_ragged(workloads)
+    store, plan = batch._ragged_store(enc)
+    row_idx, *planes = plan_arrays(plan, batch.device)
+    streams = group_stream_arrays(enc, None, enc.num_docs, batch.device)
+    rows = row_idx.long()
+    return [store.pool_elem, store.pool_char, *planes,
+            store.aux_field("num_slots")[rows], store.aux_field("overflow")[rows],
+            torch.from_numpy(stream_counts(enc)[0]).to(batch.device), *streams[:3]]
 
 
 def main() -> int:
@@ -222,6 +474,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    t_start = time.perf_counter()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -234,7 +487,7 @@ def main() -> int:
     from peritext_tpu_torch.utils.nvcc import build_libraries
 
     t0 = time.perf_counter()
-    libs = build_libraries(["insert"])
+    libs = build_libraries(["insert", "ragged_insert"])
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for path in libs.values():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -242,9 +495,14 @@ def main() -> int:
                 log("  ptxas:", line.strip())
 
     torch.manual_seed(0)
-    batch, workloads, launches = run_slice(device)
+    batch, workloads, cursors, launches = run_slice(device)
+    pooled, pooled_workloads, pooled_launches = run_pooled(device, workloads, cursors)
+    log(f"merges done at {time.perf_counter() - t_start:.1f} s")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
+    rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
+    for name, args in main_path_paged_args(pooled["paged"], pooled_workloads):
+        rows.append(check_insert(name, args))
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
     rows.append(check_insert("batch_8k_loop_slots", args, loop_slots=BATCH_8K["inserts"]))
@@ -252,21 +510,46 @@ def main() -> int:
     del args
     rows.append(check_insert("long_doc", synth_args(device, **LONG_DOC, seed=2),
                              reps=2, plain_reps=1))
+    log(f"insert kernel shapes done at {time.perf_counter() - t_start:.1f} s")
 
-    main = rows[0]
-    kernels = [{
-        "name": "rga_insert",
-        "route": "cuda",
-        "source": "peritext_tpu_torch/csrc/insert.cu",
-        "replaces": "peritext_tpu/ops/pallas_insert.py:94",
-        "launches": launches["rga_insert"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
-    }]
+    from peritext_tpu_torch.testing.synth import synth_streams
+
+    ragged_rows = check_ragged("main_path", main_path_ragged_args(pooled["ragged"], pooled_workloads))
+    ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
+        device, BATCH_8K["slots"],
+        synth_streams(BATCH_8K["docs"], inserts_per_doc=BATCH_8K["inserts"], seed=1)[:3]))
+    ragged_rows += check_ragged("mixed_10k", ragged_args(device, MIXED_10K["slots"], mixed_streams()),
+                                budgets=(None, 0))
+    cfg = LONG_DOC_RAGGED
+    ragged_rows += check_ragged("long_doc_ragged", ragged_args(
+        device, cfg["slots"],
+        synth_streams(cfg["docs"], inserts_per_doc=cfg["inserts"], seed=cfg["seed"])[:3]))
+    log(f"ragged kernel shapes done at {time.perf_counter() - t_start:.1f} s")
+
+    def record(name, source, replaces, launched, kernel_rows):
+        main = kernel_rows[0]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+        }
+
+    kernels = [
+        record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
+               "peritext_tpu/ops/pallas_insert.py:94", launches["rga_insert"], rows),
+        record("ragged_insert", "peritext_tpu_torch/csrc/ragged_insert.cu",
+               "peritext_tpu/ops/ragged_pallas.py:65",
+               pooled_launches["ragged"]["ragged_insert"], ragged_rows),
+    ]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,9 +7,13 @@ imports neither JAX nor that package.
 * :mod:`peritext_tpu_torch.core` — the scalar document oracle (the
   specification layer): changes, clocks, mark spans, cursors.
 * :mod:`peritext_tpu_torch.ops` — packed document state, host encode and
-  decode, and the batched phases: the RGA insert kernel
-  (``csrc/insert.cu``), deletes, marks, map registers and span resolution.
-* :mod:`peritext_tpu_torch.api` — ``DocBatch``, the batched merge.
+  decode, and the batched phases: the RGA insert kernels (``csrc/insert.cu``
+  on the padded layout, ``csrc/ragged_insert.cu`` over the page pool),
+  deletes, marks, map registers and span resolution.
+* :mod:`peritext_tpu_torch.store` — the page pool, page tables and the
+  ragged plan of the paged and ragged layouts.
+* :mod:`peritext_tpu_torch.api` — ``DocBatch``, the batched merge, in the
+  padded, paged and ragged layouts.
 * :mod:`peritext_tpu_torch.testing` — seeded workload generators.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -2,8 +2,9 @@
 
 from .encode import EncodedBatch, encode_workloads
 from .insert import insert_batch, insert_batch_reference
-from .kernel import apply_batch, encoded_arrays_of
+from .kernel import apply_batch, apply_batch_paged, encoded_arrays_of
 from .packed import ACTOR_BITS, PackedDocs, empty_docs, pack_id, packed_from_numpy, to_numpy, unpack_id
+from .ragged import apply_batch_ragged
 from .resolve import ResolvedDocs, resolve, resolve_cursors
 
 __all__ = [
@@ -12,6 +13,8 @@ __all__ = [
     "PackedDocs",
     "ResolvedDocs",
     "apply_batch",
+    "apply_batch_paged",
+    "apply_batch_ragged",
     "empty_docs",
     "encode_workloads",
     "encoded_arrays_of",

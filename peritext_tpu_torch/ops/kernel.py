@@ -1,4 +1,5 @@
-"""Batched CRDT op application on the padded ``(D, S)`` layout.
+"""Batched CRDT op application on the padded ``(D, S)`` layout, and its
+paged twin (:func:`apply_batch_paged`) over a page pool.
 
 Phases, each over the whole doc axis at once (the reference package vmaps a
 per-doc function; here the doc axis is a batch dimension written out):
@@ -55,15 +56,21 @@ def _append_rows(tables: Dict[str, torch.Tensor], count, rows: Dict[str, torch.T
     return out, new_count, overflow
 
 
-def _post_insert(state: PackedDocs, del_target, marks, mark_count) -> PackedDocs:
-    """Phases 2+3 (deletes, marks) for every doc, after the insert phase."""
-    elem = state.elem_id
+def _post_insert(state: PackedDocs, del_target, marks, mark_count,
+                 exists=None) -> PackedDocs:
+    """Phases 2+3 (deletes, marks) for every doc, after the insert phase.
+
+    ``exists`` optionally carries the precomputed (D, KD) target-exists
+    mask, for callers whose element planes do not live in ``state`` (the
+    ragged pool walk, ops/ragged.py); with it given, ``state.elem_id`` is
+    never read."""
     live = del_target != 0  # (D, KD)
-    exists = (elem[:, :, None] == del_target[:, None, :]).any(dim=1)
+    if exists is None:
+        exists = (state.elem_id[:, :, None] == del_target[:, None, :]).any(dim=1)
     # Idempotence: skip targets already tombstoned in the carried-over table
     # AND duplicates within this stream (concurrent deletes of one char).
     kd = del_target.shape[1]
-    order_idx = torch.arange(kd, device=elem.device)
+    order_idx = torch.arange(kd, device=del_target.device)
     dup_earlier = (
         (del_target[:, None, :] == del_target[:, :, None])
         & (order_idx[:, None] < order_idx[None, :])[None]
@@ -157,6 +164,65 @@ def apply_batch(state: PackedDocs, encoded_arrays, *,
     if maps is not None:
         state = _apply_maps(state, maps, map_count)
     return state
+
+
+# -- paged storage (store/): gather-based apply through a page table --------
+#
+# The paged layout (store/paged.py) keeps the element planes in a global
+# (N_pages, P) pool with per-doc page tables.  The apply gathers only the
+# dispatched docs' pages into a dense (B, G*P) group, runs apply_batch on it
+# (the same math, so the result equals the padded layout's), and scatters
+# the pages and aux rows back.  Page 0 is the reserved null page: padding
+# entries of a page table gather zeros from it, their scatters all land on
+# it, and it is re-zeroed after every scatter.
+
+#: PackedDocs fields that stay dense per-doc rows under the paged layout
+PAGED_AUX_FIELDS = tuple(f for f in PackedDocs._fields if f not in ("elem_id", "char"))
+
+
+def paged_state_of(pool_elem, pool_char, aux, row_idx, page_rows) -> PackedDocs:
+    """Dense (B, G*P) PackedDocs view of ``row_idx``'s docs, gathered from
+    the page pool through ``page_rows`` (B, G) and the dense aux rows.
+    Padding rows (``row_idx`` >= the doc count) read the last doc's aux row,
+    as the reference's clamping gather does; their streams must be no-ops
+    and their results are never written back."""
+    b, g = page_rows.shape
+    p = pool_elem.shape[1]
+    pages = page_rows.reshape(-1).long()
+    rows = row_idx.long().clamp(0, aux[0].shape[0] - 1)
+    return PackedDocs(
+        elem_id=pool_elem[pages].reshape(b, g * p),
+        char=pool_char[pages].reshape(b, g * p),
+        **{f: a[rows] for f, a in zip(PAGED_AUX_FIELDS, aux)},
+    )
+
+
+def apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arrays) -> None:
+    """Gather-through-page-table apply, the paged twin of :func:`apply_batch`.
+
+    ``row_idx`` (B,) names the group's doc rows (padding rows >= the doc
+    count), ``page_rows`` (B, G) their pages (padding entries 0, the null
+    page), and ``encoded_arrays`` the streams with (B, ...) doc axes.
+    Updates the pool tensors and the ``aux`` tensors (PAGED_AUX_FIELDS
+    order) in place: the store owns them, and a copy of the whole pool per
+    group would cost its size in memory traffic."""
+    state = apply_batch(paged_state_of(pool_elem, pool_char, aux, row_idx, page_rows),
+                        encoded_arrays)
+    b, g = page_rows.shape
+    p = pool_elem.shape[1]
+    pages = page_rows.reshape(-1).long()
+    pool_elem[pages] = state.elem_id.reshape(b * g, p)
+    pool_char[pages] = state.char.reshape(b * g, p)
+    # padding entries all scattered onto the null page (in no set order,
+    # since torch leaves duplicate-index writes unordered); restore it last
+    pool_elem[0] = 0
+    pool_char[0] = 0
+    # padding rows are dropped, not clamped: a clamped write would put a
+    # stale copy of the last doc's aux row over its new one
+    real = row_idx < aux[0].shape[0]
+    rows = row_idx[real].long()
+    for f, a in zip(PAGED_AUX_FIELDS, aux):
+        a[rows] = getattr(state, f)[real]
 
 
 def encoded_arrays_of(encoded: EncodedBatch, device: Union[str, torch.device]):

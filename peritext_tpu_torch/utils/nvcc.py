@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``peritext_tpu_torch/_build/<name>-<hash>.so``, a library with a plain C
 interface that :func:`load_library` opens with ``ctypes``.  The hash covers
-the source and the flags, so an edited source builds anew and an unchanged
-one is reused.  Nothing is built when a module is imported: the first call
-of a kernel wrapper builds (the tests import every module on machines with
-no CUDA toolkit).
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one is reused.  Nothing is
+built when a module is imported: the first call of a kernel wrapper builds
+(the tests import every module on machines with no CUDA toolkit).
 """
 
 from __future__ import annotations
@@ -44,10 +44,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its source and flags."""
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, every
+    header in ``csrc/`` (an edited shared header must not load a stale
+    library) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_libraries(names: Sequence[str]) -> Dict[str, Path]:

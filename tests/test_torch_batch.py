@@ -125,8 +125,6 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(layout="paged"), "Paged layout"),
-    (dict(layout="ragged"), "Ragged layout"),
     (dict(mesh=object()), "Multi-GPU mesh"),
     (dict(guard=True), "Durability"),
 ])
@@ -138,7 +136,7 @@ def test_unported_options_raise(kwargs, item):
 def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, peritext_tpu_torch, peritext_tpu_torch.api, peritext_tpu_torch.ops, "
-        "peritext_tpu_torch.testing\n"
+        "peritext_tpu_torch.store, peritext_tpu_torch.testing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"
