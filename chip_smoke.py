@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    merged through each layout (padded, paged, ragged; slots 1024, marks
    512, comment ids 64, pages of 64 slots), each with the launch counts
    set to 0 just before and read just after: the ragged merge launches the
-   ragged insert kernel once and the padded one never, the paged merge the
-   padded one once per page-bucket group; no doc may fall back; paged and
+   ragged insert kernel once per non-empty doc class of its plan (warp
+   team, block team) and the padded one never, the paged merge the padded
+   one once per page-bucket group; no doc may fall back; paged and
    ragged must equal padded on every doc, and a seeded sample of 64 docs
    the scalar oracle;
 5. kernels: each kernel against its plain torch version on the card, bit
@@ -32,8 +33,12 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    pool), ``mixed_10k`` (10240 docs of 179, 1024 and 4096 inserts in
    pages of 64, also with the global-memory variant forced) and
    ``long_doc_ragged`` (64 docs x 32768 slots x 4096 inserts, whose window
-   takes the global variant unforced); with CUDA-event times, the plain
-   version's time, and the least time the card could take (bound).
+   takes the global variant unforced); with the kernel's device time
+   (CUDA events with the host kept ahead: ``device_time_ms``), its time
+   per back-to-back call from an idle card, host work included
+   (``call_ms``), the plain version's time per call, the least time the
+   card could take (bound), and each call's launches with their teams
+   (threads per doc, docs per block).
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -79,7 +84,9 @@ def log(*parts) -> None:
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+    """Mean time per call of ``fn()`` over ``reps`` back-to-back calls from
+    an idle card, by CUDA events: device time, or the host's own time per
+    call where that is longer."""
     import torch
 
     for _ in range(warmup):
@@ -93,6 +100,37 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``reps`` back-to-back calls, with
+    the host kept ahead of the card: a spin kernel holds the stream while
+    the host enqueues the calls, so the events bracket the card's work and
+    not the wrappers' host time.  The spin must outlast the enqueue, else it
+    is retried longer; a call that waits for the card (a device-to-host
+    read) can never get ahead, and fails."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin = 2e6  # cycles
+    for _ in range(6):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(int(spin))
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        spin_ms = marks[0].elapsed_time(marks[1])
+        if spin_ms > host_ms:
+            return marks[1].elapsed_time(marks[2]) / reps
+        spin *= 2 * host_ms / max(spin_ms, 1e-3)
+    raise AssertionError(f"the host never got ahead of the card ({host_ms:.3f} ms to enqueue)")
 
 
 def replay_ops(elem, num_slots, ins_ref, ins_op, s_loop) -> int:
@@ -174,6 +212,18 @@ def ragged_bound(args):
     return (*bound(nbytes, nops), nbytes, nops)
 
 
+def team_columns(teams, launched):
+    """A kernel row's team columns: per launch of the call, the team's
+    threads per doc, docs per block, docs and window (slots); and the
+    launches the call made, which must be one per planned class."""
+    if launched != len(teams):
+        raise AssertionError(f"{launched} launches for a plan of {len(teams)} classes")
+    return dict(team=[t.threads_per_doc for t in teams],
+                docs_per_block=[t.docs_per_block for t in teams],
+                class_docs=[t.num_docs for t in teams],
+                class_window=[t.window for t in teams], launches=launched)
+
+
 def check_insert(name, args, loop_slots=None, smem_budget=None, reps=20, plain_reps=2):
     """Kernel vs plain on the card (exact), then times and bound."""
     import torch
@@ -183,11 +233,15 @@ def check_insert(name, args, loop_slots=None, smem_budget=None, reps=20, plain_r
         effective_loop_slots,
         insert_batch,
         insert_batch_reference,
+        insert_teams,
+        num_sms,
     )
 
     budget = SMEM_BUDGET if smem_budget is None else smem_budget
     s_loop = effective_loop_slots(args[0].shape[1], loop_slots)
+    before = insert_batch.launches
     got = insert_batch(*args, loop_slots=loop_slots, smem_budget=budget)
+    launched = insert_batch.launches - before
     want = insert_batch_reference(*args, loop_slots=loop_slots)
     torch.cuda.synchronize()
     err = 0
@@ -196,14 +250,17 @@ def check_insert(name, args, loop_slots=None, smem_budget=None, reps=20, plain_r
         if diff != 0:
             raise AssertionError(f"insert kernel != plain at {name}: {field} max |diff| {diff}")
         err = max(err, diff)
-    ms = cuda_time_ms(lambda: insert_batch(*args, loop_slots=loop_slots, smem_budget=budget), reps)
+    call = lambda: insert_batch(*args, loop_slots=loop_slots, smem_budget=budget)  # noqa: E731
+    ms = device_time_ms(call, reps)
+    call_ms = cuda_time_ms(call, reps)
     plain_ms = cuda_time_ms(lambda: insert_batch_reference(*args, loop_slots=loop_slots),
                             plain_reps, warmup=1)
     bound_ms, bound_by, nbytes, nops = insert_bound(args, loop_slots)
+    teams = insert_teams(args[0].shape[0], s_loop, budget, num_sms(args[0].device))
     row = dict(shape=name, docs=args[0].shape[0], slots=args[0].shape[1],
                inserts=args[4].shape[1], loop_slots=loop_slots,
-               s_loop=s_loop, shared=2 * s_loop * 4 <= budget,
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               s_loop=s_loop, shared=2 * s_loop * 4 <= budget, **team_columns(teams, launched),
+               max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, bytes=nbytes, int_ops=nops,
                overflow_docs=int(got[3].sum().item()))
     log("insert", json.dumps(row))
@@ -219,10 +276,15 @@ def check_ragged(name, args, budgets=(None,), reps=5):
     work: the steps read only slots below n)."""
     import torch
 
-    from peritext_tpu_torch.ops.insert import SMEM_BUDGET
-    from peritext_tpu_torch.ops.ragged_insert import ragged_insert, ragged_insert_reference
+    from peritext_tpu_torch.ops.insert import SMEM_BUDGET, num_sms
+    from peritext_tpu_torch.ops.ragged_insert import (
+        ragged_insert,
+        ragged_insert_reference,
+        ragged_teams,
+    )
 
     bound_ms, bound_by, nbytes, nops = ragged_bound(args)
+    pages = args[5].cpu().numpy()  # the plan's host page counts, as the merge passes them
     fresh = lambda: [a.clone() if i < 2 else a for i, a in enumerate(args)]  # noqa: E731
     plain = fresh()
     start = torch.cuda.Event(enable_timing=True)
@@ -236,20 +298,26 @@ def check_ragged(name, args, budgets=(None,), reps=5):
     for budget in budgets:
         budget = SMEM_BUDGET if budget is None else budget
         mine = fresh()
-        got = (mine[0], mine[1], *ragged_insert(*mine, smem_budget=budget))
+        before = ragged_insert.launches
+        got = (mine[0], mine[1], *ragged_insert(*mine, smem_budget=budget, page_count_host=pages))
+        launched = ragged_insert.launches - before
         torch.cuda.synchronize()
         for a, b, field in zip(got, want, ("pool_elem", "pool_char", "num_slots", "overflow")):
             diff = (a.to(torch.int64) - b.to(torch.int64)).abs().max().item() if a.numel() else 0
             if diff != 0:
                 raise AssertionError(f"ragged kernel != plain at {name}: {field} max |diff| {diff}")
-        ms = cuda_time_ms(lambda: ragged_insert(*mine, smem_budget=budget), reps)
+        call = lambda: ragged_insert(*mine, smem_budget=budget, page_count_host=pages)  # noqa: E731
+        ms = device_time_ms(call, reps)
+        call_ms = cuda_time_ms(call, reps)
         b, gmax = args[6].shape
+        p = args[0].shape[1]
+        teams = ragged_teams(pages, p, gmax, budget, num_sms(args[0].device))
         row = dict(shape=name if budget == SMEM_BUDGET else f"{name}_global_memory",
-                   docs=b, page_size=args[0].shape[1], gmax=gmax,
-                   pages=int(args[5].sum()), pool_pages=args[0].shape[0],
+                   docs=b, page_size=p, gmax=gmax,
+                   pages=int(pages.sum()), pool_pages=args[0].shape[0],
                    inserts=int(args[9].sum()), max_count=int(args[9].max()),
-                   shared=2 * gmax * args[0].shape[1] * 4 <= budget,
-                   max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   shared=[t.shared for t in teams], **team_columns(teams, launched),
+                   max_abs_err=0, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes, int_ops=nops,
                    overflow_docs=int(got[3].sum().item()))
         log("ragged_insert", json.dumps(row))
@@ -358,8 +426,9 @@ def run_pooled(device, workloads, cursors):
     three layouts; returns the ragged DocBatch, the workloads and each
     layout's launch counts."""
     from peritext_tpu_torch.api.batch import DocBatch
-    from peritext_tpu_torch.ops.insert import insert_batch
-    from peritext_tpu_torch.ops.ragged_insert import ragged_insert
+    from peritext_tpu_torch.ops.insert import SMEM_BUDGET, insert_batch, num_sms
+    from peritext_tpu_torch.ops.ragged_insert import ragged_insert, ragged_teams
+    from peritext_tpu_torch.store import ragged_plan
     from peritext_tpu_torch.testing.fuzz import generate_workload, sample_cursors
 
     cfg = POOLED
@@ -387,9 +456,14 @@ def run_pooled(device, workloads, cursors):
             raise AssertionError(f"pooled {layout}: docs fell back: {report.fallback_docs[:20]}")
 
     groups = len(batches["paged"]._encode_paged(workloads))
+    plan = ragged_plan(batches["ragged"].last_store)
+    classes = ragged_teams(plan.page_count, cfg["page_size"], plan.page_table.shape[1],
+                           SMEM_BUDGET, num_sms(device))
+    log("pooled ragged classes", json.dumps(
+        [dict(team=t.team, docs=t.num_docs, window=t.window) for t in classes]))
     expected = {"padded": {"rga_insert": 1, "ragged_insert": 0},
                 "paged": {"rga_insert": groups, "ragged_insert": 0},
-                "ragged": {"rga_insert": 0, "ragged_insert": 1}}
+                "ragged": {"rga_insert": 0, "ragged_insert": len(classes)}}
     if launches != expected:
         raise AssertionError(f"pooled: launches {launches}, expected {expected}")
     padded = reports["padded"]

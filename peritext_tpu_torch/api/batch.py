@@ -298,6 +298,7 @@ class DocBatch:
                 store.pool_elem, store.pool_char, store.aux, *plan_arrays(plan, self.device),
                 group_stream_arrays(enc, None, enc.num_docs, self.device),
                 torch.from_numpy(stream_counts(enc)[0]).to(self.device),
+                page_count_host=plan.page_count,
             )
         with stage_timer(stats, "resolve_seconds", self.device):
             # one dense block at the batch's true widest page count

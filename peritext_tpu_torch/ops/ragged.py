@@ -8,7 +8,8 @@ is one insert launch with no padded rows and no padded steps.
 
 Phases:
 
-1. **Inserts**: ops/ragged_insert.py, the CUDA kernel on the card and the
+1. **Inserts**: ops/ragged_insert.py, the CUDA kernel on the card (one
+   launch per doc class, sized from the plan's host page counts) and the
    plain pool walk on the CPU (the tensor's device picks).
 2. **Delete target-exists scan** against pool pages (:func:`_ragged_exists`):
    a compare of every page with its doc's targets and a segment max over
@@ -64,7 +65,8 @@ def _ragged_exists(pool_elem, owner, del_target) -> torch.Tensor:
 
 
 def apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev_page,
-                       page_count, page_table, encoded_arrays, ins_counts) -> None:
+                       page_count, page_table, encoded_arrays, ins_counts, *,
+                       page_count_host: Optional[np.ndarray] = None) -> None:
     """Apply one round's streams directly against the pool's pages.
 
     ``aux`` is the tuple of dense (D, ...) tensors in PAGED_AUX_FIELDS
@@ -72,7 +74,9 @@ def apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev
     ``owner`` / ``pos_base`` / ``prev_page`` / ``page_count`` /
     ``page_table`` the plan planes (:func:`plan_arrays`);
     ``encoded_arrays`` the ``apply_batch`` stream tuple with (B, ...) doc
-    axes; ``ins_counts`` (B,) int32 the true per-doc insert counts.
+    axes; ``ins_counts`` (B,) int32 the true per-doc insert counts;
+    ``page_count_host`` the plan's host page counts, which size the insert
+    kernel's launches without a read from the card.
     Updates the pool and aux tensors in place."""
     if len(encoded_arrays) == 6:
         ins_ref, ins_op, ins_char, del_target, marks, mark_count = encoded_arrays
@@ -84,7 +88,7 @@ def apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev
     n1, ov1 = ragged_insert(
         pool_elem, pool_char, owner, pos_base, prev_page, page_count, page_table,
         aux[_NUM_SLOTS][rows], aux[_OVERFLOW][rows], ins_counts,
-        ins_ref, ins_op, ins_char,
+        ins_ref, ins_op, ins_char, page_count_host=page_count_host,
     )
     exists = _ragged_exists(pool_elem, owner, del_target)
     dummy = del_target.new_zeros((rows.shape[0], 1))

@@ -5,16 +5,18 @@ kernel and its plain torch version.
 ``_ragged_insert_kernel`` (ops/ragged_pallas.py).  Per batch doc it applies
 the doc's true insert count, with the padded insert phase's step
 (ops/insert.py), to the doc's true pages of the ``(N, P)`` pool, in place.
-On a CUDA tensor it launches ``csrc/ragged_insert.cu``: one thread block
-per doc gathers the doc's pages into a contiguous window (shared memory, or
-a device-memory scratch window when the widest doc's window exceeds the
-budget), runs the steps, and scatters the pages back.  On a CPU tensor it
-runs :func:`ragged_insert_reference`, the reference's lax pool walk
-(``ops/ragged._ragged_insert_lax``) in torch: every step works on the whole
-pool at once, per-doc reductions become segment minima over the ``owner``
-plane, and the splice's shift takes lane 0 of each page from the last lane
-of the doc's previous page (``prev_page``).  It never falls back from the
-card to the CPU.
+On a CUDA tensor it launches ``csrc/ragged_insert.cu`` once per doc class
+(:func:`ragged_teams`): docs whose window (``page_count * P``) is short run
+a warp each, long ones a thread block each, each class sized by its own
+widest window.  A doc's team gathers its pages into a contiguous window
+(shared memory, or a device-memory scratch window when the class's widest
+window exceeds the budget), runs the steps, and scatters the pages back.
+On a CPU tensor it runs :func:`ragged_insert_reference`, the reference's
+lax pool walk (``ops/ragged._ragged_insert_lax``) in torch: every step
+works on the whole pool at once, per-doc reductions become segment minima
+over the ``owner`` plane, and the splice's shift takes lane 0 of each page
+from the last lane of the doc's previous page (``prev_page``).  It never
+falls back from the card to the CPU.
 
 Both take the same plan planes (store/ragged.py) and streams, update the
 pool tensors in place, and return ``(num_slots, overflow)``.  Each doc's
@@ -24,12 +26,13 @@ capacity is its allocation, ``page_count * P``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.nvcc import load_library
-from .insert import SMEM_BUDGET, kernel_threads
+from .insert import SMEM_BUDGET, TeamLaunch, num_sms, plan_teams, require_host
 
 #: "no position" for the segment minima: far above any slot position, far
 #: below int32 max (as the reference's _INF)
@@ -125,9 +128,31 @@ def ragged_insert_reference(pool_elem, pool_char, owner, pos_base, prev_page,
     return n[:-1], ov[:-1]
 
 
+def ragged_windows(page_count_host: np.ndarray, page_size: int, gmax: int) -> np.ndarray:
+    """(B,) int64 window of each doc in slots: its true pages, clamped to the
+    table width, times the page size."""
+    require_host(page_count_host, "page_count_host")
+    return np.clip(page_count_host.astype(np.int64), 0, gmax) * page_size
+
+
+def ragged_teams(page_count_host: np.ndarray, page_size: int, gmax: int, smem_budget: int,
+                 sms: int) -> List[TeamLaunch]:
+    """The launch plan of :func:`ragged_insert`: one launch per non-empty
+    doc class, each sized by its own widest true window, never by the
+    table width ``gmax`` (:func:`~.insert.plan_teams`)."""
+    return plan_teams(ragged_windows(page_count_host, page_size, gmax), smem_budget, sms)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on the card, copied on the current stream from pinned
+    memory: the host does not wait for the card."""
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(device, non_blocking=True)
+
+
 def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, page_table,
                   num_slots, overflow, ins_counts, ins_ref, ins_op, ins_char, *,
-                  smem_budget: int = SMEM_BUDGET) -> Tuple[torch.Tensor, torch.Tensor]:
+                  smem_budget: int = SMEM_BUDGET,
+                  page_count_host: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply every batch doc's first ``ins_counts`` inserts to its pages of
     the pool, in place; returns the new ``(num_slots, overflow)``.
 
@@ -136,12 +161,16 @@ def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, 
     ``page_table`` (store/ragged.RaggedPlan); (B,) int32 ``num_slots``,
     (B,) bool ``overflow``, (B,) int32 ``ins_counts``; (B, K) int32 streams
     (op id 0 = padding).  ``smem_budget`` is the shared memory, in bytes,
-    the kernel may hold a window of ``Gmax * P`` slots in; a larger window
-    runs the global-memory variant of the same body.
+    one doc's window may take; a class whose widest window is larger runs
+    the global-memory variant of the same body.  ``page_count_host`` is
+    ``page_count`` as host numpy (the plan's ``RaggedPlan.page_count``; it
+    must hold the same values), which sizes the launches: given, the call
+    reads nothing back from the card; omitted, the wrapper copies
+    ``page_count`` to the host first.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run
-    :func:`ragged_insert_reference`.  ``ragged_insert.launches`` counts the
-    kernel's launches.
+    CUDA tensors launch the kernel once per non-empty doc class (or raise);
+    CPU tensors run :func:`ragged_insert_reference`.
+    ``ragged_insert.launches`` counts the kernel's launches.
     """
     args = (pool_elem, pool_char, owner, pos_base, prev_page, page_count, page_table,
             num_slots, overflow, ins_counts, ins_ref, ins_op, ins_char)
@@ -158,35 +187,44 @@ def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, 
     ov_out = torch.empty_like(overflow)
     if b == 0:
         return n_out, ov_out
-    use_shared = 2 * gmax * p * 4 <= smem_budget
-    if use_shared:
-        scratch_elem = scratch_char = offsets = pool_elem.new_empty(0)
-    else:
-        # one contiguous window per doc; sizing it costs one host sync,
-        # on the variant whose windows are hundreds of KB anyway
-        slots = page_count.clamp(0, gmax).to(torch.int64) * p
-        offsets = torch.cumsum(slots, 0) - slots
-        total = int(slots.sum())
-        scratch_elem = torch.empty(total, dtype=torch.int32, device=device)
-        scratch_char = torch.empty(total, dtype=torch.int32, device=device)
+    if page_count_host is None:
+        page_count_host = page_count.cpu().numpy()
+    windows = ragged_windows(page_count_host, p, gmax)
+    if windows.shape != (b,):
+        raise ValueError(f"page_count_host must have shape ({b},), got {windows.shape}")
+    launches = plan_teams(windows, smem_budget, num_sms(device))
+    # device-memory windows, one per doc of a class that runs that variant,
+    # at offsets from a host prefix sum
+    slots = np.zeros(b, np.int64)
+    for launch in launches:
+        if not launch.shared:
+            rows = slice(None) if launch.rows is None else launch.rows
+            slots[rows] = windows[rows]
+    total = int(slots.sum())
+    offsets = _upload(np.cumsum(slots) - slots, device) if total else pool_elem.new_empty(0)
+    scratch_elem = torch.empty(total, dtype=torch.int32, device=device)
+    scratch_char = torch.empty(total, dtype=torch.int32, device=device)
     lib = _library()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.peritext_ragged_insert(
-            ptr(pool_elem), ptr(pool_char), ptr(page_table), ptr(page_count),
-            ptr(ins_counts), ptr(num_slots), ptr(overflow),
-            ptr(ins_ref), ptr(ins_op), ptr(ins_char), ptr(n_out), ptr(ov_out),
-            ptr(scratch_elem), ptr(scratch_char), ptr(offsets),
-            b, p, gmax, k, int(use_shared), kernel_threads(gmax * p),
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"ragged insert kernel launch refused: CUDA error {err} (B={b}, P={p}, "
-            f"Gmax={gmax}, K={k}, shared={use_shared})"
-        )
-    ragged_insert.launches += 1
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+    for launch in launches:
+        rows = None if launch.rows is None else _upload(launch.rows, device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.peritext_ragged_insert(
+                ptr(pool_elem), ptr(pool_char), ptr(page_table), ptr(page_count),
+                ptr(ins_counts), ptr(num_slots), ptr(overflow),
+                ptr(ins_ref), ptr(ins_op), ptr(ins_char), ptr(n_out), ptr(ov_out),
+                ptr(scratch_elem), ptr(scratch_char), ptr(offsets), ptr(rows),
+                launch.num_docs, launch.window, p, gmax, k, int(launch.team == "warp"),
+                int(launch.shared), launch.threads, ctypes.c_void_p(stream),
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"ragged insert kernel launch refused: CUDA error {err} (B={b}, P={p}, "
+                f"Gmax={gmax}, K={k}, team={launch.team}, docs={launch.num_docs}, "
+                f"window={launch.window}, shared={launch.shared})"
+            )
+        ragged_insert.launches += 1
     return n_out, ov_out
 
 
@@ -197,5 +235,5 @@ def _library() -> ctypes.CDLL:
     lib = load_library("ragged_insert")
     fn = lib.peritext_ragged_insert
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib

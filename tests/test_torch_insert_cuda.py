@@ -12,11 +12,25 @@ import numpy as np
 import pytest
 import torch
 
-from peritext_tpu_torch.ops.insert import insert_batch, insert_batch_reference
+from peritext_tpu_torch.ops import insert as insert_mod
+from peritext_tpu_torch.ops.insert import (
+    WARP_TEAM_MAX_SLOTS,
+    insert_batch,
+    insert_batch_reference,
+)
 from peritext_tpu_torch.ops.packed import empty_docs
 from peritext_tpu_torch.testing.synth import synth_streams
 
 pytestmark = pytest.mark.cuda
+
+#: team variants: (threshold, block-team threads) patched in, None keeping the
+#: default; "wide_block" gives small windows multi-warp blocks (a thread per slot)
+TEAMS = {
+    "default": (None, None),
+    "warp": (1 << 30, None),
+    "block": (0, None),
+    "wide_block": (0, lambda window: min(1024, -(-window // 32) * 32)),
+}
 
 
 @pytest.fixture
@@ -98,3 +112,70 @@ def test_launch_counter_and_empty_stream(cuda):
     out = insert_batch(*args)
     assert insert_batch.launches == before + 1
     _assert_same(out, args[:4])
+
+
+@pytest.fixture(params=sorted(TEAMS))
+def team(request, monkeypatch):
+    """Run the test with the default team split, with every window on the
+    warp team, and on the block team at its own and at wide block sizes."""
+    limit, threads = TEAMS[request.param]
+    if limit is not None:
+        monkeypatch.setattr(insert_mod, "WARP_TEAM_MAX_SLOTS", limit)
+    if threads is not None:
+        monkeypatch.setattr(insert_mod, "block_team_threads", threads)
+    return request.param
+
+
+# a warp's width -1/exact/+1, and the team threshold -1/exact/+1; every
+# window fills and its last two inserts overflow
+@pytest.mark.parametrize("slots", [31, 32, 33, WARP_TEAM_MAX_SLOTS - 1, WARP_TEAM_MAX_SLOTS,
+                                   WARP_TEAM_MAX_SLOTS + 1])
+def test_kernel_team_edges(cuda, team, slots):
+    args = _inputs(cuda, 3, slots, slots + 2, seed=12)
+    out = insert_batch(*args)
+    _assert_same(out, insert_batch_reference(*args))
+    assert out[3].all() and (out[2] == slots).all()
+
+
+# live ops around the 32-op register chunk of the stream
+@pytest.mark.parametrize("inserts", [31, 32, 33, 63, 64, 65])
+def test_kernel_stream_chunk_edges(cuda, team, inserts):
+    args = _inputs(cuda, 5, 128, inserts, seed=13)
+    _assert_same(insert_batch(*args), insert_batch_reference(*args))
+
+
+def _last_chunk_inputs(device, docs, slots):
+    """Docs holding n = slots - 3 - d live elements with descending ids,
+    and three ops each: a HEAD insert whose skip slot is the last live slot
+    (n - 1), an insert after the last live element (the reference scan's
+    hit in the last chunk), and a HEAD insert of the newest id, which
+    shifts the whole window (doc 0 ends full)."""
+    elem = np.zeros((docs, slots), np.int32)
+    chars = np.zeros((docs, slots), np.int32)
+    n = np.array([slots - 3 - d for d in range(docs)], np.int32)
+    refs = np.zeros((docs, 3), np.int32)
+    ops = np.zeros((docs, 3), np.int32)
+    chs = np.full((docs, 3), ord("x"), np.int32)
+    for d, nd in enumerate(n):
+        j = np.arange(nd)
+        elem[d, :nd] = ((nd - j + 10) << 10) | 1  # descending; slot nd - 1 holds (11 << 10) | 1
+        chars[d, :nd] = ord("a") + j % 26
+        ops[d] = [12 << 10, (nd + 20) << 10 | 3, (nd + 21) << 10 | 3]
+        refs[d] = [0, (11 << 10) | 1, 0]
+    t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    return [t(elem), t(chars), t(n), torch.zeros(docs, dtype=torch.bool, device=device),
+            t(refs), t(ops), t(chs)]
+
+
+@pytest.mark.parametrize("slots", [64, 96, 200])
+def test_kernel_first_match_in_last_chunk(cuda, team, slots):
+    args = _last_chunk_inputs(cuda, 4, slots)
+    out = insert_batch(*args)
+    want = insert_batch_reference(*args)
+    _assert_same(out, want)
+    n0 = args[2].cpu().numpy()
+    got = out[0].cpu().numpy()
+    for d in range(4):
+        # the skip slot was the last live one; the last op moved it up one
+        assert got[d, n0[d]] == 12 << 10
+    assert not out[3].any()

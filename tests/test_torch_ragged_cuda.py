@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from peritext_tpu_torch.ops import insert as insert_mod
+from peritext_tpu_torch.ops import ragged_insert as ragged_mod
+from peritext_tpu_torch.ops.insert import WARP_TEAM_MAX_SLOTS
 from peritext_tpu_torch.ops.ragged import plan_arrays
 from peritext_tpu_torch.ops.ragged_insert import ragged_insert, ragged_insert_reference
 from peritext_tpu_torch.store.paged import PagedDocStore
@@ -20,6 +23,15 @@ from peritext_tpu_torch.store.ragged import ragged_plan
 from peritext_tpu_torch.testing.synth import synth_streams
 
 pytestmark = pytest.mark.cuda
+
+#: team variants: (threshold, block-team threads) patched in, None keeping the
+#: default; "wide_block" gives small windows multi-warp blocks (a thread per slot)
+TEAMS = {
+    "default": (None, None),
+    "warp": (1 << 30, None),
+    "block": (0, None),
+    "wide_block": (0, lambda window: min(1024, -(-window // 32) * 32)),
+}
 
 
 @pytest.fixture
@@ -141,9 +153,10 @@ def test_kernel_global_memory_variant(cuda, counts, width):
 def test_refused_launch_raises(cuda):
     """A window larger than the card's shared memory, with a budget that
     claims it fits, is refused at launch: the wrapper raises and does not
-    count a launch."""
+    count a launch.  Launches are sized by the docs' true windows, so both
+    docs hold 469 pages (30,016 slots, 240 KB)."""
     counts = [8, 8]
-    store = _store(cuda, counts, page_size=64, slot_capacity=32768)
+    store = _store(cuda, [30000, 30000], page_size=64, slot_capacity=32768)
     args = _args(store, cuda, counts, _streams(counts, 8, seed=1))
     before = ragged_insert.launches
     with pytest.raises(RuntimeError, match="refused"):
@@ -159,3 +172,75 @@ def test_launch_counter_and_empty_stream(cuda):
     n, ov = ragged_insert(*args)
     assert ragged_insert.launches == before + 1
     assert not n.any() and not ov.any() and not store.pool_elem.any()
+
+
+@pytest.fixture(params=sorted(TEAMS))
+def team(request, monkeypatch):
+    """Run the test with the default team split, with every window on the
+    warp team, and on the block team at its own and at wide block sizes."""
+    limit, threads = TEAMS[request.param]
+    if limit is not None:
+        monkeypatch.setattr(insert_mod, "WARP_TEAM_MAX_SLOTS", limit)
+    if threads is not None:
+        monkeypatch.setattr(insert_mod, "block_team_threads", threads)
+    return request.param
+
+
+def test_kernel_team_edges(cuda, team):
+    """Windows of a warp's width -1/exact/+1 and the team threshold
+    -1/exact/+1 in one call (pages of one slot, so a window is its insert
+    count); each doc fills its window and overflows on its last two
+    inserts."""
+    windows = [31, 32, 33, WARP_TEAM_MAX_SLOTS - 1, WARP_TEAM_MAX_SLOTS, WARP_TEAM_MAX_SLOTS + 1]
+    store = _store(cuda, windows, page_size=1, slot_capacity=WARP_TEAM_MAX_SLOTS + 8)
+    counts = [w + 2 for w in windows]
+    _, _, n, ov = _run_both(_args(store, cuda, counts, _streams(counts, max(counts), seed=12)))
+    assert n.cpu().tolist() == windows and ov.all()
+
+
+def test_kernel_stream_chunk_edges(cuda, team):
+    """Live ops around the 32-op register chunk of the stream."""
+    counts = [31, 32, 33, 63, 64, 65]
+    store = _store(cuda, counts, page_size=16, slot_capacity=128)
+    _run_both(_args(store, cuda, counts, _streams(counts, 80, seed=13)))
+
+
+def test_kernel_mixed_classes_shuffled(cuda, monkeypatch):
+    """One call mixing both classes at the default threshold: 4 docs one
+    page past it (block team) among 60 short ones of up to 3 pages, a third
+    with zero inserts, in a seeded shuffle.  With one SM claimed, warp-team
+    blocks hold 8 docs each, so zero-insert docs share blocks with busy
+    ones."""
+    monkeypatch.setattr(ragged_mod, "num_sms", lambda device: 1)
+    rng = np.random.default_rng(14)
+    short = rng.integers(1, 150, size=60)
+    short[rng.random(60) < 1 / 3] = 0
+    long = WARP_TEAM_MAX_SLOTS + 52
+    counts = rng.permutation(np.concatenate([short, [long] * 4])).tolist()
+    store = _store(cuda, counts, page_size=64, slot_capacity=2 * WARP_TEAM_MAX_SLOTS)
+    plan = ragged_plan(store)
+    teams = ragged_mod.ragged_teams(plan.page_count, 64, plan.page_table.shape[1],
+                                    ragged_mod.SMEM_BUDGET, 1)
+    assert [(t.team, t.num_docs, t.docs_per_block) for t in teams] == [
+        ("warp", 60, 8), ("block", 4, 1)]
+    before = ragged_insert.launches
+    _run_both(_args(store, cuda, counts, _streams(counts, long, seed=15)))
+    assert ragged_insert.launches == before + 2
+
+
+def test_kernel_carried_state_after_pool_growth_both_classes(cuda, monkeypatch):
+    """The carried-state round after a pool growth, with the threshold at
+    48 slots: the two docs that grow to 5 pages (80 slots) run the block
+    team, the one of 2 pages the warp team, in the same call."""
+    monkeypatch.setattr(insert_mod, "WARP_TEAM_MAX_SLOTS", 48)
+    first, second = [30, 5, 18], [40, 60, 2]
+    store = _store(cuda, first, initial_pages=5)
+    args = _args(store, cuda, first, _streams(first, 30, seed=7))
+    n1, ov1 = ragged_insert_reference(*args)
+    store.ensure_rows(np.arange(3), np.add(first, second))
+    assert store.growths >= 1
+    assert [len(store.alloc.pages_of(r)) for r in range(3)] == [5, 5, 2]
+    streams = _streams(second, 64, seed=11, ctr_offset=30)
+    before = ragged_insert.launches
+    _run_both(_args(store, cuda, second, streams, n0=n1, ov0=ov1))
+    assert ragged_insert.launches == before + 2
