@@ -21,11 +21,25 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    one once per page-bucket group; no doc may fall back; paged and
    ragged must equal padded on every doc, and a seeded sample of 64 docs
    the scalar oracle;
-5. kernels: each kernel against its plain torch version on the card, bit
+5. streaming: ``StreamingMerge(device="cuda")`` (BASELINE config 5, the
+   reference's object-ingest streaming bench row: 2048 fuzz docs x 192
+   ops, 4 shuffled arrival rounds; per round ingest, then ``drain()``;
+   then ``digest()``, ``read_all()`` and ``read_patches_all()``).  An
+   untimed warm-up session, then session A in three arms (default,
+   ``fused_pipeline=False``, ``static_rounds=True``) that must agree; B,
+   A's workload in read blocks of 512 docs, must equal A; C, 10240 docs
+   in two blocks of 8192.  Each session's insert launches, counted from 0
+   over its run, must equal its applies (one per touched block of every
+   committed round); A and C must keep digest() == digest(refresh=True)
+   == the sum of doc_digest(), and a seeded sample of 64 docs (with every
+   fallback doc) must equal the scalar oracle in spans, roots, cursors
+   and the host mirror's digest;
+6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
    gathered pages, padding rows and null-page entries included; for the
-   ragged one the ragged merge's) and at larger shapes: for the insert
+   ragged one the ragged merge's; for the insert kernel also one
+   streaming round of A at its ``loop_slots``) and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
    variant and a long-doc shape past the shared-memory budget; for the
@@ -77,10 +91,39 @@ POOLED = dict(tail_docs=8, tail_ops=1024, tail_seed=8, slot_capacity=1024,
 #: a mixed drain: (docs, inserts per doc, synth seed) per size class
 MIXED_10K = dict(slots=4096, groups=((9216, 179, 1), (896, 1024, 2), (128, 4096, 3)))
 LONG_DOC_RAGGED = dict(docs=64, slots=32768, inserts=4096, seed=2)
+#: the streaming sessions: BASELINE config 5 as the reference's object-ingest
+#: streaming bench row (2048 fuzz docs x 192 ops, seed 0, 4 arrival rounds,
+#: shuffle model; slots 384, marks 96, round widths 256/128/128/16); B the
+#: same with read blocks of 512 docs; C 10240 docs at the default block of
+#: 8192 (two blocks, 16384 rows)
+STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capacity=384,
+              mark_capacity=96, comment_capacity=32, round_caps=(256, 128, 128, 16),
+              sample=64, b_read_chunk=512, c_docs=10240)
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def _generate_chunk(args):
+    from peritext_tpu_torch.testing.fuzz import generate_workload
+
+    return generate_workload(*args)
+
+
+def generate(seed: int, docs: int, ops: int):
+    """``generate_workload(seed, docs, ops)``, built in worker processes
+    (doc d is drawn from seed + d alone, so chunks of docs are independent;
+    the result is the same list).  The pool ends with the call."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    workers = max(1, min(8, os.cpu_count() or 1, docs // 64))
+    step = -(-docs // (4 * workers))
+    chunks = [(seed + lo, min(step, docs - lo), ops) for lo in range(0, docs, step)]
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return [w for part in pool.map(_generate_chunk, chunks) for w in part]
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -379,11 +422,11 @@ def run_slice(device):
     """The padded path: one padded merge of BASELINE config 3 on the card."""
     from peritext_tpu_torch.api.batch import DocBatch
     from peritext_tpu_torch.ops.insert import insert_batch
-    from peritext_tpu_torch.testing.fuzz import generate_workload, sample_cursors
+    from peritext_tpu_torch.testing.fuzz import sample_cursors
 
     cfg = SLICE
     t0 = time.perf_counter()
-    workloads = generate_workload(cfg["seed"], cfg["docs"], cfg["ops"])
+    workloads = generate(cfg["seed"], cfg["docs"], cfg["ops"])
     cursors = sample_cursors(workloads, 4, cfg["seed"])
     log(f"slice: generated {cfg['docs']} docs x {cfg['ops']} ops in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -479,6 +522,193 @@ def run_pooled(device, workloads, cursors):
     return batches, workloads, launches
 
 
+def _oracle_digest(doc, slot_capacity, actor_table) -> int:
+    """A replayed doc's full-state digest term by the host mirrors."""
+    from peritext_tpu_torch.parallel.mesh import doc_digest_host
+    from peritext_tpu_torch.parallel.streaming import _doc_char_slots, _doc_full_extras_host
+
+    cps, slots = _doc_char_slots(doc)
+    return (doc_digest_host(cps, slots, slot_capacity)
+            + _doc_full_extras_host(doc, slots, actor_table)) & 0xFFFFFFFF
+
+
+def run_stream_session(device, cfg, workloads, arrival, name, capture=None, **arm):
+    """One streaming session over ``arrival``: per arrival round ingest, then
+    ``drain()`` (synchronized, so its apply time covers the kernels it
+    queued); then ``digest()``, ``read_all()`` and ``read_patches_all()``.
+    The insert kernel's launch count is set to 0 just before and read just
+    after, and must equal the session's applies (one per touched block of
+    every committed round).  ``capture`` (a dict) asks for the insert
+    inputs of the first kernel call of the third drain.  Returns the
+    session and its report."""
+    import torch
+
+    from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+    from peritext_tpu_torch.ops import kernel as kernel_mod
+    from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.parallel.streaming import StreamingMerge
+
+    ki, kd, km, kp = cfg["round_caps"]
+    s = StreamingMerge(
+        num_docs=len(workloads), actors=("doc1", "doc2", "doc3"),
+        slot_capacity=cfg["slot_capacity"], mark_capacity=cfg["mark_capacity"],
+        tomb_capacity=cfg["tomb_capacity"], round_insert_capacity=ki,
+        round_delete_capacity=kd, round_mark_capacity=km, round_map_capacity=kp,
+        comment_capacity=cfg["comment_capacity"], read_chunk=cfg.get("read_chunk", 8192),
+        static_rounds=arm.get("static_rounds", False), device=device,
+    )
+    s.fused_pipeline = arm.get("fused_pipeline", True)
+    original = kernel_mod.insert_batch
+    if capture is not None:
+        def recording(*args, loop_slots=None, **kw):
+            if capture.get("armed"):
+                capture.update(armed=False, loop_slots=loop_slots,
+                               args=[a.clone() for a in args])
+            return original(*args, loop_slots=loop_slots, **kw)
+        kernel_mod.insert_batch = recording
+    stages = dict.fromkeys(("ingest", "schedule", "apply", "digest", "read_all",
+                            "read_patches_all"), 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    insert_batch.launches = 0
+    applies = GLOBAL_COUNTERS.get("streaming.block_applies")
+    t_all = time.perf_counter()
+    try:
+        for r in range(max(len(b) for b in arrival)):
+            t0 = time.perf_counter()
+            for d, batches in enumerate(arrival):
+                if r < len(batches):
+                    s.ingest(d, batches[r])
+            t1 = time.perf_counter()
+            if capture is not None and r == 2:
+                capture["armed"] = True
+            s.drain()
+            t_sync = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            # apply: the commits' spans and the wait for the card; schedule:
+            # the rest of the drain, with its passes that admit nothing
+            apply = s.last_drain_marks["apply_seconds"] + (t2 - t_sync)
+            stages["ingest"] += t1 - t0
+            stages["schedule"] += (t2 - t1) - apply
+            stages["apply"] += apply
+        for stage, fn in (("digest", s.digest), ("read_all", s.read_all),
+                          ("read_patches_all", s.read_patches_all)):
+            t0 = time.perf_counter()
+            out = fn()
+            stages[stage] = time.perf_counter() - t0
+            if stage == "digest":
+                digest = out
+            elif stage == "read_all":
+                spans = out
+            else:
+                patches = out
+    finally:
+        kernel_mod.insert_batch = original
+    wall = time.perf_counter() - t_all
+    launches = insert_batch.launches
+    applies = GLOBAL_COUNTERS.get("streaming.block_applies") - applies
+    ops = sum(len(ch.ops) for w in workloads for log in w.values() for ch in log)
+    fallback = [d for d, sess in enumerate(s.docs) if sess.fallback]
+    report = dict(session=name, docs=len(workloads), padded_docs=s._padded_docs,
+                  blocks=-(-s._padded_docs // s._read_chunk), rounds=s.rounds, ops=ops,
+                  wall_seconds=wall, ops_per_second=ops / wall,
+                  stage_seconds=stages, rga_insert_launches=launches, block_applies=applies,
+                  fallback_docs=len(fallback), overflow_docs=s.overflow_count(),
+                  peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log("streaming", json.dumps(report))
+    if launches == 0 or launches != applies:
+        raise AssertionError(f"streaming {name}: {launches} insert launches for {applies} "
+                             "block applies (one per touched block of every committed round)")
+    if s.pending_count():
+        raise AssertionError(f"streaming {name}: {s.pending_count()} changes still pending")
+    return s, dict(report, digest=digest, spans=spans, patches=patches, fallback=fallback)
+
+
+def check_stream_session(name, s, out, workloads, cfg, sample) -> None:
+    """A session's digest invariants, and a seeded doc sample (with every
+    fallback doc) against the scalar oracle: spans, root, cursors and the
+    per-doc digest against the host mirrors of the replayed doc."""
+    from peritext_tpu_torch.api.batch import _oracle_doc
+    from peritext_tpu_torch.ops.resolve import oracle_cursor_positions
+    from peritext_tpu_torch.testing.fuzz import sample_cursors
+
+    if s.digest() != out["digest"] or s.digest(refresh=True) != out["digest"]:
+        raise AssertionError(f"streaming {name}: digest() != digest(refresh=True)")
+    total = sum(s.doc_digest(d) for d in range(s.num_docs)) & 0xFFFFFFFF
+    if total != out["digest"]:
+        raise AssertionError(f"streaming {name}: the doc_digest sum != digest()")
+    docs = sorted(set(sample) | set(out["fallback"]))
+    cursors = sample_cursors([workloads[d] for d in docs], 4, cfg["seed"])
+    got_cursors = s.resolve_cursors_batch(dict(zip(docs, cursors)))
+    for d, cur in zip(docs, cursors):
+        doc = _oracle_doc(workloads[d])
+        if out["spans"][d] != doc.get_text_with_formatting(["text"]) or \
+                s.read(d) != out["spans"][d]:
+            raise AssertionError(f"streaming {name}: doc {d} spans differ from the oracle")
+        if s.read_root(d) != doc.root:
+            raise AssertionError(f"streaming {name}: doc {d} root differs from the oracle")
+        if got_cursors[d] != oracle_cursor_positions(doc, cur):
+            raise AssertionError(f"streaming {name}: doc {d} cursors differ from the oracle")
+        if s.doc_digest(d) != _oracle_digest(doc, cfg["slot_capacity"], s._actor_table):
+            raise AssertionError(f"streaming {name}: doc {d} digest differs from the host mirror")
+    log(f"streaming {name}: digest == refresh == sum of doc digests; {len(docs)} docs "
+        f"({len(out['fallback'])} fallback) equal the oracle (spans, roots, cursors, digests)")
+
+
+def run_streaming(device):
+    """The streaming slice: an untimed warm-up session, then sessions A
+    (three arms), B (block-chunked) and C (scale), each checked; returns
+    the K1 capture of a mid-session round and the per-session reports."""
+    from peritext_tpu_torch.testing.arrival import build_arrival
+
+    cfg = STREAM
+    t0 = time.perf_counter()
+    workloads = generate(cfg["seed"], cfg["docs"], cfg["ops"])
+    arrival = build_arrival(workloads, cfg["rounds"], cfg["seed"])
+    log(f"streaming: generated {cfg['docs']} docs x {cfg['ops']} ops in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sample = sorted(random.Random(cfg["seed"]).sample(range(cfg["docs"]), cfg["sample"]))
+    # the first session on the card pays its cold start (kernel modules,
+    # allocator growth); the timed arms run warm
+    run_stream_session(device, cfg, workloads, arrival, "warm_up")
+    capture = {}
+    arms = {}
+    for arm, kw in (("A_default", {}), ("A_fused_pipeline_off", dict(fused_pipeline=False)),
+                    ("A_static_rounds", dict(static_rounds=True))):
+        arms[arm] = run_stream_session(
+            device, cfg, workloads, arrival, arm,
+            capture=capture if arm == "A_fused_pipeline_off" else None, **kw)
+    s_a, a = arms["A_default"]
+    for arm in ("A_fused_pipeline_off", "A_static_rounds"):
+        other = arms[arm][1]
+        for key in ("spans", "patches", "digest", "fallback"):
+            if other[key] != a[key]:
+                raise AssertionError(f"streaming: {arm} {key} differ from A_default")
+    log("streaming: the three arms of A agree (read_all, read_patches_all, digest, fallback)")
+    check_stream_session("A_default", s_a, a, workloads, cfg, sample)
+    reports = [out for _, out in arms.values()]
+    del arms
+
+    s_b, b = run_stream_session(device, dict(cfg, read_chunk=cfg["b_read_chunk"]), workloads,
+                                arrival, "B_block_chunked")
+    for key in ("spans", "patches", "digest", "fallback"):
+        if b[key] != a[key]:
+            raise AssertionError(f"streaming: B {key} differ from A")
+    log(f"streaming: B ({b['blocks']} blocks) equals A on all {cfg['docs']} docs and the digest")
+    del s_a, s_b
+
+    t0 = time.perf_counter()
+    more = generate(cfg["seed"] + cfg["docs"], cfg["c_docs"] - cfg["docs"], cfg["ops"])
+    workloads_c = workloads + more
+    arrival_c = build_arrival(workloads_c, cfg["rounds"], cfg["seed"])
+    log(f"streaming: generated {len(more)} more docs in {time.perf_counter() - t0:.1f} s")
+    s_c, c = run_stream_session(device, cfg, workloads_c, arrival_c, "C_scale")
+    sample_c = sorted(random.Random(cfg["seed"] + 1).sample(range(len(workloads_c)), cfg["sample"]))
+    check_stream_session("C_scale", s_c, c, workloads_c, cfg, sample_c)
+    return capture, reports + [b, c]
+
+
 def main_path_insert_args(batch, workloads):
     """The insert kernel's inputs exactly as the padded slice's merge gives them."""
     from peritext_tpu_torch.ops.kernel import encoded_arrays_of
@@ -572,11 +802,17 @@ def main() -> int:
     batch, workloads, cursors, launches = run_slice(device)
     pooled, pooled_workloads, pooled_launches = run_pooled(device, workloads, cursors)
     log(f"merges done at {time.perf_counter() - t_start:.1f} s")
+    capture, stream_reports = run_streaming(device)
+    log(f"streaming done at {time.perf_counter() - t_start:.1f} s")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
     for name, args in main_path_paged_args(pooled["paged"], pooled_workloads):
         rows.append(check_insert(name, args))
+    if "args" not in capture:
+        raise AssertionError("streaming: no insert call was captured in the third drain")
+    rows.append(check_insert("streaming_round", capture["args"], loop_slots=capture["loop_slots"]))
+    del capture
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
     rows.append(check_insert("batch_8k_loop_slots", args, loop_slots=BATCH_8K["inserts"]))
@@ -616,12 +852,21 @@ def main() -> int:
             "library_ms": None,
         }
 
+    # ``launches`` is the count of the path whose inputs give ``ms`` (the
+    # first row); ``launches_by_path`` lists every path's own count, each
+    # counted from 0 over its own run
+    rga_paths = {"slice": launches["rga_insert"],
+                 "pooled_padded": pooled_launches["padded"]["rga_insert"],
+                 "pooled_paged": pooled_launches["paged"]["rga_insert"]}
+    rga_paths.update({f"streaming_{r['session']}": r["rga_insert_launches"] for r in stream_reports})
     kernels = [
-        record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
-               "peritext_tpu/ops/pallas_insert.py:94", launches["rga_insert"], rows),
-        record("ragged_insert", "peritext_tpu_torch/csrc/ragged_insert.cu",
-               "peritext_tpu/ops/ragged_pallas.py:65",
-               pooled_launches["ragged"]["ragged_insert"], ragged_rows),
+        dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
+                    "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),
+             launches_by_path=rga_paths),
+        dict(record("ragged_insert", "peritext_tpu_torch/csrc/ragged_insert.cu",
+                    "peritext_tpu/ops/ragged_pallas.py:65",
+                    pooled_launches["ragged"]["ragged_insert"], ragged_rows),
+             launches_by_path={"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

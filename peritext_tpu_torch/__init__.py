@@ -14,12 +14,16 @@ imports neither JAX nor that package.
   ragged plan of the paged and ragged layouts.
 * :mod:`peritext_tpu_torch.api` — ``DocBatch``, the batched merge, in the
   padded, paged and ragged layouts.
-* :mod:`peritext_tpu_torch.testing` — seeded workload generators.
+* :mod:`peritext_tpu_torch.parallel` — causal scheduling, the convergence
+  digests and ``StreamingMerge``, the streaming session (padded layout).
+* :mod:`peritext_tpu_torch.testing` — seeded workload generators and
+  streaming arrival schedules.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .core import Change, CausalityError, Doc, Operation, PeritextError, span
+from .parallel.streaming import StreamingMerge
 from .schema import ALL_MARKS, MARK_SPEC, MarkSchema, is_mark_type
 
 __all__ = [
@@ -31,6 +35,7 @@ __all__ = [
     "MarkSchema",
     "Operation",
     "PeritextError",
+    "StreamingMerge",
     "is_mark_type",
     "span",
 ]

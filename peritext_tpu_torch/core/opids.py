@@ -34,6 +34,11 @@ class _Sentinel:
     def __hash__(self) -> int:
         return id(self)
 
+    # identity is the point (``op.obj is ROOT``): unpickle to the module's
+    # own instance, not a copy (workloads cross process boundaries)
+    def __reduce__(self) -> str:
+        return self._name
+
 
 #: The document root object (reference ``src/micromerge.ts:7``).
 ROOT = _Sentinel("ROOT")

@@ -1,9 +1,11 @@
-"""Per-merge observability: the ``MergeStats`` report and the stage timer
-that fills it.
+"""Observability: the ``MergeStats`` report and the stage timer that fills
+it, a counter registry, and measuring spans.
 
 Stage times are host wall-clock seconds.  A stage that ran on the card is
 closed with ``torch.cuda.synchronize``, so its time includes the device
-work it queued rather than only the enqueue.
+work it queued rather than only the enqueue.  Spans (:class:`Tracer`)
+measure the host wall of a region without synchronizing: a streaming round
+reports its schedule and apply (dispatch) seconds from them.
 """
 
 from __future__ import annotations
@@ -14,6 +16,54 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, Optional
 
 import torch
+
+
+class Counters:
+    """A registry of named monotone counters (the session's ``streaming.*``
+    counts)."""
+
+    def __init__(self) -> None:
+        self._values: Dict[str, int] = {}
+
+    def add(self, name: str, value: int = 1) -> None:
+        self._values[name] = self._values.get(name, 0) + value
+
+    def get(self, name: str) -> int:
+        return self._values.get(name, 0)
+
+
+GLOBAL_COUNTERS = Counters()
+
+
+class Span:
+    """One measured region: ``duration`` (host seconds, set on exit) and
+    ``args`` (free-form annotations the region adds while it runs)."""
+
+    __slots__ = ("name", "args", "duration", "_t0")
+
+    def __init__(self, name: str, args: Dict[str, Any]) -> None:
+        self.name = name
+        self.args = args
+        self.duration = 0.0
+        self._t0 = 0.0
+
+    def __enter__(self) -> "Span":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.duration = time.perf_counter() - self._t0
+
+
+class Tracer:
+    """Span factory (the session's ``tracer``): every span measures; none
+    is retained."""
+
+    def span(self, name: str, **args) -> Span:
+        return Span(name, args)
+
+
+GLOBAL_TRACER = Tracer()
 
 
 @dataclass

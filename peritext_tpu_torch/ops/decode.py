@@ -6,13 +6,15 @@ merged span lists the scalar oracle's ``get_text_with_formatting`` returns,
 so the two paths are directly comparable (byte-equality oracle).
 
 Everything here is numpy: the batch layer moves the resolved planes to the
-host once, then decodes.  ``comment_bits`` may arrive as any integer dtype
-holding the unsigned 32-bit words (the port's resolve returns int64).
+host once, then decodes; the streaming sweeps decode the visible-prefix
+:class:`CompactBlock` the session gathers on the card.  ``comment_bits``
+may arrive as any integer dtype holding the unsigned 32-bit words (the
+port's resolve returns int64).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -25,6 +27,62 @@ from .resolve import ResolvedDocs
 _STRONG = MARK_INDEX["strong"]
 _EM = MARK_INDEX["em"]
 _LINK = MARK_INDEX["link"]
+
+
+class DocMarkDecoder:
+    """Per-slot MarkMap extraction for ONE doc of a (numpy-converted)
+    ResolvedDocs batch — shared by the span read path and the patch diff
+    path (ops/patches.py).  Per-doc rows are sliced once at construction;
+    ``marks_at`` is then cheap per visible slot."""
+
+    def __init__(self, resolved: ResolvedDocs, doc_index: int, attr_table: Interner,
+                 comment_table: Optional[Interner] = None):
+        d = doc_index
+        self._attrs = attr_table
+        # comment-plane ids may live in a separate (per-doc dense) table:
+        # they index capacity-C planes, unlike link attrs which are opaque
+        self._comment_ids = comment_table if comment_table is not None else attr_table
+        self.visible = np.asarray(resolved.visible[d])
+        self.chars = np.asarray(resolved.char[d])
+        self._lww = np.asarray(resolved.lww_active[d])
+        self._link_attr = np.asarray(resolved.link_attr[d])
+        # unpack the (W, S) 32-bit comment words to a (W*32, S) bool plane
+        bits = np.asarray(resolved.comment_bits[d]).astype(np.int64)
+        shifts = np.arange(32, dtype=np.int64)
+        self._comments = (
+            (bits[:, None, :] >> shifts[None, :, None]) & 1
+        ).astype(bool).reshape(-1, bits.shape[-1])
+
+    def marks_at(self, slot: int) -> dict:
+        marks: dict = {}
+        if self._lww[_STRONG, slot]:
+            marks["strong"] = {"active": True}
+        if self._lww[_EM, slot]:
+            marks["em"] = {"active": True}
+        if self._lww[_LINK, slot]:
+            url = self._attrs.lookup(int(self._link_attr[slot]))
+            marks["link"] = {"active": True, "url": url}
+        active_ids = sorted(
+            self._comment_ids.lookup(int(c))
+            for c in np.nonzero(self._comments[:, slot])[0]
+        )
+        if active_ids:
+            marks["comment"] = [{"id": cid} for cid in active_ids]
+        return marks
+
+
+def decode_doc_spans(
+    resolved: ResolvedDocs, doc_index: int, attr_table: Interner,
+    comment_table: Optional[Interner] = None,
+) -> List[FormatSpan]:
+    """Decode one document of a (numpy-converted) ResolvedDocs batch."""
+    dec = DocMarkDecoder(resolved, doc_index, attr_table, comment_table)
+    spans: List[FormatSpan] = []
+    for slot in np.nonzero(dec.visible)[0]:
+        add_characters_to_spans(
+            [chr(int(dec.chars[slot]))], dec.marks_at(slot), spans
+        )
+    return spans
 
 
 def _comment_ids_from_bits(row_bits, comment_table: Interner):
@@ -140,6 +198,58 @@ def _spans_from_flat(flat, attr_of, comment_of, n_docs: int):
     return out
 
 
+def _char_states_from_flat(flat, packed_elems, actor_table, attr_of,
+                           comment_of, n_docs: int):
+    """Segment loop of the char-state decoders: per-doc ``(identity, char,
+    marks)`` lists.  Characters in a segment share ONE per-segment marks
+    copy (diff consumers compare marks by equality); the memoized master
+    never escapes.  ``packed_elems`` are the (N,) packed elem ids aligned
+    with the flat character order."""
+    from .packed import ACTOR_BITS, MAX_ACTORS
+
+    out = [[] for _ in range(n_docs)]
+    rows, _, seg_starts, seg_ends, text, lww, link, bits, feat = flat
+    if len(rows) == 0:
+        return out
+    ctrs = (packed_elems >> ACTOR_BITS).tolist()
+    actor_idx = (packed_elems & MAX_ACTORS).tolist()
+    actor_names = [actor_table.lookup(i) for i in range(len(actor_table))]
+    cache: dict = {}
+    for s, e in zip(seg_starts.tolist(), seg_ends.tolist()):
+        d = int(rows[s])
+        attrs, comments = attr_of(d), comment_of(d)
+        has_c = bool(bits[s].any())  # see _spans_from_flat on the memo key
+        key = (id(attrs), id(comments) if has_c else 0, feat[s].tobytes())
+        marks = cache.get(key)
+        if marks is None:
+            marks = cache[key] = _segment_marks(s, lww, link, bits, attrs, comments)
+        seg_marks = _copy_marks(marks)
+        bucket = out[d]
+        for j in range(s, e):
+            bucket.append(((ctrs[j], actor_names[actor_idx[j]]), text[j], seg_marks))
+    return out
+
+
+def block_char_states(resolved: ResolvedDocs, elem_id_block, actor_table,
+                      attr_of, comment_of, doc_mask=None):
+    """Per-doc ``(identity, char, marks)`` lists for a whole (numpy) block —
+    the batched twin of ops/patches.doc_chars_device."""
+    vis = np.asarray(resolved.visible)
+    flat = _block_flat(resolved, doc_mask)
+    rows, cols = flat[0], flat[1]
+    if len(rows) == 0:
+        return [[] for _ in range(vis.shape[0])]
+    packed = np.asarray(elem_id_block)[rows, cols]
+    return _char_states_from_flat(flat, packed, actor_table, attr_of,
+                                  comment_of, vis.shape[0])
+
+
+def decode_doc_text(resolved: ResolvedDocs, doc_index: int) -> str:
+    visible = np.asarray(resolved.visible[doc_index])
+    chars = np.asarray(resolved.char[doc_index])
+    return "".join(chr(int(c)) for c in chars[visible])
+
+
 def decode_doc_root(state, resolved: ResolvedDocs, doc_index: int, keys: Interner):
     """Materialize one doc's root map from its device LWW registers — the
     device twin of the scalar oracle's ``Doc.root`` (object graph walk from
@@ -202,3 +312,93 @@ def decode_doc_root(state, resolved: ResolvedDocs, doc_index: int, keys: Interne
         return out
 
     return build(OBJ_ROOT)
+
+
+# -- compact (visible-prefix) block decode ----------------------------------
+#
+# The full resolved planes are (D, S)-shaped over SLOT capacity; a sweep only
+# needs the visible characters.  CompactBlock is the same information
+# gathered on the card to a visible-prefix layout of bucketed width W << S,
+# with the LWW planes bit-packed, and brought to the host in one transfer.
+
+
+class CompactBlock:
+    """Numpy visible-prefix planes of one resolved block.
+
+    ``n_vis[d]`` chars of doc ``d`` live at columns ``0..n_vis[d]`` of:
+    ``char``(int32), ``elem``(packed int32 elem ids), ``link``(int32 attr
+    ids), ``lww``(uint8 bitmask over LWW mark types), ``comment_bits``
+    ((D, Wd, W) uint32).  ``overflow`` is carried for the device/replay
+    routing mask."""
+
+    __slots__ = ("n_vis", "char", "elem", "link", "lww", "comment_bits",
+                 "overflow")
+
+    def __init__(self, n_vis, char, elem, link, lww, comment_bits, overflow):
+        self.n_vis = np.asarray(n_vis)
+        self.char = np.asarray(char)
+        self.elem = np.asarray(elem)
+        self.link = np.asarray(link)
+        self.lww = np.asarray(lww)
+        self.comment_bits = np.asarray(comment_bits)
+        self.overflow = np.asarray(overflow)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(getattr(self, f).nbytes for f in self.__slots__)
+
+
+def _block_flat_compact(c: CompactBlock, doc_mask=None):
+    """Compact-layout twin of :func:`_block_flat`: flatten to doc-major
+    visible characters + per-char features + same-mark run boundaries.
+    Columns are CHARACTER indices (the compact layout's native order), and
+    the per-type LWW bools are unpacked from the bitmask plane."""
+    d, w = c.char.shape
+    vis = np.arange(w)[None, :] < c.n_vis[:, None]
+    if doc_mask is not None:
+        vis &= np.asarray(doc_mask)[:, None]
+    rows, cols = np.nonzero(vis)
+    if len(rows) == 0:
+        return rows, cols, rows, rows, "", None, None, None, None
+    chars = c.char[rows, cols]
+    lww_bits = c.lww[rows, cols].astype(np.int64)  # (N,) packed
+    shifts = np.arange(8, dtype=np.int64)  # uint8 plane: up to 8 LWW types
+    lww = ((lww_bits[:, None] >> shifts[None, :]) & 1).astype(bool)  # (N, 8)
+    link = c.link[rows, cols]
+    bits = (
+        c.comment_bits[rows, :, cols]
+        if c.comment_bits.shape[1]
+        else np.zeros((len(rows), 0), np.uint32)
+    )  # (N, Wd) uint32
+    feat = np.concatenate(
+        [lww_bits[:, None], link[:, None].astype(np.int64), bits.astype(np.int64)],
+        axis=1,
+    )
+    boundary = np.ones(len(rows), bool)
+    boundary[1:] = (rows[1:] != rows[:-1]) | np.any(feat[1:] != feat[:-1], axis=1)
+    seg_starts = np.nonzero(boundary)[0]
+    seg_ends = np.append(seg_starts[1:], len(rows))
+    text = "".join(map(chr, chars.tolist()))
+    return rows, cols, seg_starts, seg_ends, text, lww, link, bits, feat
+
+
+def decode_block_spans_compact(c: CompactBlock, attr_of, comment_of,
+                               doc_mask=None):
+    """:func:`decode_block_spans` over a :class:`CompactBlock` — identical
+    output, from one visible-prefix transfer instead of the full planes."""
+    return _spans_from_flat(_block_flat_compact(c, doc_mask), attr_of,
+                            comment_of, c.char.shape[0])
+
+
+def block_char_states_compact(c: CompactBlock, actor_table, attr_of,
+                              comment_of, doc_mask=None):
+    """:func:`block_char_states` over a :class:`CompactBlock`: per-doc
+    ``(identity, char, marks)`` lists, identities unpacked from the
+    compacted elem-id plane."""
+    flat = _block_flat_compact(c, doc_mask)
+    rows, cols = flat[0], flat[1]
+    if len(rows) == 0:
+        return [[] for _ in range(c.char.shape[0])]
+    packed = c.elem[rows, cols]
+    return _char_states_from_flat(flat, packed, actor_table, attr_of,
+                                  comment_of, c.char.shape[0])

@@ -229,6 +229,43 @@ def encode_doc(
     return streams, True, text_obj, text_key
 
 
+class DocEncoder:
+    """Persistent per-document encoder for incremental (streaming) rounds.
+
+    The actor table must be declared up front: packed int32 op-ID comparison
+    equals (counter, actor-string) order only when actor indices follow string
+    order, and a table that grows mid-session could violate that
+    (utils/interning.OrderedActorTable).  A change from an undeclared actor
+    marks the encoder failed; the streaming layer then falls back to scalar
+    replay for that document.
+    """
+
+    def __init__(self, actor_names) -> None:
+        self.actors = OrderedActorTable(actor_names)
+        self.attrs = Interner()
+        self.keys = Interner()
+        self.text_obj = None
+        self.text_key: Optional[str] = None
+        self.map_objs: set = set()
+        self.ok = len(self.actors) - 1 <= MAX_ACTORS
+
+    def encode_increment(self, ordered_changes: Sequence[Change]):
+        """Encode one round's causally-ordered new changes.  Returns
+        (_DocStreams, ok); once not ok, the encoder stays failed."""
+        if not self.ok:
+            return _DocStreams(), False
+        try:
+            streams, ok, self.text_obj, self.text_key = encode_doc(
+                ordered_changes, self.actors, self.attrs, self.keys,
+                self.text_obj, self.map_objs, self.text_key,
+            )
+        except (OverflowError, KeyError):  # ctr overflow / undeclared actor
+            ok = False
+            streams = _DocStreams()
+        self.ok = ok
+        return streams, ok
+
+
 def _round8(n: int) -> int:
     return max(8, -(-n // 8) * 8)
 

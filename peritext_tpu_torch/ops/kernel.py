@@ -225,6 +225,59 @@ def apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arr
         a[rows] = getattr(state, f)[real]
 
 
+# -- incremental rounds (parallel/streaming.py) -------------------------------
+#
+# A streaming round reaches the card as flat per-doc-concatenated streams
+# (proportional to its real ops) plus per-doc counts; the padded (D, K)
+# rows the phases consume are rebuilt on the card.  Each round's insert
+# phase is bounded by its own slot window (``loop_slots``).
+
+
+def _pad_from_flat(flat: torch.Tensor, counts: torch.Tensor, width: int) -> torch.Tensor:
+    """(N,) flat per-doc-concatenated values + (D,) counts -> (D, width)
+    zero-padded int32 rows, rebuilt with one gather.  The gather index is
+    clamped into the flat stream (the reference's clamping gather; torch
+    would raise), and masked positions read 0 — op id 0, a no-op step.  An
+    empty stream gives all-zero rows."""
+    d = counts.shape[0]
+    if flat.shape[0] == 0:  # a round with zero ops of this kind
+        return torch.zeros((d, width), dtype=torch.int32, device=counts.device)
+    counts = counts.to(torch.int64)
+    offsets = torch.cumsum(counts, 0) - counts
+    cols = torch.arange(width, dtype=torch.int64, device=counts.device)[None, :]
+    safe = (offsets[:, None] + cols).clamp(0, flat.shape[0] - 1)
+    return torch.where(cols < counts[:, None], flat[safe], 0).to(torch.int32)
+
+
+def apply_batch_compact(state: PackedDocs, stream_counts, ins_flat, del_flat, mark_flat,
+                        map_flat=None, *, widths,
+                        insert_loop_slots: Optional[int] = None) -> PackedDocs:
+    """:func:`apply_batch` over compactly-transferred streams.
+
+    ``stream_counts`` is (n_ins, n_del, n_mark[, n_map]), each (D,);
+    ``ins_flat`` the (ref, op, char) flat streams, ``del_flat`` one,
+    ``mark_flat`` / ``map_flat`` dicts by column; ``widths`` the padded
+    widths (ki, kd, km[, kp]).  Flat streams may carry zero padding at the
+    END (values past sum(counts) are never gathered into a live slot)."""
+    n_ins, n_del, n_mark = stream_counts[0], stream_counts[1], stream_counts[2]
+    ki, kd, km = widths[0], widths[1], widths[2]
+    arrays = (
+        _pad_from_flat(ins_flat[0], n_ins, ki),
+        _pad_from_flat(ins_flat[1], n_ins, ki),
+        _pad_from_flat(ins_flat[2], n_ins, ki),
+        _pad_from_flat(del_flat, n_del, kd),
+        {col: _pad_from_flat(mark_flat[col], n_mark, km) for col in mark_flat},
+        n_mark.to(torch.int32),
+    )
+    if map_flat is not None:
+        n_map = stream_counts[3]
+        arrays = arrays + (
+            {col: _pad_from_flat(map_flat[col], n_map, widths[3]) for col in map_flat},
+            n_map.to(torch.int32),
+        )
+    return apply_batch(state, arrays, insert_loop_slots=insert_loop_slots)
+
+
 def encoded_arrays_of(encoded: EncodedBatch, device: Union[str, torch.device]):
     """The tensor tuple for :func:`apply_batch` from a host EncodedBatch,
     on ``device``: the 8-tuple with the map-register stream."""

@@ -136,7 +136,9 @@ def test_unported_options_raise(kwargs, item):
 def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, peritext_tpu_torch, peritext_tpu_torch.api, peritext_tpu_torch.ops, "
-        "peritext_tpu_torch.store, peritext_tpu_torch.testing\n"
+        "peritext_tpu_torch.store, peritext_tpu_torch.testing, "
+        "peritext_tpu_torch.parallel.streaming, peritext_tpu_torch.parallel.mesh, "
+        "peritext_tpu_torch.ops.patches\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"
