@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; no phase's error is passed over):
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: every CUDA source of the paths, one nvcc each, all at once;
+2. build: every CUDA source of the paths, one nvcc each, all at once, and
+   the package's native host library (g++), which must load;
 3. padded slice: ``DocBatch(device="cuda").merge`` with cursors on 1024
    fuzz docs x 256 ops (BASELINE config 3; slots 512, marks 128, comment
    ids 64), with the launch counts set to 0 just before and read just
@@ -22,24 +23,29 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    ragged must equal padded on every doc, and a seeded sample of 64 docs
    the scalar oracle;
 5. streaming: ``StreamingMerge(device="cuda")`` (BASELINE config 5, the
-   reference's object-ingest streaming bench row: 2048 fuzz docs x 192
-   ops, 4 shuffled arrival rounds; per round ingest, then ``drain()``;
-   then ``digest()``, ``read_all()`` and ``read_patches_all()``).  An
-   untimed warm-up session, then session A in three arms (default,
-   ``fused_pipeline=False``, ``static_rounds=True``) that must agree; B,
-   A's workload in read blocks of 512 docs, must equal A; C, 10240 docs
-   in two blocks of 8192.  Each session's insert launches, counted from 0
-   over its run, must equal its applies (one per touched block of every
-   committed round); A and C must keep digest() == digest(refresh=True)
-   == the sum of doc_digest(), and a seeded sample of 64 docs (with every
-   fallback doc) must equal the scalar oracle in spans, roots, cursors
-   and the host mirror's digest;
+   reference's streaming bench row: 2048 fuzz docs x 192 ops, 4 shuffled
+   arrival rounds; per round ingest, then ``drain()``; then ``digest()``,
+   ``read_all()`` and ``read_patches_all()``).  An untimed warm-up session, then session A in
+   three object-ingest arms (default, ``fused_pipeline=False``,
+   ``static_rounds=True``) that must agree, and its frame arm (the
+   reference bench's default wire path: each round's batch of a doc as one
+   v2 wire frame, one ``ingest_frames`` call per round, parsed and
+   scheduled by the native library, which must have served it), which
+   must equal A on every doc; B, A's workload in read blocks of 512 docs,
+   must equal A; C, 10240 docs in two blocks of 8192, in an object and a
+   frame arm that must agree.  Each session's insert launches, counted
+   from 0 over its run, must equal its applies (one per touched block of
+   every committed round); A, C and their frame arms must keep digest() ==
+   digest(refresh=True) == the sum of doc_digest(), and a seeded sample of
+   64 docs (with every fallback doc) must equal the scalar oracle in
+   spans, roots, cursors and the host mirror's digest;
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
    gathered pages, padding rows and null-page entries included; for the
    ragged one the ragged merge's; for the insert kernel also one
-   streaming round of A at its ``loop_slots``) and at larger shapes: for the insert
+   streaming round of A and one of A's frame arm, each at its
+   ``loop_slots``) and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
    variant and a long-doc shape past the shared-memory budget; for the
@@ -61,6 +67,7 @@ of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import random
 import subprocess
@@ -91,14 +98,15 @@ POOLED = dict(tail_docs=8, tail_ops=1024, tail_seed=8, slot_capacity=1024,
 #: a mixed drain: (docs, inserts per doc, synth seed) per size class
 MIXED_10K = dict(slots=4096, groups=((9216, 179, 1), (896, 1024, 2), (128, 4096, 3)))
 LONG_DOC_RAGGED = dict(docs=64, slots=32768, inserts=4096, seed=2)
-#: the streaming sessions: BASELINE config 5 as the reference's object-ingest
-#: streaming bench row (2048 fuzz docs x 192 ops, seed 0, 4 arrival rounds,
-#: shuffle model; slots 384, marks 96, round widths 256/128/128/16); B the
-#: same with read blocks of 512 docs; C 10240 docs at the default block of
-#: 8192 (two blocks, 16384 rows)
+#: the streaming sessions: BASELINE config 5 as the reference's streaming
+#: bench row (2048 fuzz docs x 192 ops, seed 0, 4 arrival rounds, shuffle
+#: model; slots 384, marks 96, round widths 256/128/128/16), by object
+#: ingest and by the bench's default wire path (v2 frames); B the same with
+#: read blocks of 512 docs; C 10240 docs at the default block of 8192 (two
+#: blocks, 16384 rows)
 STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capacity=384,
               mark_capacity=96, comment_capacity=32, round_caps=(256, 128, 128, 16),
-              sample=64, b_read_chunk=512, c_docs=10240)
+              sample=64, b_read_chunk=512, c_docs=10240, wire="v2")
 
 
 def log(*parts) -> None:
@@ -532,17 +540,44 @@ def _oracle_digest(doc, slot_capacity, actor_table) -> int:
             + _doc_full_extras_host(doc, slots, actor_table)) & 0xFFFFFFFF
 
 
-def run_stream_session(device, cfg, workloads, arrival, name, capture=None, **arm):
-    """One streaming session over ``arrival``: per arrival round ingest, then
+class GcClock:
+    """Host seconds spent in Python's cyclic garbage collector while it is
+    registered (``gc.callbacks``): a collection is a pause of the host,
+    charged to whatever stage it falls in."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self._t0 = None
+
+    def __call__(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self._t0 = None
+
+
+#: the session counters each streaming report gives as deltas over its run
+SESSION_COUNTERS = ("streaming.schedule_passes", "streaming.docs_scanned",
+                    "streaming.docs_skipped")
+
+
+def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire_bytes=None,
+                       **arm):
+    """One streaming session over ``arrival``: per arrival round ingest (one
+    ``ingest`` per doc, or, when ``wire_bytes`` is given, the arrival is
+    wire frames and one ``ingest_frames`` call takes the round), then
     ``drain()`` (synchronized, so its apply time covers the kernels it
     queued); then ``digest()``, ``read_all()`` and ``read_patches_all()``.
     The insert kernel's launch count is set to 0 just before and read just
     after, and must equal the session's applies (one per touched block of
-    every committed round).  ``capture`` (a dict) asks for the insert
-    inputs of the first kernel call of the third drain.  Returns the
+    every committed round); a frame session must have been parsed and
+    scheduled by the native library.  ``capture`` (a dict) asks for the
+    insert inputs of the first kernel call of the third drain.  Returns the
     session and its report."""
     import torch
 
+    from peritext_tpu_torch import native
     from peritext_tpu_torch.obs import GLOBAL_COUNTERS
     from peritext_tpu_torch.ops import kernel as kernel_mod
     from peritext_tpu_torch.ops.insert import insert_batch
@@ -570,15 +605,24 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, **ar
                             "read_patches_all"), 0.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    frames = wire_bytes is not None
+    counters = {c: GLOBAL_COUNTERS.get(c) for c in SESSION_COUNTERS}
+    native_calls = dict(native.calls)
     insert_batch.launches = 0
     applies = GLOBAL_COUNTERS.get("streaming.block_applies")
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
     t_all = time.perf_counter()
     try:
         for r in range(max(len(b) for b in arrival)):
             t0 = time.perf_counter()
-            for d, batches in enumerate(arrival):
-                if r < len(batches):
-                    s.ingest(d, batches[r])
+            if frames:
+                s.ingest_frames((d, batches[r]) for d, batches in enumerate(arrival)
+                                if r < len(batches))
+            else:
+                for d, batches in enumerate(arrival):
+                    if r < len(batches):
+                        s.ingest(d, batches[r])
             t1 = time.perf_counter()
             if capture is not None and r == 2:
                 capture["armed"] = True
@@ -605,21 +649,37 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, **ar
                 patches = out
     finally:
         kernel_mod.insert_batch = original
+        gc.callbacks.remove(gc_clock)
     wall = time.perf_counter() - t_all
     launches = insert_batch.launches
     applies = GLOBAL_COUNTERS.get("streaming.block_applies") - applies
     ops = sum(len(ch.ops) for w in workloads for log in w.values() for ch in log)
     fallback = [d for d, sess in enumerate(s.docs) if sess.fallback]
-    report = dict(session=name, docs=len(workloads), padded_docs=s._padded_docs,
-                  blocks=-(-s._padded_docs // s._read_chunk), rounds=s.rounds, ops=ops,
-                  wall_seconds=wall, ops_per_second=ops / wall,
-                  stage_seconds=stages, rga_insert_launches=launches, block_applies=applies,
+    counts = {c.split(".")[1]: GLOBAL_COUNTERS.get(c) - n for c, n in counters.items()}
+    passes = max(counts["schedule_passes"], 1)
+    native_delta = {k: v - native_calls.get(k, 0) for k, v in native.calls.items()
+                    if v != native_calls.get(k, 0)}
+    report = dict(session=name, ingest="frames" if frames else "objects", docs=len(workloads),
+                  padded_docs=s._padded_docs, blocks=-(-s._padded_docs // s._read_chunk),
+                  rounds=s.rounds, ops=ops, wall_seconds=wall, ops_per_second=ops / wall,
+                  stage_seconds=dict(stages, host_parse=s.host_parse_seconds),
+                  gc_seconds=gc_clock.seconds,
+                  wire_bytes_per_op=wire_bytes / ops if frames else None,
+                  schedule_passes=counts["schedule_passes"],
+                  object_docs_scanned_per_pass=counts["docs_scanned"] / passes,
+                  object_docs_scanned_per_pass_without_skip=(
+                      counts["docs_scanned"] + counts["docs_skipped"]) / passes,
+                  native_calls=native_delta,
+                  rga_insert_launches=launches, block_applies=applies,
                   fallback_docs=len(fallback), overflow_docs=s.overflow_count(),
                   peak_memory_bytes=torch.cuda.max_memory_allocated())
     log("streaming", json.dumps(report))
     if launches == 0 or launches != applies:
         raise AssertionError(f"streaming {name}: {launches} insert launches for {applies} "
                              "block applies (one per touched block of every committed round)")
+    if frames and not (native_delta.get("parse_frames") and native_delta.get("schedule_split_batch")):
+        raise AssertionError(f"streaming {name}: the frames were not parsed and scheduled by the "
+                             f"native library (native calls {native_delta})")
     if s.pending_count():
         raise AssertionError(f"streaming {name}: {s.pending_count()} changes still pending")
     return s, dict(report, digest=digest, spans=spans, patches=patches, fallback=fallback)
@@ -656,18 +716,29 @@ def check_stream_session(name, s, out, workloads, cfg, sample) -> None:
         f"({len(out['fallback'])} fallback) equal the oracle (spans, roots, cursors, digests)")
 
 
+def compare_arms(name, other, base, base_name) -> None:
+    """Two arms of one workload hold the same documents."""
+    for key in ("spans", "patches", "digest", "fallback"):
+        if other[key] != base[key]:
+            raise AssertionError(f"streaming: {name} {key} differ from {base_name}")
+
+
 def run_streaming(device):
     """The streaming slice: an untimed warm-up session, then sessions A
-    (three arms), B (block-chunked) and C (scale), each checked; returns
-    the K1 capture of a mid-session round and the per-session reports."""
+    (three object arms and a frame arm), B (block-chunked) and C (scale,
+    an object and a frame arm), each checked; returns the K1 captures of a
+    mid-session round of A's object and frame arms and the per-session
+    reports."""
     from peritext_tpu_torch.testing.arrival import build_arrival
 
     cfg = STREAM
     t0 = time.perf_counter()
     workloads = generate(cfg["seed"], cfg["docs"], cfg["ops"])
     arrival = build_arrival(workloads, cfg["rounds"], cfg["seed"])
-    log(f"streaming: generated {cfg['docs']} docs x {cfg['ops']} ops in "
-        f"{time.perf_counter() - t0:.1f} s")
+    wire, wire_bytes = build_arrival(workloads, cfg["rounds"], cfg["seed"], as_frames=True,
+                                     wire=cfg["wire"])
+    log(f"streaming: generated {cfg['docs']} docs x {cfg['ops']} ops and their "
+        f"{cfg['wire']} frames ({wire_bytes} bytes) in {time.perf_counter() - t0:.1f} s")
     sample = sorted(random.Random(cfg["seed"]).sample(range(cfg["docs"]), cfg["sample"]))
     # the first session on the card pays its cold start (kernel modules,
     # allocator growth); the timed arms run warm
@@ -681,20 +752,22 @@ def run_streaming(device):
             capture=capture if arm == "A_fused_pipeline_off" else None, **kw)
     s_a, a = arms["A_default"]
     for arm in ("A_fused_pipeline_off", "A_static_rounds"):
-        other = arms[arm][1]
-        for key in ("spans", "patches", "digest", "fallback"):
-            if other[key] != a[key]:
-                raise AssertionError(f"streaming: {arm} {key} differ from A_default")
+        compare_arms(arm, arms[arm][1], a, "A_default")
     log("streaming: the three arms of A agree (read_all, read_patches_all, digest, fallback)")
     check_stream_session("A_default", s_a, a, workloads, cfg, sample)
-    reports = [out for _, out in arms.values()]
-    del arms
+    capture_frames = {}
+    s_f, f = run_stream_session(device, cfg, workloads, wire, "A_frames", capture=capture_frames,
+                                wire_bytes=wire_bytes)
+    compare_arms("A_frames", f, a, "A_default")
+    log(f"streaming: A_frames equals A_default on all {cfg['docs']} docs "
+        "(read_all, read_patches_all, digest, fallback)")
+    check_stream_session("A_frames", s_f, f, workloads, cfg, sample)
+    reports = [out for _, out in arms.values()] + [f]
+    del arms, s_f
 
     s_b, b = run_stream_session(device, dict(cfg, read_chunk=cfg["b_read_chunk"]), workloads,
                                 arrival, "B_block_chunked")
-    for key in ("spans", "patches", "digest", "fallback"):
-        if b[key] != a[key]:
-            raise AssertionError(f"streaming: B {key} differ from A")
+    compare_arms("B_block_chunked", b, a, "A_default")
     log(f"streaming: B ({b['blocks']} blocks) equals A on all {cfg['docs']} docs and the digest")
     del s_a, s_b
 
@@ -706,7 +779,15 @@ def run_streaming(device):
     s_c, c = run_stream_session(device, cfg, workloads_c, arrival_c, "C_scale")
     sample_c = sorted(random.Random(cfg["seed"] + 1).sample(range(len(workloads_c)), cfg["sample"]))
     check_stream_session("C_scale", s_c, c, workloads_c, cfg, sample_c)
-    return capture, reports + [b, c]
+    del s_c
+    wire_c, wire_bytes_c = build_arrival(workloads_c, cfg["rounds"], cfg["seed"], as_frames=True,
+                                         wire=cfg["wire"])
+    s_cf, cf = run_stream_session(device, cfg, workloads_c, wire_c, "C_frames",
+                                  wire_bytes=wire_bytes_c)
+    compare_arms("C_frames", cf, c, "C_scale")
+    log(f"streaming: C_frames equals C_scale on all {len(workloads_c)} docs")
+    check_stream_session("C_frames", s_cf, cf, workloads_c, cfg, sample_c)
+    return capture, capture_frames, reports + [b, c, cf]
 
 
 def main_path_insert_args(batch, workloads):
@@ -790,9 +871,16 @@ def main() -> int:
 
     from peritext_tpu_torch.utils.nvcc import build_libraries
 
+    from peritext_tpu_torch import native
+
     t0 = time.perf_counter()
     libs = build_libraries(["insert", "ragged_insert"])
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("build: the native host library (g++) did not build or load")
+    log(f"build: native host library {native.library_path().name} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for path in libs.values():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -802,7 +890,7 @@ def main() -> int:
     batch, workloads, cursors, launches = run_slice(device)
     pooled, pooled_workloads, pooled_launches = run_pooled(device, workloads, cursors)
     log(f"merges done at {time.perf_counter() - t_start:.1f} s")
-    capture, stream_reports = run_streaming(device)
+    capture, capture_frames, stream_reports = run_streaming(device)
     log(f"streaming done at {time.perf_counter() - t_start:.1f} s")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
@@ -812,7 +900,11 @@ def main() -> int:
     if "args" not in capture:
         raise AssertionError("streaming: no insert call was captured in the third drain")
     rows.append(check_insert("streaming_round", capture["args"], loop_slots=capture["loop_slots"]))
-    del capture
+    if "args" not in capture_frames:
+        raise AssertionError("streaming: no insert call was captured in A_frames' third drain")
+    rows.append(check_insert("streaming_frame_round", capture_frames["args"],
+                             loop_slots=capture_frames["loop_slots"]))
+    del capture, capture_frames
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
     rows.append(check_insert("batch_8k_loop_slots", args, loop_slots=BATCH_8K["inserts"]))

@@ -13,7 +13,7 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, NamedTuple, Optional
 
 import torch
 
@@ -33,6 +33,16 @@ class Counters:
 
 
 GLOBAL_COUNTERS = Counters()
+
+
+class TraceContext(NamedTuple):
+    """The correlation pair a traced wire frame carries (codec v5/v6): the
+    sender's trace and the span that shipped the frame.  An ingest span
+    holds it in its ``args["ctx"]``, linking the receiving host's work to
+    the sender's trace."""
+
+    trace_id: int
+    span_id: int
 
 
 class Span:

@@ -7,8 +7,10 @@ Determinism matters only for reproducibility: any admissible order converges,
 because op application is commutative across causally-concurrent changes.
 
 The order is the smallest ready ``(actor, seq)`` first, through a heap.  This
-is the pure-Python scheduler; the reference package's native helper produces
-the same order by construction, so this path is the specification.
+pure-Python scheduler is the only one the object path runs: the package's C++
+``pt_causal_schedule`` gives the same order, but with its array setup it did
+not beat the heap on the streaming session's sets
+(``scripts/torch_causal_pairs.py``).
 """
 
 from __future__ import annotations

@@ -28,13 +28,21 @@ Design, as in the reference package's session:
 * **Incremental digest** — per-row full-state hashes are carried in a host
   plane; a digest re-hashes only the rows rounds touched.
 
-Ported here: the padded layout without a mesh, with object-path ingest.
-The mesh, the paged and ragged layouts, and frame ingest are listed in
-ROADMAP.md (queue 1, items 5b, 7, 8 and 11).
+* **Frame-native ingest** — :meth:`StreamingMerge.ingest_frames` takes
+  binary wire frames (parallel/codec.py); one native call parses a whole
+  batch into flat arrays (ops/frames.py), which pool per session, and each
+  round one native call schedules every frame doc's pooled changes into
+  its padded row.  No per-change Python object exists on that path.
+
+Ported here: the padded layout without a mesh, with object and frame
+ingest.  The mesh, the paged and ragged layouts, ``health()``,
+``digest_async`` and ``reshard`` are listed in ROADMAP.md (queue 1, items
+5b, 7, 8 and 11).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Dict, Iterable, List, Optional, Sequence, Union
@@ -42,18 +50,30 @@ from typing import Dict, Iterable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import native
 from ..core.doc import Doc
+from ..core.errors import DecodeError
 from ..core.types import Change, Clock, FormatSpan
-from ..obs import GLOBAL_COUNTERS, GLOBAL_TRACER, MergeStats
+from ..obs import GLOBAL_COUNTERS, GLOBAL_TRACER, MergeStats, TraceContext
 from ..ops.decode import CompactBlock, decode_doc_spans
 from ..ops.encode import MAP_STREAM_COLS, MARK_COLS, DocEncoder, _DocStreams
+from ..ops.frames import (
+    FRAME_CORRUPT,
+    FRAME_DEMOTE,
+    FRAME_OK,
+    KIND_MARK,
+    ParsedChanges,
+    parse_frames_bulk,
+)
 from ..ops.kernel import apply_batch_compact
 from ..ops.packed import VK_DELETED, VK_STR, PackedDocs, empty_docs
 from ..ops.resolve import COMMENT_TYPE, LINK_TYPE, ResolvedDocs, resolve
+from ..schema import MARK_INDEX
 from ..utils.device import resolve_device
 from ..utils.interning import Interner, OrderedActorTable
 from ..utils.shapes import next_pow2
 from .causal import causal_schedule
+from .codec import decode_frame, encode_frame, strip_trace_context
 from .mesh import (
     M32,
     convergence_digest,
@@ -223,11 +243,18 @@ def _width_bucket(n: int) -> int:
 #: read_patches_all share one transfer per block while it fits)
 _COMPACT_CACHE_BYTES = 512 * 1024 * 1024
 
-#: quarantine reasons of this slice: ``capacity`` (a change wider than the
-#: round widths) and ``encode`` (a change the device cannot express) — the
-#: doc left the device path for scalar replay (degraded but correct);
-#: ``device-round`` is :meth:`StreamingMerge.force_fallback`'s default
+#: quarantine reasons: ``decode`` (a corrupt wire frame was discarded; the
+#: doc stays on the device path, and the record lifts on its own once a
+#: clean delivery arrived and the doc drained, see
+#: :meth:`StreamingMerge._sweep_decode_quarantine`); ``capacity`` (a change
+#: wider than the round widths), ``schedule`` (a frame the batched
+#: scheduler cannot put on the device) and ``encode`` (a change the device
+#: cannot express) — the doc left the device path for scalar replay
+#: (degraded but correct); ``device-round`` is
+#: :meth:`StreamingMerge.force_fallback`'s default
+REASON_DECODE = "decode"
 REASON_CAPACITY = "capacity"
+REASON_SCHEDULE = "schedule"
 REASON_ENCODE = "encode"
 REASON_DEVICE_ROUND = "device-round"
 
@@ -240,6 +267,10 @@ class QuarantineRecord:
     reason: str
     detail: str = ""
     round: int = 0
+    #: a clean delivery for the doc has arrived since the corrupt one: the
+    #: first half of the ``decode`` re-admission condition (the second half
+    #: is the doc draining with no pending work)
+    clean_delivery: bool = False
 
 
 @dataclass
@@ -249,6 +280,12 @@ class _DocSession:
     pending: List[Change] = field(default_factory=list)
     log: List[Change] = field(default_factory=list)
     fallback: bool = False
+    # frame mode (ops/frames.py): the raw wire frames are the event source;
+    # pending parsed changes live in the session's pool, applied clocks in
+    # its clock matrix, attrs in its session interner
+    frame_mode: bool = False
+    frames: List[bytes] = field(default_factory=list)
+    text_obj: int = 0
 
 
 class _RoundBuffers:
@@ -371,6 +408,8 @@ class StreamingMerge:
         self.docs = [_DocSession() for _ in range(num_docs)]
         self._quarantine: Dict[int, QuarantineRecord] = {}
         self.rounds = 0
+        #: cumulative host seconds in the wire parse of frame ingest
+        self.host_parse_seconds = 0.0
         self._patch_base: Dict[int, list] = {}
         # per-round cache of block resolutions: (rounds, {block: entry})
         self._resolved_cache = (-1, {})
@@ -390,12 +429,26 @@ class StreamingMerge:
         #: per-block visible-prefix widths (-1 = session-wide prior)
         self._compact_width: Dict[int, int] = {}
         self._actor_table = OrderedActorTable(self.actors)
-        # session-level interners: the digest's session tables and the key
-        # table of docs that never encoded (every object doc interns its
-        # own attrs and keys; frame ingest, not ported, shares these)
-        self._session_attrs = Interner()
+        # frame-mode state: parsed-but-unscheduled changes pool as
+        # (doc_of_change, ParsedChanges) chunks; applied frontiers as one
+        # (D, A) clock matrix; link and other attrs in one session interner
+        # (object docs intern their own attrs and keys)
+        self._pool: List = []
+        self._frame_mode = np.zeros(num_docs, bool)
+        self._clock_mat = np.zeros((num_docs, len(self._actor_table)), np.int32)
+        self._frame_attrs = Interner()
+        # map keys and string values of frame docs (and of docs that never
+        # encoded) share one session interner
         self._map_keys = Interner()
+        # comment-mark ids are PER-DOC dense (they index the capacity-C
+        # comment planes)
+        self._doc_comment_ids: Dict[int, Interner] = {}
+        # object docs with pending changes that a schedule pass may admit
         self._object_pending: set = set()
+        # object docs whose last pass admitted nothing: every pending change
+        # waits on a clock only an ingest() to the doc can move, so passes
+        # skip them until then (a port-only shortcut; no result changes)
+        self._object_waiting: set = set()
         #: when True, a drain of a one-block session ends with the block's
         #: resolution and digest already computed, so the next digest() or
         #: read finds them cached
@@ -420,23 +473,221 @@ class StreamingMerge:
         sess = self.docs[doc_index]
         changes = list(changes)
         if not changes:
+            return  # a zero-change frame would only grow durable history
+        if sess.frame_mode:
+            # the doc's pending state lives as parsed arrays; route object
+            # arrivals through the same frame parse
+            self.ingest_frame(doc_index, encode_frame(changes))
             return
         sess.pending.extend(changes)
         self._object_pending.add(doc_index)
+        self._object_waiting.discard(doc_index)
+
+    def ingest_frame(self, doc_index: int, data: bytes, on_corrupt: str = "raise") -> None:
+        """Queue one binary change frame (parallel/codec.py) for one
+        document: the single-frame form of :meth:`ingest_frames`."""
+        self.ingest_frames([(doc_index, data)], on_corrupt=on_corrupt)
+
+    def ingest_frames(self, items: Iterable, on_corrupt: str = "raise") -> None:
+        """Bulk-queue binary change frames, many docs per call: ONE native
+        call parses every frame (header, string tables, varint payload,
+        packed identifiers) into flat arrays; no ``Change`` objects unless a
+        doc leaves the fast path.
+
+        ``items`` is an iterable of ``(doc_index, frame_bytes)``.  Frames are
+        processed in order; a corrupt frame contributes nothing and
+        quarantines its doc (reason ``decode``) without blocking the other
+        docs' frames, which are all queued first.  ``on_corrupt="raise"``
+        (default) then raises one :class:`DecodeError` naming the affected
+        docs; ``"quarantine"`` leaves the registry and counters as the only
+        signal.  A decode quarantine lifts once a later clean delivery for
+        the doc has arrived and its pending work has drained."""
+        if on_corrupt not in ("raise", "quarantine"):
+            raise ValueError(f"unknown on_corrupt mode: {on_corrupt!r}")
+        items = list(items)
+        # traced (v5) and checked (v6) frames normalize to the v2 storage
+        # form here; a v6 frame whose CRC fails passes through unchanged and
+        # is rejected as corrupt by the per-doc parse below
+        ctx: Optional[TraceContext] = None
+        for j, (d, data) in enumerate(items):
+            c, plain = strip_trace_context(data)
+            if plain is not data:
+                items[j] = (d, plain)
+            if c is not None and ctx is None:
+                ctx = TraceContext(*c)
+        with self.tracer.span("streaming.ingest", ctx=ctx, frames=len(items)):
+            self._ingest_items(items, on_corrupt)
+
+    def _ingest_items(self, items: List, on_corrupt: str) -> None:
+        fast: List = []
+        corrupt: List[int] = []
+        use_native = native.available()
+        for doc_index, data in items:
+            sess = self.docs[doc_index]
+            object_bound = sess.fallback or sess.encoder is not None or bool(
+                sess.pending or sess.log)
+            if (not sess.frame_mode and object_bound) or not use_native:
+                try:
+                    self.ingest(doc_index, decode_frame(data))
+                except ValueError:
+                    corrupt.append(doc_index)
+            else:
+                fast.append((doc_index, data))
+        if fast:
+            corrupt.extend(self._ingest_frames_native(fast))
+        bad = set(corrupt)
+        # repair, first half: note which decode-quarantined docs saw a clean
+        # delivery (re-admission waits until the doc also drains)
+        for d in {int(d) for d, _ in items} - bad:
+            rec = self._quarantine.get(int(d))
+            if rec is not None and rec.reason == REASON_DECODE:
+                rec.clean_delivery = True
+        if bad:
+            GLOBAL_COUNTERS.add("streaming.corrupt_frames", len(corrupt))
+            for d in sorted(bad):  # deterministic registry order
+                self.quarantine_doc(int(d), REASON_DECODE, "corrupt wire frame discarded")
+            if on_corrupt == "raise":
+                raise DecodeError(f"corrupt frame(s) for doc(s) {sorted(bad)}")
+
+    def _ingest_frames_native(self, items: List) -> List[int]:
+        """Bulk-parse frames of frame-mode (or fresh) docs; returns the doc
+        indices of corrupt frames."""
+        doc_ids = np.asarray([d for d, _ in items], np.int64)
+        frames = [data for _, data in items]
+        frame_off = np.concatenate(
+            [[0], np.cumsum([len(f) for f in frames], dtype=np.int64)]).astype(np.int64)
+        text_objs: Dict[int, int] = {}
+        for d in doc_ids:
+            d = int(d)
+            sess = self.docs[d]
+            if not sess.frame_mode:
+                sess.frame_mode = True
+                self._frame_mode[d] = True
+            text_objs.setdefault(d, sess.text_obj)
+
+        t0 = time.perf_counter()
+        parsed, f_ch_off, status = parse_frames_bulk(
+            b"".join(frames), frame_off, self._actor_table, self._frame_attrs, doc_ids,
+            text_objs, keys=self._map_keys,
+        )
+        self.host_parse_seconds += time.perf_counter() - t0
+
+        # comment-mark attr ids: from the session table to PER-DOC dense ids
+        # (they index capacity-C planes), interned only for rows of frames
+        # that passed every corrupt/demote check — a discarded frame must not
+        # spend a doc's comment-id space
+        ops = parsed.ops
+        sel = np.nonzero((ops[:, 0] == KIND_MARK) & (ops[:, 4] == MARK_INDEX["comment"])
+                         & (ops[:, 9] > 0))[0]
+        if len(sel):
+            ch_idx = np.searchsorted(parsed.ops_off, sel, side="right") - 1
+            f_idx = np.searchsorted(f_ch_off, ch_idx, side="right") - 1
+            ok = status[f_idx] == FRAME_OK
+            sel, ch_idx, f_idx = sel[ok], ch_idx[ok], f_idx[ok]
+        if len(sel):
+            docs_of_rows = doc_ids[f_idx].astype(np.int64)
+            keycode = (docs_of_rows << 32) | ops[sel, 9].astype(np.int64)
+            uniq, inv = np.unique(keycode, return_inverse=True)
+            local_ids = np.empty(len(uniq), np.int32)
+            for j, kc in enumerate(uniq):
+                doc, gid = int(kc >> 32), int(kc & 0xFFFFFFFF)
+                table = self._doc_comment_ids.setdefault(doc, Interner())
+                local_ids[j] = table.intern(self._frame_attrs.lookup(gid))
+            ops[sel, 9] = local_ids[inv]
+
+        # per-frame bookkeeping in arrival order: a demotion mid-call routes
+        # the same doc's later frames to the object path (its pooled changes
+        # drop at gather time; the frame-history replay covers them)
+        corrupt: List[int] = []
+        keep_frame = np.zeros(len(items), bool)
+        for f, (d, data) in enumerate(items):
+            d = int(d)
+            sess = self.docs[d]
+            if not sess.frame_mode:  # demoted earlier in this call
+                try:
+                    self.ingest(d, decode_frame(data))
+                except ValueError:
+                    corrupt.append(d)
+                continue
+            if status[f] == FRAME_CORRUPT:
+                corrupt.append(d)
+            elif status[f] == FRAME_DEMOTE:
+                try:
+                    extra = decode_frame(data)
+                except ValueError:
+                    # natively parseable but not object-decodable: corrupt
+                    # semantics, the doc's state is kept
+                    corrupt.append(d)
+                    continue
+                self._demote_frame_doc(d, extra=extra, reason=REASON_SCHEDULE,
+                                       detail="frame parseable but not device-expressible")
+            else:
+                sess.frames.append(data)
+                sess.text_obj = text_objs[d]
+                keep_frame[f] = True
+
+        counts = np.diff(f_ch_off).astype(np.int64)
+        if keep_frame.all() and parsed.num_changes:
+            self._pool.append((np.repeat(doc_ids, counts), parsed))
+        elif parsed.num_changes:
+            sel = np.nonzero(np.repeat(keep_frame, counts))[0]
+            if len(sel):
+                self._pool.append((np.repeat(doc_ids, counts)[sel], parsed.select(sel)))
+        return corrupt
 
     # -- quarantine ----------------------------------------------------------
 
     def quarantine_doc(self, doc_index: int, reason: str, detail: str = "") -> None:
-        """Quarantine one doc with a typed reason (idempotent per doc: the
-        first record stays)."""
-        if doc_index not in self._quarantine:
+        """Quarantine one doc with a typed reason.  Idempotent per doc, with
+        one escalation rule: a demotion-class reason overwrites a ``decode``
+        record (the doc's routing really changed), and a repeated corrupt
+        frame voids a decode record's repair evidence."""
+        rec = self._quarantine.get(doc_index)
+        if rec is None:
             self._quarantine[doc_index] = QuarantineRecord(
-                reason=reason, detail=detail, round=self.rounds
-            )
+                reason=reason, detail=detail, round=self.rounds)
+            GLOBAL_COUNTERS.add("streaming.quarantined_docs")
+        elif rec.reason == REASON_DECODE and reason != REASON_DECODE:
+            self._quarantine[doc_index] = QuarantineRecord(
+                reason=reason, detail=detail, round=self.rounds)
+        elif rec.reason == REASON_DECODE:
+            rec.clean_delivery = False
+
+    def readmit(self, doc_index: int) -> bool:
+        """Lift a doc's quarantine (any reason); returns whether a record was
+        present.  A demoted doc stays on the scalar path: re-admission
+        clears the health record, not the routing."""
+        if self._quarantine.pop(doc_index, None) is not None:
+            GLOBAL_COUNTERS.add("streaming.readmitted_docs")
+            return True
+        return False
+
+    def _sweep_decode_quarantine(self) -> None:
+        """Re-admission, second half: a ``decode``-quarantined doc lifts once
+        a clean delivery arrived AND the doc has no pending work left (a
+        causal gap the corrupt frame tore keeps its dependents pending).
+        Only ``decode`` records lift."""
+        candidates = [d for d, r in sorted(self._quarantine.items())
+                      if r.reason == REASON_DECODE and r.clean_delivery]
+        if not candidates:
+            return
+        pending = self.pending_docs()
+        for d in candidates:
+            if d not in pending:
+                self.readmit(d)
 
     def quarantined(self) -> Dict[int, QuarantineRecord]:
-        """Snapshot of the quarantine registry (doc -> record)."""
+        """Snapshot of the quarantine registry (doc -> record), after a sweep
+        of the ``decode`` records whose re-admission condition now holds."""
+        self._sweep_decode_quarantine()
         return dict(self._quarantine)
+
+    def pending_docs(self) -> set:
+        """Docs with undelivered (pending or pooled) changes."""
+        out = {d for d, s in enumerate(self.docs) if s.pending}
+        for doc_of, _ in self._pool:
+            out.update(int(x) for x in np.unique(doc_of))
+        return out
 
     def _demote(self, doc_index: int, reason: str, detail: str) -> None:
         sess = self.docs[doc_index]
@@ -448,13 +699,41 @@ class StreamingMerge:
     def force_fallback(self, doc_index: int, reason: str = REASON_DEVICE_ROUND,
                        detail: str = "") -> None:
         """Demote one doc to scalar replay (degraded but correct) and
-        quarantine it with ``reason``; pending work folds into the replay
-        log."""
+        quarantine it with ``reason``.  Frame docs replay their frame
+        history; object docs fold pending work into the replay log."""
         sess = self.docs[doc_index]
+        if sess.frame_mode:
+            self._demote_frame_doc(doc_index, reason=reason, detail=detail)
+            return
         self._demote(doc_index, reason, detail)
         sess.log.extend(sess.pending)
         sess.pending = []
         self._object_pending.discard(doc_index)
+        self._object_waiting.discard(doc_index)
+
+    def _demote_frame_doc(self, doc_index: int, extra: Sequence[Change] = (),
+                          reason: str = REASON_CAPACITY, detail: str = "") -> None:
+        """Take a frame doc off the fast path: it becomes a scalar-replay
+        fallback fed by its decoded frame history (its device row may hold
+        applied ops already, so only the oracle path is still correct)."""
+        sess = self.docs[doc_index]
+        changes = [ch for f in sess.frames for ch in decode_frame(f)]
+        changes.extend(extra)
+        sess.log.extend(changes)
+        # fold the applied frontier into the object clock, so frontier()
+        # stays truthful across the demotion
+        row = self._clock_mat[doc_index]
+        for idx in np.nonzero(row)[0]:
+            actor = self._actor_table.lookup(int(idx))
+            sess.clock[actor] = max(sess.clock.get(actor, 0), int(row[idx]))
+        self._clock_mat[doc_index] = 0
+        sess.frame_mode = False
+        self._frame_mode[doc_index] = False
+        sess.frames = []
+        sess.text_obj = 0
+        sess.fallback = True
+        GLOBAL_COUNTERS.add("streaming.fallback_docs")
+        self.quarantine_doc(doc_index, reason, detail)
 
     # -- the incremental device round --------------------------------------
 
@@ -469,6 +748,7 @@ class StreamingMerge:
                     self._commit_rounds([(enc, widths)])
                 self._emit_round_stats([(enc, widths)], scheduled, ssp.duration, asp.duration)
             rsp.args["scheduled"] = scheduled
+        self._sweep_decode_quarantine()
         return scheduled
 
     def _emit_round_stats(self, batch, scheduled: int, schedule_s: float, apply_s: float) -> None:
@@ -499,11 +779,15 @@ class StreamingMerge:
 
     def _schedule_round(self):
         """The HOST half of a round: causal admission of every object doc's
-        pending changes into staging buffers, and width selection — no
+        pending changes (per doc) and of every frame doc's pooled changes
+        (one native call) into staging buffers, and width selection — no
         device work.  Returns ``(enc, widths, scheduled)``."""
         ki, kd, km, kp = self.round_caps
         scheduled = 0
         obj_streams: Dict[int, _DocStreams] = {}
+        GLOBAL_COUNTERS.add("streaming.schedule_passes")
+        GLOBAL_COUNTERS.add("streaming.docs_scanned", len(self._object_pending))
+        GLOBAL_COUNTERS.add("streaming.docs_skipped", len(self._object_waiting))
         for i in sorted(self._object_pending):
             sess = self.docs[i]
             if sess.fallback:
@@ -537,14 +821,21 @@ class StreamingMerge:
                 sess.pending = []
             if not sess.pending:
                 self._object_pending.discard(i)
+            elif not admitted:
+                # nothing admissible (an undemoted doc that admits nothing
+                # had an empty ordered list): every pending change waits on
+                # a clock that only an ingest() to this doc can move
+                self._object_pending.discard(i)
+                self._object_waiting.add(i)
 
-        if scheduled == 0:
+        pool = self._gather_pool()
+        if scheduled == 0 and pool is None:
             return None, None, 0
-        # adaptive widths: a shared power-of-two shift per stream kind for
-        # trickle rounds; block-chunked and static-round sessions keep the
+        # adaptive widths: a power-of-two bucket per stream kind for trickle
+        # rounds; block-chunked and static-round sessions keep the
         # configured widths
         if self._padded_docs <= self._read_chunk and not self.static_rounds:
-            ki, kd, km, kp = self._round_widths(obj_streams, ki, kd, km, kp)
+            ki, kd, km, kp = self._round_widths(pool, obj_streams, ki, kd, km, kp)
 
         enc = _RoundBuffers(self._padded_docs, ki, kd, km, kp)
         for i, streams in obj_streams.items():
@@ -570,18 +861,107 @@ class StreamingMerge:
             enc.del_count[r] = len(streams.dels)
             enc.num_ops[r] = (len(streams.ins) + len(streams.dels)
                               + len(streams.marks) + len(streams.maps))
+
+        # the frame pass: ONE native call schedules and splits every frame
+        # doc's pooled changes into its padded row
+        if pool is not None:
+            scheduled += self._step_frame_docs(pool, enc, (ki, kd, km, kp))
+        if scheduled == 0:
+            return None, None, 0
         GLOBAL_COUNTERS.add("streaming.scheduled_changes", scheduled)
         return enc, (ki, kd, km, kp), scheduled
 
-    @staticmethod
-    def _round_widths(obj_streams, ki: int, kd: int, km: int, kp: int):
-        """Shrink this round's stream widths: each kind to the power-of-two
-        bucket (at least 8) of its largest admitted doc, never past the
-        configured width."""
+    #: fraction of frame-pool docs whose whole pending need must fit the
+    #: round width; the skewed tail above it defers to later rounds instead
+    #: of widening every doc's padded streams
+    ROUND_WIDTH_QUANTILE = 0.98
+
+    def _round_widths(self, pool, obj_streams, ki: int, kd: int, km: int, kp: int):
+        """Shrink this round's stream widths, each kind to the power-of-two
+        bucket (at least 8) of its need, never past the configured width.
+        Object docs were admitted at the full widths, so their exact usage
+        is a floor.  Frame docs defer what does not fit anyway, so their
+        need is the ROUND_WIDTH_QUANTILE of per-doc pending need, but at
+        least the largest single pooled change (every doc still admits a
+        change a round)."""
         need = [max((len(getattr(s, f)) for s in obj_streams.values()), default=0)
                 for f in ("ins", "dels", "marks", "maps")]
+        if pool is not None:
+            doc_of, parsed = pool
+            starts = np.nonzero(np.concatenate([[True], doc_of[1:] != doc_of[:-1]]))[0]
+            for j, (cap, cnt) in enumerate(((ki, parsed.cnt_ins), (kd, parsed.cnt_del),
+                                            (km, parsed.cnt_mark), (kp, parsed.cnt_map))):
+                per_doc = np.minimum(np.add.reduceat(cnt, starts), cap)
+                floor = int(cnt.max()) if len(cnt) else 0  # largest single change
+                want = max(floor, int(np.quantile(per_doc, self.ROUND_WIDTH_QUANTILE))
+                           if len(per_doc) else 0)
+                need[j] = max(need[j], min(cap, want))
         return tuple(min(cap, _width_bucket(max(n, 8)))
                      for cap, n in zip((ki, kd, km, kp), need))
+
+    def _gather_pool(self):
+        """Merge the pooled parsed-change chunks into one doc-grouped batch
+        ``(doc_of_change, ParsedChanges)`` sorted by doc, dropping demoted
+        docs' entries (their frame-history replay covers them)."""
+        if not self._pool:
+            return None
+        chunks = self._pool
+        self._pool = []
+        doc_of = chunks[0][0] if len(chunks) == 1 else np.concatenate([d for d, _ in chunks])
+        parsed = ParsedChanges.concat_many([p for _, p in chunks])
+        keep = self._frame_mode[doc_of]
+        if not keep.all():
+            idx = np.nonzero(keep)[0]
+            if not len(idx):
+                return None
+            doc_of, parsed = doc_of[idx], parsed.select(idx)
+        if np.any(doc_of[:-1] > doc_of[1:]):
+            order = np.argsort(doc_of, kind="stable")
+            doc_of, parsed = doc_of[order], parsed.select(order)
+        return doc_of, parsed
+
+    def _step_frame_docs(self, pool, enc: _RoundBuffers, caps) -> int:
+        """Schedule every frame doc's pooled changes into its padded row in
+        one native call; deferred changes go back to the pool as one chunk.
+        Returns the changes admitted."""
+        doc_of, parsed = pool
+        frame_docs = np.unique(doc_of)
+        frame_rows = self._row_of[frame_docs]
+        ch_off = np.concatenate(
+            [np.searchsorted(doc_of, frame_docs), [len(doc_of)]]).astype(np.int32)
+        # the scheduled docs' clock rows, scattered back after the call
+        clock = np.ascontiguousarray(self._clock_mat[frame_docs], np.int32)
+        text_obj = np.asarray([self.docs[int(i)].text_obj for i in frame_docs], np.int32)
+        _, n_ins, n_del, n_mark, n_map, n_admitted, admitted, status = native.schedule_split_batch(
+            len(self._actor_table), ch_off, frame_rows.astype(np.int32), text_obj,
+            (parsed.ch_actor, parsed.ch_seq, parsed.dep_off, parsed.dep_actor,
+             parsed.dep_seq, parsed.ops_off, parsed.ops),
+            clock, caps, (enc.ins_ref, enc.ins_op, enc.ins_char), enc.del_target,
+            enc.marks, enc.map_ops,
+        )
+        self._clock_mat[frame_docs] = clock
+        enc.ins_count[frame_rows] = n_ins
+        enc.del_count[frame_rows] = n_del
+        enc.mark_count[frame_rows] = n_mark
+        enc.map_count[frame_rows] = n_map
+        enc.num_ops[frame_rows] = n_ins + n_del + n_mark + n_map
+        scheduled = int(n_admitted.sum())
+        demoted = frame_docs[status != 0] if status.any() else None
+        if demoted is not None:
+            for i in demoted:  # rare: the native call zeroed the rows
+                r = int(self._row_of[int(i)])
+                enc.ins_count[r] = enc.del_count[r] = enc.mark_count[r] = 0
+                enc.map_count[r] = enc.num_ops[r] = 0
+                # folds and zeroes the doc's clock row
+                self._demote_frame_doc(int(i), reason=REASON_SCHEDULE,
+                                       detail="batched scheduler demoted the doc's round")
+        defer = admitted == 0
+        if demoted is not None:
+            defer &= ~np.isin(doc_of, demoted)
+        if defer.any():
+            idx = np.nonzero(defer)[0]
+            self._pool.append((doc_of[idx], parsed.select(idx)))
+        return scheduled
 
     @staticmethod
     def _op_counts(change: Change) -> tuple:
@@ -750,6 +1130,7 @@ class StreamingMerge:
         if rounds and fused and self.prefetch_digest:
             self._digest_resolution(0)
             GLOBAL_COUNTERS.add("streaming.digest_chained")
+        self._sweep_decode_quarantine()
         return rounds
 
     def _schedule_batch(self, rounds: int, max_rounds: int):
@@ -774,13 +1155,18 @@ class StreamingMerge:
 
     @staticmethod
     def _replay_changes(sess: _DocSession) -> List[Change]:
-        """A doc's full change history for scalar replay."""
+        """A doc's full change history for scalar replay: its decoded wire
+        frames in frame mode, the object log otherwise."""
+        if sess.frame_mode:
+            return [ch for f in sess.frames for ch in decode_frame(f)]
         return sess.log + sess.pending
 
-    @staticmethod
-    def _attr_tables(sess: _DocSession):
-        """(attr table, comment-id table) for decode: object docs intern
-        both in their encoder's attr table."""
+    def _attr_tables(self, sess: _DocSession, doc_index: int):
+        """(link/general attr table, comment-id table) for decode: frame
+        docs use the session table and their per-doc comment ids; object
+        docs intern both in their encoder's attr table."""
+        if sess.frame_mode:
+            return self._frame_attrs, self._doc_comment_ids.get(doc_index)
         attrs = sess.encoder.attrs if sess.encoder else None
         return attrs, attrs
 
@@ -858,7 +1244,7 @@ class StreamingMerge:
         resolved, local = self._resolved_doc(doc_index)
         if bool(resolved.overflow[local]):
             return _replay_spans(self._replay_changes(sess))
-        attrs, comments = self._attr_tables(sess)
+        attrs, comments = self._attr_tables(sess, doc_index)
         return decode_doc_spans(resolved, local, attrs, comments)
 
     def read_patches(self, doc_index: int) -> List:
@@ -882,7 +1268,7 @@ class StreamingMerge:
         resolved, local = self._resolved_doc(doc_index)
         if bool(resolved.overflow[local]):
             return doc_chars_scalar(_replay_doc(self._replay_changes(sess)))
-        attrs, comments = self._attr_tables(sess)
+        attrs, comments = self._attr_tables(sess, doc_index)
         bi = int(self._row_of[doc_index]) // self._read_chunk
         elem = self._state_block(bi).elem_id[local].cpu().numpy()
         return doc_chars_device(resolved, local, attrs, elem, self._actor_table, comments)
@@ -947,16 +1333,18 @@ class StreamingMerge:
             for f in ("r_obj", "r_key", "r_op", "r_kind", "r_val", "num_regs")
         })
         one = ResolvedDocs(*(x[local:local + 1] for x in resolved))
-        keys = sess.encoder.keys if sess.encoder else self._map_keys
+        keys = self._map_keys if sess.frame_mode or sess.encoder is None else sess.encoder.keys
         return decode_doc_root(regs, one, 0, keys)
 
     def _block_tables(self, lo: int):
         """(attr_of, comment_of) accessors for block-local ROW indices."""
         def attr_of(local: int):
-            return self._attr_tables(self.docs[int(self._doc_at[lo + local])])[0]
+            d = int(self._doc_at[lo + local])
+            return self._attr_tables(self.docs[d], d)[0]
 
         def comment_of(local: int):
-            table = self._attr_tables(self.docs[int(self._doc_at[lo + local])])[1]
+            d = int(self._doc_at[lo + local])
+            table = self._attr_tables(self.docs[d], d)[1]
             return table if table is not None else Interner()
 
         return attr_of, comment_of
@@ -1088,20 +1476,26 @@ class StreamingMerge:
         hashes.  Widths are power-of-two buckets, as the reference sizes
         them (an id past a table's width clips to its last column).  Cached
         until an interner grows or the object docs change."""
-        sess_attr = self._session_attrs.content_hashes()
+        sess_attr = self._frame_attrs.content_hashes()
         sess_keys = self._map_keys.content_hashes()
         enc = {
             row: self.docs[d].encoder
             for row in range(lo, hi)
-            if (d := int(self._doc_at[row])) >= 0 and self.docs[d].encoder is not None
+            if (d := int(self._doc_at[row])) >= 0 and not self.docs[d].frame_mode
+            and self.docs[d].encoder is not None
+        }
+        comments = {
+            int(self._row_of[d]) - lo: t for d, t in sorted(self._doc_comment_ids.items())
+            if lo <= int(self._row_of[d]) < hi and self.docs[d].frame_mode
         }
         key = (len(sess_attr), len(sess_keys),
-               tuple((row, len(e.attrs), len(e.keys)) for row, e in sorted(enc.items())))
+               tuple((row, len(e.attrs), len(e.keys)) for row, e in sorted(enc.items())),
+               tuple((row, len(t)) for row, t in comments.items()))
         cached = self._digest_tables_cache.get((lo, hi))
         if cached is not None and cached[0] == key:
             return cached[1]
         tables = self._hash_tables(hi - lo, sess_attr, sess_keys,
-                                   {row - lo: e for row, e in enc.items()},
+                                   {row - lo: e for row, e in enc.items()}, comments,
                                    _width_bucket(len(enc)) if enc else 0)
         self._digest_tables_cache[(lo, hi)] = (key, tables)
         return tables
@@ -1110,17 +1504,22 @@ class StreamingMerge:
         """:meth:`_digest_tables` for a GATHERED row subset, by position in
         ``rows``; only the first ``n_real`` positions are real (the rest is
         power-of-two padding whose table entries stay zero)."""
-        enc = {}
+        enc, comments = {}, {}
         for i in range(n_real):
             d = int(self._doc_at[rows[i]])
-            if d >= 0 and self.docs[d].encoder is not None:
+            if d < 0:
+                continue
+            if self.docs[d].frame_mode:
+                if d in self._doc_comment_ids:
+                    comments[i] = self._doc_comment_ids[d]
+            elif self.docs[d].encoder is not None:
                 enc[i] = self.docs[d].encoder
-        return self._hash_tables(len(rows), self._session_attrs.content_hashes(),
-                                 self._map_keys.content_hashes(), enc,
+        return self._hash_tables(len(rows), self._frame_attrs.content_hashes(),
+                                 self._map_keys.content_hashes(), enc, comments,
                                  _width_bucket(len(enc)) if enc else 0)
 
     def _hash_tables(self, n_rows: int, sess_attr, sess_keys, enc: Dict[int, DocEncoder],
-                     n_obj: int):
+                     comments: Dict[int, Interner], n_obj: int):
         a_w = _width_bucket(max([len(sess_attr)] + [len(e.attrs) for e in enc.values()]))
         k_w = _width_bucket(max([len(sess_keys)] + [len(e.keys) for e in enc.values()]))
         c_w = self.comment_capacity
@@ -1142,6 +1541,9 @@ class StreamingMerge:
             obj_key[i, : len(kh)] = kh
             # object-path comment marks index the same per-doc attr interner
             comment_hash[row, : min(c_w, len(ah))] = ah[: min(c_w, len(ah))]
+        for row, table in comments.items():  # frame docs' per-doc comment ids
+            ch = table.content_hashes()
+            comment_hash[row, : min(c_w, len(ch))] = ch[: min(c_w, len(ch))]
         t = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
         return (t(sess_attr_t), t(sess_key_t), t(comment_hash), t(row_map),
                 t(obj_attr), t(obj_key))
@@ -1264,6 +1666,19 @@ class StreamingMerge:
                 return int(self._digest_plane[row])
         return self._host_digest(doc_index)
 
+    # -- durable history ---------------------------------------------------------
+
+    def doc_history_frames(self, doc_index: int) -> List[bytes]:
+        """The doc's full ingested history as wire frames (re-ingesting them
+        rebuilds the doc exactly; duplicates are tolerated).  Frame docs
+        return their raw frames; object and fallback docs re-encode their
+        log."""
+        sess = self.docs[doc_index]
+        if sess.frame_mode:
+            return list(sess.frames)
+        changes = self._replay_changes(sess)
+        return [encode_frame(changes)] if changes else []
+
     # -- session state ---------------------------------------------------------
 
     @property
@@ -1287,6 +1702,10 @@ class StreamingMerge:
     def frontier(self) -> Clock:
         """Merged vector-clock frontier across all docs, keys sorted."""
         merged: Clock = {}
+        if self._clock_mat.size:
+            col_max = self._clock_mat.max(axis=0)  # frame docs
+            for idx in np.nonzero(col_max)[0]:
+                merged[self._actor_table.lookup(int(idx))] = int(col_max[idx])
         for sess in self.docs:
             for actor, seq in sorted(sess.clock.items()):
                 merged[actor] = max(merged.get(actor, 0), seq)
@@ -1298,12 +1717,22 @@ class StreamingMerge:
         return sum(int(self._resolution(bi).overflow.sum()) for bi in range(self._n_blocks()))
 
     def pending_count(self) -> int:
-        return sum(len(s.pending) for s in self.docs)
+        pooled = sum(int(self._frame_mode[d].sum()) for d, _ in self._pool)
+        return pooled + sum(len(s.pending) for s in self.docs)
 
     def pending_rounds_estimate(self) -> int:
         """Upper-bound estimate of the rounds a full ``drain()`` needs: the
-        deepest per-doc pending queue."""
-        return max((len(s.pending) for s in self.docs), default=0)
+        deepest per-doc pending queue (pooled frame changes included)."""
+        if not self.num_docs:
+            return 0
+        per_doc = np.zeros(self.num_docs, np.int64)
+        for doc_of, _ in self._pool:
+            live = np.asarray(doc_of)[self._frame_mode[doc_of]]
+            if live.size:
+                per_doc += np.bincount(live, minlength=self.num_docs)
+        for d, sess in enumerate(self.docs):
+            per_doc[d] += len(sess.pending)
+        return int(per_doc.max())
 
     @property
     def layout(self) -> str:

@@ -138,7 +138,8 @@ def test_import_leaves_jax_and_reference_out():
         "import sys, peritext_tpu_torch, peritext_tpu_torch.api, peritext_tpu_torch.ops, "
         "peritext_tpu_torch.store, peritext_tpu_torch.testing, "
         "peritext_tpu_torch.parallel.streaming, peritext_tpu_torch.parallel.mesh, "
-        "peritext_tpu_torch.ops.patches\n"
+        "peritext_tpu_torch.ops.patches, peritext_tpu_torch.native, "
+        "peritext_tpu_torch.parallel.codec, peritext_tpu_torch.ops.frames\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"

@@ -2,7 +2,8 @@
 streaming slice's arms (default, ``fused_pipeline`` off, static rounds,
 block-chunked, digest prefetch) at a small size give equal reads, patches,
 roots, cursors and digests, and launch the insert kernel once per touched
-block of every committed round.
+block of every committed round; a frame-ingest session on the card equals
+its object-ingest twin.
 
 Every test here needs an NVIDIA card (``cuda`` marker) and skips without
 one.  The file imports nothing of JAX:
@@ -38,7 +39,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _run(device, workloads, arm):
+def _run(device, workloads, arm, frames=False):
     kw = dict(ARMS[arm])
     fused = kw.pop("fused_pipeline", True)
     prefetch = kw.pop("prefetch_digest", False)
@@ -49,10 +50,16 @@ def _run(device, workloads, arm):
     s.fused_pipeline = fused
     s.prefetch_digest = prefetch
     s.FUSE_MAX_ROUNDS = 3
+    arrival = build_arrival(workloads, 4, 0, as_frames=True)[0] if frames else \
+        build_arrival(workloads, 4, 0)
     for batch_round in range(4):
-        for d, batches in enumerate(build_arrival(workloads, 4, 0)):
-            if batch_round < len(batches):
-                s.ingest(d, batches[batch_round])
+        if frames:  # one bulk call per round
+            s.ingest_frames((d, batches[batch_round]) for d, batches in enumerate(arrival)
+                            if batch_round < len(batches))
+        else:
+            for d, batches in enumerate(arrival):
+                if batch_round < len(batches):
+                    s.ingest(d, batches[batch_round])
         s.drain()
     return s
 
@@ -80,3 +87,29 @@ def test_card_session_equals_cpu_session(cuda, arm):
     assert [card.doc_digest(d) for d in range(20)] == [cpu.doc_digest(d) for d in range(20)]
     assert [s.fallback for s in card.docs] == [s.fallback for s in cpu.docs]
     assert card.overflow_count() == cpu.overflow_count()
+
+
+@pytest.mark.parametrize("arm", ["fused", "block_chunked"])
+def test_card_frame_session_equals_object_twin(cuda, arm):
+    from peritext_tpu_torch import native
+
+    workloads = generate_workload(seed=3, num_docs=20, ops_per_doc=80)
+    objects = _run(cuda, workloads, arm)
+    calls = dict(native.calls)
+    insert_batch.launches = 0
+    applies = GLOBAL_COUNTERS.get("streaming.block_applies")
+    frames = _run(cuda, workloads, arm, frames=True)
+    assert insert_batch.launches == GLOBAL_COUNTERS.get("streaming.block_applies") - applies > 0
+    assert native.calls["parse_frames"] > calls.get("parse_frames", 0)
+    assert all(s.frame_mode for s in frames.docs) and frames.pending_count() == 0
+    assert frames.read_all() == objects.read_all()
+    assert frames.read_patches_all() == objects.read_patches_all()
+    for d in range(len(workloads)):
+        assert frames.read_root(d) == objects.read_root(d)
+    cursors = dict(enumerate(sample_cursors(workloads, 3, 1)))
+    assert frames.resolve_cursors_batch(cursors) == objects.resolve_cursors_batch(cursors)
+    assert frames.digest() == objects.digest() == frames.digest(refresh=True)
+    assert frames.digest(full=False) == objects.digest(full=False)
+    assert [frames.doc_digest(d) for d in range(20)] == [objects.doc_digest(d) for d in range(20)]
+    assert [s.fallback for s in frames.docs] == [s.fallback for s in objects.docs]
+    assert frames.frontier() == objects.frontier()
