@@ -38,14 +38,29 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    every committed round); A, C and their frame arms must keep digest() ==
    digest(refresh=True) == the sum of doc_digest(), and a seeded sample of
    64 docs (with every fallback doc) must equal the scalar oracle in
-   spans, roots, cursors and the host mirror's digest;
+   spans, roots, cursors and the host mirror's digest, and
+   digest_async().wait() must equal digest();
+5b. streaming layouts: A in the paged and the ragged layout (pages of 64
+   slots), by objects and by frames, each equal to A on every doc; B in
+   the paged layout with a ``reshard()`` after its second round (4
+   blocks), equal to A, its digest unchanged by the reshard; C's frame arm
+   in the ragged layout at full width (16384 rows), equal to C_frames;
+   and the long-tail session (the reference bench's ``longdoc`` shape:
+   1024 docs x 8 ops and one essay of 6144 ops, slots 8192, by frames in
+   4 rounds) in all three layouts, paged and ragged equal to padded on
+   every doc.  A paged session launches the insert kernel once per (round,
+   page group) (``streaming.group_applies``) and never the ragged one; a
+   ragged session the ragged insert kernel once per non-empty doc class of
+   each round's plan (``streaming.ragged_applies``) and never the padded
+   one.  Each session prints its ``health()`` and passes phase 5's checks;
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
    gathered pages, padding rows and null-page entries included; for the
-   ragged one the ragged merge's; for the insert kernel also one
-   streaming round of A and one of A's frame arm, each at its
-   ``loop_slots``) and at larger shapes: for the insert
+   ragged one the ragged merge's and one streaming round of ragged
+   C_frames; for the insert kernel also one streaming round of A and one
+   of A's frame arm, each at its ``loop_slots``, and every page group of
+   one streaming round of paged A) and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
    variant and a long-doc shape past the shared-memory budget; for the
@@ -98,6 +113,19 @@ POOLED = dict(tail_docs=8, tail_ops=1024, tail_seed=8, slot_capacity=1024,
 #: a mixed drain: (docs, inserts per doc, synth seed) per size class
 MIXED_10K = dict(slots=4096, groups=((9216, 179, 1), (896, 1024, 2), (128, 4096, 3)))
 LONG_DOC_RAGGED = dict(docs=64, slots=32768, inserts=4096, seed=2)
+#: the long-tail session: the reference bench's ``longdoc`` row (bench.py
+#: --mode longdoc, defaults 1024 x 8 and 8192; docs from seed 1, the essay
+#: from seed 90001; slots: the power of two covering the essay; marks:
+#: essay / 4) moved to streaming: 4 shuffled arrival rounds by v2 frames;
+#: the round widths are session A's, which every change fits (checked).
+#: One cut, for the time limit: the essay has 6144 ops, not 8192.  At these
+#: capacities it overflows (more mark ops and comment ids than the tables
+#: hold), so every session replays it on the host: at 8192 ops that took
+#: 118 s a session on the card's host, the worker's essay came 146 s after
+#: the phases before it, and the script took 892.5 s in all
+LONGTAIL = dict(docs=1024, ops=8, seed=1, essay_ops=6144, essay_seed=90001, rounds=4,
+                slot_capacity=8192, mark_capacity=2048, tomb_capacity=8192,
+                comment_capacity=64, page_size=64, round_caps=(256, 128, 128, 16), sample=64)
 #: the streaming sessions: BASELINE config 5 as the reference's streaming
 #: bench row (2048 fuzz docs x 192 ops, seed 0, 4 arrival rounds, shuffle
 #: model; slots 384, marks 96, round widths 256/128/128/16), by object
@@ -117,6 +145,16 @@ def _generate_chunk(args):
     from peritext_tpu_torch.testing.fuzz import generate_workload
 
     return generate_workload(*args)
+
+
+def _essay(seed: int, ops: int):
+    """One fuzz doc of ``ops`` ops (seed ``seed``) and its scalar-oracle
+    replay: the long-tail session's essay, made in a worker."""
+    from peritext_tpu_torch.api.batch import _oracle_doc
+    from peritext_tpu_torch.testing.fuzz import generate_workload
+
+    workloads = generate_workload(seed, 1, ops)
+    return workloads, _oracle_doc(workloads[0])
 
 
 def generate(seed: int, docs: int, ops: int):
@@ -256,6 +294,8 @@ def ragged_bound(args):
               + b * (2 * 4 + 2 * 1 + 4 + 4) + b * gmax * 4)
     nops = 0
     for g in torch.unique(page_count).tolist():
+        if g == 0:  # rows holding no pages (a session's padding rows) take no step
+            continue
         rows = (page_count == g).nonzero()[:, 0]
         k = int(ins_counts[rows].max())
         elem = pool_elem[page_table[rows, :g].long()].reshape(len(rows), g * p)
@@ -562,56 +602,101 @@ SESSION_COUNTERS = ("streaming.schedule_passes", "streaming.docs_scanned",
                     "streaming.docs_skipped")
 
 
+def _arm_capture(capture, layout):
+    """Patch the path's kernel wrapper to record the inputs of one armed
+    round (``capture["armed"]``), and return the undo.  Padded: the first
+    insert call; paged: every insert call of one round's group chain (one
+    per page group); ragged: the first ragged insert call."""
+    from peritext_tpu_torch.ops import kernel as kernel_mod
+    from peritext_tpu_torch.ops import ragged as ragged_mod
+    from peritext_tpu_torch.store import session as session_mod
+
+    clone = lambda args: [a.clone() for a in args]  # noqa: E731
+    originals = [(kernel_mod, "insert_batch", kernel_mod.insert_batch),
+                 (session_mod, "apply_batch_paged_groups", session_mod.apply_batch_paged_groups),
+                 (ragged_mod, "ragged_insert", ragged_mod.ragged_insert)]
+    insert, groups, ragged = (o[2] for o in originals)
+
+    def insert_rec(*args, loop_slots=None, **kw):
+        if capture.get("armed") and layout == "padded":
+            capture.update(armed=False, loop_slots=loop_slots, args=clone(args))
+        elif capture.get("recording"):
+            capture["groups"].append(clone(args))
+        return insert(*args, loop_slots=loop_slots, **kw)
+
+    def groups_rec(*args, **kw):
+        if not capture.get("armed"):
+            return groups(*args, **kw)
+        capture.update(armed=False, recording=True, groups=[])
+        try:
+            return groups(*args, **kw)
+        finally:
+            capture["recording"] = False
+
+    def ragged_rec(*args, **kw):
+        if capture.get("armed"):
+            capture.update(armed=False, args=clone(args))
+        return ragged(*args, **kw)
+
+    for (mod, name, _), rec in zip(originals, (insert_rec, groups_rec, ragged_rec)):
+        setattr(mod, name, rec)
+    return lambda: [setattr(mod, name, fn) for mod, name, fn in originals]
+
+
+#: the insert-launch counter each layout's commits keep, one per launch
+APPLY_COUNTER = {"padded": "streaming.block_applies", "paged": "streaming.group_applies",
+                 "ragged": "streaming.ragged_applies"}
+
+
 def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire_bytes=None,
-                       **arm):
+                       after_round=None, **arm):
     """One streaming session over ``arrival``: per arrival round ingest (one
     ``ingest`` per doc, or, when ``wire_bytes`` is given, the arrival is
     wire frames and one ``ingest_frames`` call takes the round), then
     ``drain()`` (synchronized, so its apply time covers the kernels it
     queued); then ``digest()``, ``read_all()`` and ``read_patches_all()``.
-    The insert kernel's launch count is set to 0 just before and read just
-    after, and must equal the session's applies (one per touched block of
-    every committed round); a frame session must have been parsed and
-    scheduled by the native library.  ``capture`` (a dict) asks for the
-    insert inputs of the first kernel call of the third drain.  Returns the
-    session and its report."""
+    ``arm`` may name a ``layout`` (padded, paged, ragged) and the
+    ``fused_pipeline``/``static_rounds`` switches.  Both kernels' launch
+    counts are set to 0 just before and read just after: the layout's
+    kernel must have launched exactly as often as its commits counted
+    (:data:`APPLY_COUNTER`), the other never.  A frame session must have
+    been parsed and scheduled by the native library.  ``capture`` (a dict)
+    asks for the kernel inputs of one round of the third drain
+    (:func:`_arm_capture`); ``after_round(s, r)`` runs after round r's
+    drain.  Returns the session and its report."""
     import torch
 
     from peritext_tpu_torch import native
     from peritext_tpu_torch.obs import GLOBAL_COUNTERS
-    from peritext_tpu_torch.ops import kernel as kernel_mod
     from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.ops.ragged_insert import ragged_insert
     from peritext_tpu_torch.parallel.streaming import StreamingMerge
 
+    layout = arm.get("layout", "padded")
     ki, kd, km, kp = cfg["round_caps"]
+    pooled = {} if layout == "padded" else dict(page_size=cfg.get("page_size", 64))
     s = StreamingMerge(
         num_docs=len(workloads), actors=("doc1", "doc2", "doc3"),
         slot_capacity=cfg["slot_capacity"], mark_capacity=cfg["mark_capacity"],
         tomb_capacity=cfg["tomb_capacity"], round_insert_capacity=ki,
         round_delete_capacity=kd, round_mark_capacity=km, round_map_capacity=kp,
         comment_capacity=cfg["comment_capacity"], read_chunk=cfg.get("read_chunk", 8192),
-        static_rounds=arm.get("static_rounds", False), device=device,
+        static_rounds=arm.get("static_rounds", False), layout=layout, device=device, **pooled,
     )
     s.fused_pipeline = arm.get("fused_pipeline", True)
-    original = kernel_mod.insert_batch
-    if capture is not None:
-        def recording(*args, loop_slots=None, **kw):
-            if capture.get("armed"):
-                capture.update(armed=False, loop_slots=loop_slots,
-                               args=[a.clone() for a in args])
-            return original(*args, loop_slots=loop_slots, **kw)
-        kernel_mod.insert_batch = recording
+    undo = _arm_capture(capture, layout) if capture is not None else None
     stages = dict.fromkeys(("ingest", "schedule", "apply", "digest", "read_all",
                             "read_patches_all"), 0.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     frames = wire_bytes is not None
-    counters = {c: GLOBAL_COUNTERS.get(c) for c in SESSION_COUNTERS}
+    counters = {c: GLOBAL_COUNTERS.get(c) for c in SESSION_COUNTERS + tuple(APPLY_COUNTER.values())}
     native_calls = dict(native.calls)
     insert_batch.launches = 0
-    applies = GLOBAL_COUNTERS.get("streaming.block_applies")
+    ragged_insert.launches = 0
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
+    extra = {}
     t_all = time.perf_counter()
     try:
         for r in range(max(len(b) for b in arrival)):
@@ -636,6 +721,10 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
             stages["ingest"] += t1 - t0
             stages["schedule"] += (t2 - t1) - apply
             stages["apply"] += apply
+            if after_round is not None:
+                t0 = time.perf_counter()
+                extra.update(after_round(s, r) or {})
+                stages["after_round"] = stages.get("after_round", 0.0) + time.perf_counter() - t0
         for stage, fn in (("digest", s.digest), ("read_all", s.read_all),
                           ("read_patches_all", s.read_patches_all)):
             t0 = time.perf_counter()
@@ -648,20 +737,23 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
             else:
                 patches = out
     finally:
-        kernel_mod.insert_batch = original
+        if undo is not None:
+            undo()
         gc.callbacks.remove(gc_clock)
     wall = time.perf_counter() - t_all
-    launches = insert_batch.launches
-    applies = GLOBAL_COUNTERS.get("streaming.block_applies") - applies
+    launches = {"rga_insert": insert_batch.launches, "ragged_insert": ragged_insert.launches}
+    counts = {c.split(".")[1]: GLOBAL_COUNTERS.get(c) - n for c, n in counters.items()}
+    applies = counts[APPLY_COUNTER[layout].split(".")[1]]
     ops = sum(len(ch.ops) for w in workloads for log in w.values() for ch in log)
     fallback = [d for d, sess in enumerate(s.docs) if sess.fallback]
-    counts = {c.split(".")[1]: GLOBAL_COUNTERS.get(c) - n for c, n in counters.items()}
     passes = max(counts["schedule_passes"], 1)
     native_delta = {k: v - native_calls.get(k, 0) for k, v in native.calls.items()
                     if v != native_calls.get(k, 0)}
-    report = dict(session=name, ingest="frames" if frames else "objects", docs=len(workloads),
-                  padded_docs=s._padded_docs, blocks=-(-s._padded_docs // s._read_chunk),
-                  rounds=s.rounds, ops=ops, wall_seconds=wall, ops_per_second=ops / wall,
+    report = dict(session=name, layout=layout, ingest="frames" if frames else "objects",
+                  docs=len(workloads), padded_docs=s._padded_docs,
+                  blocks=-(-s._padded_docs // s._read_chunk), rounds=s.rounds,
+                  round_caps=list(s.round_caps), ops=ops, wall_seconds=wall,
+                  ops_per_second=ops / wall,
                   stage_seconds=dict(stages, host_parse=s.host_parse_seconds),
                   gc_seconds=gc_clock.seconds,
                   wire_bytes_per_op=wire_bytes / ops if frames else None,
@@ -670,13 +762,18 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
                   object_docs_scanned_per_pass_without_skip=(
                       counts["docs_scanned"] + counts["docs_skipped"]) / passes,
                   native_calls=native_delta,
-                  rga_insert_launches=launches, block_applies=applies,
+                  rga_insert_launches=launches["rga_insert"],
+                  ragged_insert_launches=launches["ragged_insert"],
+                  block_applies=counts["block_applies"], group_applies=counts["group_applies"],
+                  ragged_applies=counts["ragged_applies"],
                   fallback_docs=len(fallback), overflow_docs=s.overflow_count(),
-                  peak_memory_bytes=torch.cuda.max_memory_allocated())
+                  peak_memory_bytes=torch.cuda.max_memory_allocated(), health=s.health(), **extra)
     log("streaming", json.dumps(report))
-    if launches == 0 or launches != applies:
-        raise AssertionError(f"streaming {name}: {launches} insert launches for {applies} "
-                             "block applies (one per touched block of every committed round)")
+    kernel = "ragged_insert" if layout == "ragged" else "rga_insert"
+    other = "rga_insert" if layout == "ragged" else "ragged_insert"
+    if launches[kernel] == 0 or launches[kernel] != applies or launches[other]:
+        raise AssertionError(f"streaming {name}: launches {launches} for {applies} "
+                             f"{APPLY_COUNTER[layout]} (one {kernel} launch each)")
     if frames and not (native_delta.get("parse_frames") and native_delta.get("schedule_split_batch")):
         raise AssertionError(f"streaming {name}: the frames were not parsed and scheduled by the "
                              f"native library (native calls {native_delta})")
@@ -685,24 +782,32 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
     return s, dict(report, digest=digest, spans=spans, patches=patches, fallback=fallback)
 
 
-def check_stream_session(name, s, out, workloads, cfg, sample) -> None:
-    """A session's digest invariants, and a seeded doc sample (with every
-    fallback doc) against the scalar oracle: spans, root, cursors and the
-    per-doc digest against the host mirrors of the replayed doc."""
+def check_stream_session(name, s, out, workloads, cfg, sample, oracle=None) -> None:
+    """A session's digest invariants (``digest()`` == ``digest(refresh=True)``
+    == the sum of ``doc_digest`` == ``digest_async().wait()``), and a seeded
+    doc sample (with every fallback doc) against the scalar oracle: spans,
+    root, cursors and the per-doc digest against the host mirrors of the
+    replayed doc.  ``oracle`` (a dict) keeps the replayed docs for the
+    next session of the same workloads."""
     from peritext_tpu_torch.api.batch import _oracle_doc
     from peritext_tpu_torch.ops.resolve import oracle_cursor_positions
     from peritext_tpu_torch.testing.fuzz import sample_cursors
 
+    oracle = {} if oracle is None else oracle
     if s.digest() != out["digest"] or s.digest(refresh=True) != out["digest"]:
         raise AssertionError(f"streaming {name}: digest() != digest(refresh=True)")
     total = sum(s.doc_digest(d) for d in range(s.num_docs)) & 0xFFFFFFFF
     if total != out["digest"]:
         raise AssertionError(f"streaming {name}: the doc_digest sum != digest()")
+    if s.digest_async().wait() != out["digest"]:
+        raise AssertionError(f"streaming {name}: digest_async().wait() != digest()")
     docs = sorted(set(sample) | set(out["fallback"]))
     cursors = sample_cursors([workloads[d] for d in docs], 4, cfg["seed"])
     got_cursors = s.resolve_cursors_batch(dict(zip(docs, cursors)))
     for d, cur in zip(docs, cursors):
-        doc = _oracle_doc(workloads[d])
+        if d not in oracle:
+            oracle[d] = _oracle_doc(workloads[d])
+        doc = oracle[d]
         if out["spans"][d] != doc.get_text_with_formatting(["text"]) or \
                 s.read(d) != out["spans"][d]:
             raise AssertionError(f"streaming {name}: doc {d} spans differ from the oracle")
@@ -712,7 +817,7 @@ def check_stream_session(name, s, out, workloads, cfg, sample) -> None:
             raise AssertionError(f"streaming {name}: doc {d} cursors differ from the oracle")
         if s.doc_digest(d) != _oracle_digest(doc, cfg["slot_capacity"], s._actor_table):
             raise AssertionError(f"streaming {name}: doc {d} digest differs from the host mirror")
-    log(f"streaming {name}: digest == refresh == sum of doc digests; {len(docs)} docs "
+    log(f"streaming {name}: digest == refresh == sum of doc digests == async; {len(docs)} docs "
         f"({len(out['fallback'])} fallback) equal the oracle (spans, roots, cursors, digests)")
 
 
@@ -727,8 +832,9 @@ def run_streaming(device):
     """The streaming slice: an untimed warm-up session, then sessions A
     (three object arms and a frame arm), B (block-chunked) and C (scale,
     an object and a frame arm), each checked; returns the K1 captures of a
-    mid-session round of A's object and frame arms and the per-session
-    reports."""
+    mid-session round of A's object and frame arms, the per-session
+    reports, and what the layouts phase reuses (workloads, arrivals,
+    samples, oracle docs, A_default's and C_frames' results)."""
     from peritext_tpu_torch.testing.arrival import build_arrival
 
     cfg = STREAM
@@ -754,14 +860,15 @@ def run_streaming(device):
     for arm in ("A_fused_pipeline_off", "A_static_rounds"):
         compare_arms(arm, arms[arm][1], a, "A_default")
     log("streaming: the three arms of A agree (read_all, read_patches_all, digest, fallback)")
-    check_stream_session("A_default", s_a, a, workloads, cfg, sample)
+    oracle_a = {}
+    check_stream_session("A_default", s_a, a, workloads, cfg, sample, oracle_a)
     capture_frames = {}
     s_f, f = run_stream_session(device, cfg, workloads, wire, "A_frames", capture=capture_frames,
                                 wire_bytes=wire_bytes)
     compare_arms("A_frames", f, a, "A_default")
     log(f"streaming: A_frames equals A_default on all {cfg['docs']} docs "
         "(read_all, read_patches_all, digest, fallback)")
-    check_stream_session("A_frames", s_f, f, workloads, cfg, sample)
+    check_stream_session("A_frames", s_f, f, workloads, cfg, sample, oracle_a)
     reports = [out for _, out in arms.values()] + [f]
     del arms, s_f
 
@@ -778,7 +885,8 @@ def run_streaming(device):
     log(f"streaming: generated {len(more)} more docs in {time.perf_counter() - t0:.1f} s")
     s_c, c = run_stream_session(device, cfg, workloads_c, arrival_c, "C_scale")
     sample_c = sorted(random.Random(cfg["seed"] + 1).sample(range(len(workloads_c)), cfg["sample"]))
-    check_stream_session("C_scale", s_c, c, workloads_c, cfg, sample_c)
+    oracle_c = {}
+    check_stream_session("C_scale", s_c, c, workloads_c, cfg, sample_c, oracle_c)
     del s_c
     wire_c, wire_bytes_c = build_arrival(workloads_c, cfg["rounds"], cfg["seed"], as_frames=True,
                                          wire=cfg["wire"])
@@ -786,8 +894,132 @@ def run_streaming(device):
                                   wire_bytes=wire_bytes_c)
     compare_arms("C_frames", cf, c, "C_scale")
     log(f"streaming: C_frames equals C_scale on all {len(workloads_c)} docs")
-    check_stream_session("C_frames", s_cf, cf, workloads_c, cfg, sample_c)
-    return capture, capture_frames, reports + [b, c, cf]
+    check_stream_session("C_frames", s_cf, cf, workloads_c, cfg, sample_c, oracle_c)
+    del s_cf
+    ctx = dict(workloads=workloads, arrival=arrival, wire=wire, wire_bytes=wire_bytes,
+               sample=sample, oracle_a=oracle_a, a=a, workloads_c=workloads_c, wire_c=wire_c,
+               wire_bytes_c=wire_bytes_c, sample_c=sample_c, oracle_c=oracle_c, cf=cf)
+    return capture, capture_frames, reports + [b, c, cf], ctx
+
+
+def run_stream_layouts(device, ctx, essay_job):
+    """The streaming-layouts phase: session A in the paged and the ragged
+    layout, by objects and by frames, each equal to A_default on every doc;
+    B in the paged layout with a reshard() after its second round (4 read
+    blocks, so 4 shards), equal to A, its digest unchanged by the reshard;
+    C_frames in the ragged layout at full width (10240 docs, 16384 rows),
+    equal to C_frames; and the long-tail session (:data:`LONGTAIL`) in all
+    three layouts, paged and ragged equal to padded on every doc.  Each
+    session's checks as :func:`check_stream_session`.  Returns the captured
+    paged round (K1 inputs, one per group), the captured ragged round of
+    ragged C_frames (K3 inputs) and the reports."""
+    cfg = STREAM
+    reports, capture_paged, capture_ragged = [], {}, {}
+    for layout in ("paged", "ragged"):
+        for frames in (False, True):
+            name = f"A_{layout}" + ("_frames" if frames else "")
+            s, out = run_stream_session(
+                device, cfg, ctx["workloads"], ctx["wire"] if frames else ctx["arrival"], name,
+                capture=capture_paged if name == "A_paged" else None,
+                wire_bytes=ctx["wire_bytes"] if frames else None, layout=layout)
+            compare_arms(name, out, ctx["a"], "A_default")
+            log(f"streaming: {name} equals A_default on all {cfg['docs']} docs "
+                "(read_all, read_patches_all, digest, fallback)")
+            check_stream_session(name, s, out, ctx["workloads"], cfg, ctx["sample"], ctx["oracle_a"])
+            reports.append(out)
+            del s
+
+    def reshard_after_second_round(s, r):
+        if r != 1:
+            return None
+        before = s.digest()
+        placed = s.reshard()
+        after, refreshed = s.digest(), s.digest(refresh=True)
+        log(f"streaming B_paged_reshard: reshard after round 2 moved {placed['moved']} docs; "
+            f"page_load {placed['page_load']}; digest {before} before, {after} after")
+        if not placed["moved"] or after != before or refreshed != before:
+            raise AssertionError(f"streaming B_paged_reshard: reshard {placed}, digest {before} "
+                                 f"before, {after} after ({refreshed} refreshed)")
+        return dict(reshard=placed)
+
+    s, b = run_stream_session(device, dict(cfg, read_chunk=cfg["b_read_chunk"]), ctx["workloads"],
+                              ctx["arrival"], "B_paged_reshard",
+                              after_round=reshard_after_second_round, layout="paged")
+    compare_arms("B_paged_reshard", b, ctx["a"], "A_default")
+    check_stream_session("B_paged_reshard", s, b, ctx["workloads"], cfg, ctx["sample"],
+                         ctx["oracle_a"])
+    log(f"streaming: B_paged_reshard ({b['blocks']} blocks, resharded) equals A on all "
+        f"{cfg['docs']} docs and the digest")
+    reports.append(b)
+    del s
+
+    s, cr = run_stream_session(device, cfg, ctx["workloads_c"], ctx["wire_c"], "C_frames_ragged",
+                               capture=capture_ragged, wire_bytes=ctx["wire_bytes_c"],
+                               layout="ragged")
+    compare_arms("C_frames_ragged", cr, ctx["cf"], "C_frames")
+    check_stream_session("C_frames_ragged", s, cr, ctx["workloads_c"], cfg, ctx["sample_c"],
+                         ctx["oracle_c"])
+    log(f"streaming: C_frames_ragged equals C_frames on all {len(ctx['workloads_c'])} docs; "
+        f"peak memory {cr['peak_memory_bytes']} bytes (padded C_frames "
+        f"{ctx['cf']['peak_memory_bytes']})")
+    reports.append(cr)
+    del s
+    reports += run_longtail(device, essay_job)
+    return capture_paged, capture_ragged, reports
+
+
+def round_need(workloads):
+    """The largest (inserts, deletes, marks, map ops) of any one change:
+    round widths at least this wide never demote a change for width."""
+    from peritext_tpu_torch.parallel.streaming import StreamingMerge
+
+    need = [0, 0, 0, 0]
+    for w in workloads:
+        for log_ in w.values():
+            for ch in log_:
+                need = [max(a, b) for a, b in zip(need, StreamingMerge._op_counts(ch))]
+    return need
+
+
+def run_longtail(device, essay_job):
+    """The long-tail session (:data:`LONGTAIL`), the reference bench's
+    ``longdoc`` shape moved to streaming, by frames, in the padded, paged
+    and ragged layouts: paged and ragged must equal padded on every doc and
+    in the digest, and every session passes :func:`check_stream_session`
+    with the essay in its oracle sample."""
+    from peritext_tpu_torch.testing.arrival import build_arrival
+
+    cfg = LONGTAIL
+    t0 = time.perf_counter()
+    essay_workloads, essay_doc = essay_job.get(timeout=900)
+    workloads = generate(cfg["seed"], cfg["docs"], cfg["ops"]) + essay_workloads
+    need = round_need(workloads)
+    if any(n > c for n, c in zip(need, cfg["round_caps"])):
+        raise AssertionError(f"longtail: a change needs {need}, wider than {cfg['round_caps']}")
+    wire, wire_bytes = build_arrival(workloads, cfg["rounds"], cfg["seed"], as_frames=True,
+                                     wire="v2")
+    log(f"longtail: {cfg['docs']} docs x {cfg['ops']} ops + an essay of {cfg['essay_ops']} ops "
+        f"(seed {cfg['essay_seed']}) ready in {time.perf_counter() - t0:.1f} s after the earlier "
+        f"phases; widest change {need}; round widths {list(cfg['round_caps'])}")
+    essay = len(workloads) - 1
+    sample = sorted(random.Random(cfg["seed"]).sample(range(essay), cfg["sample"] - 1))
+    oracle, outs = {essay: essay_doc}, {}
+    for layout in ("padded", "paged", "ragged"):
+        s, outs[layout] = run_stream_session(device, cfg, workloads, wire, f"longtail_{layout}",
+                                             wire_bytes=wire_bytes, layout=layout)
+        check_stream_session(f"longtail_{layout}", s, outs[layout], workloads, cfg,
+                             sample + [essay], oracle)
+        del s
+    for layout, out in outs.items():
+        log(f"longtail {layout}: wall {out['wall_seconds']:.3f} s, {out['ops_per_second']:.1f} "
+            f"ops/s, peak memory {out['peak_memory_bytes']} bytes, fallback docs "
+            f"{out['fallback']}, overflow docs {out['overflow_docs']}, pool_stats "
+            f"{json.dumps(out['health'].get('page_pool'))}")
+    for layout in ("paged", "ragged"):
+        compare_arms(f"longtail_{layout}", outs[layout], outs["padded"], "longtail_padded")
+    log(f"longtail: paged and ragged equal padded on all {len(workloads)} docs (read_all, "
+        "read_patches_all, digest, fallback)")
+    return list(outs.values())
 
 
 def main_path_insert_args(batch, workloads):
@@ -859,6 +1091,24 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    # the long-tail essay (one doc of thousands of fuzz ops) and its oracle
+    # replay take minutes on one core: they start now, in a worker, which
+    # ends with main
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        essay_job = pool.apply_async(_essay, (LONGTAIL["essay_seed"], LONGTAIL["essay_ops"]))
+        return run_all(device, essay_job)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_all(device, essay_job) -> int:
+    """Every phase after the device check (module doc)."""
+    import torch
+
     t_start = time.perf_counter()
 
     card = subprocess.run(
@@ -890,8 +1140,12 @@ def main() -> int:
     batch, workloads, cursors, launches = run_slice(device)
     pooled, pooled_workloads, pooled_launches = run_pooled(device, workloads, cursors)
     log(f"merges done at {time.perf_counter() - t_start:.1f} s")
-    capture, capture_frames, stream_reports = run_streaming(device)
+    capture, capture_frames, stream_reports, ctx = run_streaming(device)
     log(f"streaming done at {time.perf_counter() - t_start:.1f} s")
+    capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx, essay_job)
+    stream_reports += layout_reports
+    del ctx
+    log(f"streaming layouts done at {time.perf_counter() - t_start:.1f} s")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
@@ -904,7 +1158,11 @@ def main() -> int:
         raise AssertionError("streaming: no insert call was captured in A_frames' third drain")
     rows.append(check_insert("streaming_frame_round", capture_frames["args"],
                              loop_slots=capture_frames["loop_slots"]))
-    del capture, capture_frames
+    if not capture_paged.get("groups"):
+        raise AssertionError("streaming: no paged group chain was captured in A_paged's third drain")
+    for i, args in enumerate(capture_paged["groups"]):
+        rows.append(check_insert(f"streaming_paged_round_g{i}", args))
+    del capture, capture_frames, capture_paged
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
     rows.append(check_insert("batch_8k_loop_slots", args, loop_slots=BATCH_8K["inserts"]))
@@ -917,6 +1175,9 @@ def main() -> int:
     from peritext_tpu_torch.testing.synth import synth_streams
 
     ragged_rows = check_ragged("main_path", main_path_ragged_args(pooled["ragged"], pooled_workloads))
+    if "args" not in capture_ragged:
+        raise AssertionError("streaming: no ragged insert call was captured in C_frames_ragged")
+    ragged_rows += check_ragged("streaming_ragged_round", capture_ragged.pop("args"))
     ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
         device, BATCH_8K["slots"],
         synth_streams(BATCH_8K["docs"], inserts_per_doc=BATCH_8K["inserts"], seed=1)[:3]))
@@ -950,7 +1211,11 @@ def main() -> int:
     rga_paths = {"slice": launches["rga_insert"],
                  "pooled_padded": pooled_launches["padded"]["rga_insert"],
                  "pooled_paged": pooled_launches["paged"]["rga_insert"]}
-    rga_paths.update({f"streaming_{r['session']}": r["rga_insert_launches"] for r in stream_reports})
+    rga_paths.update({f"streaming_{r['session']}": r["rga_insert_launches"] for r in stream_reports
+                      if r["layout"] != "ragged"})
+    ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
+    ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
+                         for r in stream_reports if r["layout"] == "ragged"})
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),
@@ -958,7 +1223,7 @@ def main() -> int:
         dict(record("ragged_insert", "peritext_tpu_torch/csrc/ragged_insert.cu",
                     "peritext_tpu/ops/ragged_pallas.py:65",
                     pooled_launches["ragged"]["ragged_insert"], ragged_rows),
-             launches_by_path={"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}),
+             launches_by_path=ragged_paths),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -20,7 +20,11 @@ import torch
 
 class Counters:
     """A registry of named monotone counters (the session's ``streaming.*``
-    counts)."""
+    counts).  Three of them count the commits' insert launches, one each:
+    ``streaming.block_applies`` (padded: one per touched read block of a
+    round), ``streaming.group_applies`` (paged: one per page group of a
+    round) and ``streaming.ragged_applies`` (ragged: one per non-empty doc
+    class of a round's plan)."""
 
     def __init__(self) -> None:
         self._values: Dict[str, int] = {}

@@ -225,6 +225,16 @@ def apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arr
         a[rows] = getattr(state, f)[real]
 
 
+def apply_batch_paged_groups(pool_elem, pool_char, aux, group_inputs) -> None:
+    """One round's page-bucket groups in causal order: each
+    ``(row_idx, page_rows, encoded_arrays)`` of ``group_inputs`` is one
+    :func:`apply_batch_paged` (one insert launch), with the group's own
+    window, writing the pool and aux tensors in place before the next
+    group reads them."""
+    for row_idx, page_rows, encoded_arrays in group_inputs:
+        apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arrays)
+
+
 # -- incremental rounds (parallel/streaming.py) -------------------------------
 #
 # A streaming round reaches the card as flat per-doc-concatenated streams

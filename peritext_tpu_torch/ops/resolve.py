@@ -21,7 +21,8 @@ int64.  The per-comment-id reduction is a ``scatter_reduce(..., "amax")``
 over the comment-id axis, bit-identical to the dense (J, C, S) masked max.
 
 Visibility is computed here too: a slot is visible iff occupied and its
-element id is absent from the tombstone table.
+element id is absent from the tombstone table (a keyed set membership,
+:func:`_row_isin`).
 
 Everything is plain torch on whatever device the state lies on; there is no
 hand kernel in this phase (nor a TPU kernel in the reference package).
@@ -67,6 +68,17 @@ class ResolvedDocs(NamedTuple):
     #: addMark (W = ceil(C/32)); the same bits as the reference's uint32 plane
     comment_bits: torch.Tensor
     overflow: torch.Tensor  # bool (D,)
+
+
+def _row_isin(values: torch.Tensor, table: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """(D, S) bool: ``values[d, s]`` is among row d's ``table`` entries
+    where ``live``.  Each value is keyed with its row, so one sorted set
+    membership serves every row, in memory linear in D * (S + T); the
+    (D, S, T) compare it equals would take D * S * T bytes (69 GB for 1025
+    docs at 8192 slots and 8192 tombstones)."""
+    rows = torch.arange(values.shape[0], dtype=torch.int64, device=values.device)[:, None]
+    key = lambda x: (rows << 32) | (x.to(torch.int64) & 0xFFFFFFFF)  # noqa: E731
+    return torch.isin(key(values), key(table)[live])
 
 
 def resolve(state: PackedDocs, comment_capacity: int = 32,
@@ -157,11 +169,8 @@ def resolve(state: PackedDocs, comment_capacity: int = 32,
         error = error | (live & ~(s_ok & e_ok)).any(dim=1)
         error = error | (live & is_comment & (attr >= comment_capacity)).any(dim=1)
 
-    # Visibility: occupied and not tombstoned (one vectorized any-match).
-    tombed = (
-        (elem[:, :, None] == state.tomb_id[:, None, :]) & (state.tomb_id != 0)[:, None, :]
-    ).any(dim=2)
-    visible = occupied & ~tombed
+    # Visibility: occupied and not tombstoned.
+    visible = occupied & ~_row_isin(elem, state.tomb_id, state.tomb_id != 0)
 
     lww_active = (lww_val & 1) == 1
     if with_comments:

@@ -34,14 +34,22 @@ Design, as in the reference package's session:
   round one native call schedules every frame doc's pooled changes into
   its padded row.  No per-change Python object exists on that path.
 
-Ported here: the padded layout without a mesh, with object and frame
-ingest.  The mesh, the paged and ragged layouts, ``health()``,
-``digest_async`` and ``reshard`` are listed in ROADMAP.md (queue 1, items
-5b, 7, 8 and 11).
+* **Layouts** — the constructor is a factory: ``layout="paged"`` and
+  ``layout="ragged"`` build the page-pool sessions of store/session.py
+  (``PagedStreamingMerge``, ``RaggedStreamingMerge``); the padded layout
+  stays the byte-equality oracle.
+* **Placement** — :meth:`StreamingMerge.reshard` moves docs between read
+  blocks behind the ``_row_of``/``_doc_at`` indirection; reads, ingest and
+  digests do not see it.
+
+Ported here: every layout without a mesh, with object and frame ingest,
+``health()``, ``digest_async`` and ``reshard``.  The mesh is listed in
+ROADMAP.md (queue 1, item 11).
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -69,7 +77,7 @@ from ..ops.kernel import apply_batch_compact
 from ..ops.packed import VK_DELETED, VK_STR, PackedDocs, empty_docs
 from ..ops.resolve import COMMENT_TYPE, LINK_TYPE, ResolvedDocs, resolve
 from ..schema import MARK_INDEX
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, upload_int32
 from ..utils.interning import Interner, OrderedActorTable
 from ..utils.shapes import next_pow2
 from .causal import causal_schedule
@@ -311,21 +319,6 @@ class _RoundBuffers:
         self.num_ops = np.zeros(d, np.int32)
 
 
-def _upload(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """Every int32 array of ``arrays`` on ``device`` through ONE copy of one
-    concatenated buffer; returns views of it, shaped as the arrays.  The
-    buffer is pageable and made here, so the copy has completed when this
-    returns."""
-    flat = np.concatenate([np.ascontiguousarray(a, np.int32).reshape(-1) for a in arrays.values()]) \
-        if arrays else np.zeros(0, np.int32)
-    dev = torch.from_numpy(flat).to(device)
-    out, off = {}, 0
-    for name, a in arrays.items():
-        out[name] = dev[off:off + a.size].view(a.shape)
-        off += a.size
-    return out
-
-
 class StreamingMerge:
     """Incremental multi-round merge of up to ``num_docs`` documents.
 
@@ -335,10 +328,28 @@ class StreamingMerge:
 
     The constructor takes the reference package's arguments and defaults,
     plus ``device`` (default ``cuda``; raises without a card — pass
-    ``device="cpu"`` for the plain torch path).  ``mesh=`` and the
-    ``"paged"``/``"ragged"`` layouts are not ported yet and raise
+    ``device="cpu"`` for the plain torch path).  It is the factory of the
+    layouts: ``layout="paged"`` or ``"ragged"`` builds the matching
+    subclass (store/session.py).  ``mesh=`` is not ported yet and raises
     ``NotImplementedError``.
     """
+
+    #: storage layout of this class (the page-pool subclasses override it)
+    _layout = "padded"
+
+    def __new__(cls, *args, **kwargs):
+        layout = kwargs.get("layout", "padded")
+        if layout not in ("padded", "paged", "ragged"):
+            raise ValueError(f"unknown layout: {layout!r}")
+        if cls is StreamingMerge and layout == "paged":
+            from ..store.session import PagedStreamingMerge
+
+            return super().__new__(PagedStreamingMerge)
+        if cls is StreamingMerge and layout == "ragged":
+            from ..store.session import RaggedStreamingMerge
+
+            return super().__new__(RaggedStreamingMerge)
+        return super().__new__(cls)
 
     #: max rounds drain() schedules before committing them; bounds the host
     #: memory of a batch's staging buffers
@@ -366,12 +377,6 @@ class StreamingMerge:
     ) -> None:
         if layout not in ("padded", "paged", "ragged"):
             raise ValueError(f"unknown layout: {layout!r}")
-        if layout == "paged":
-            raise NotImplementedError(
-                "layout='paged' is not ported yet (ROADMAP.md queue 1 item 7: 'Paged streaming')")
-        if layout == "ragged":
-            raise NotImplementedError(
-                "layout='ragged' is not ported yet (ROADMAP.md queue 1 item 8: 'Ragged streaming')")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP.md queue 1 item 11: 'Multi-GPU mesh')")
@@ -411,6 +416,8 @@ class StreamingMerge:
         #: cumulative host seconds in the wire parse of frame ingest
         self.host_parse_seconds = 0.0
         self._patch_base: Dict[int, list] = {}
+        #: doc -> (history size, scalar replay) of docs read by replay
+        self._replay_cache: Dict[int, tuple] = {}
         # per-round cache of block resolutions: (rounds, {block: entry})
         self._resolved_cache = (-1, {})
         # incremental convergence digest: per-ROW full-state hashes carried
@@ -419,11 +426,12 @@ class StreamingMerge:
         self._digest_ov = np.zeros(self._padded_docs, bool)
         self._digest_row_valid = np.zeros(self._padded_docs, bool)
         # physical placement: logical doc d lives in device row _row_of[d];
-        # _doc_at is the inverse (-1 = pad row).  Identity in this slice
-        # (reshard, which moves rows, is not ported yet)
+        # _doc_at is the inverse (-1 = pad row).  reshard() moves rows and
+        # bumps the placement epoch, which every row-keyed cache carries
         self._row_of = np.arange(num_docs, dtype=np.int64)
         self._doc_at = np.full(self._padded_docs, -1, np.int64)
         self._doc_at[:num_docs] = np.arange(num_docs)
+        self._placement_epoch = 0
         self._digest_tables_cache: Dict = {}
         self._compact_cache: tuple = (-1, {}, 0)
         #: per-block visible-prefix widths (-1 = session-wide prior)
@@ -461,10 +469,12 @@ class StreamingMerge:
         # slot occupancy; its power-of-two bucket bounds the insert kernel's
         # slot window each round
         self._cum_ins = np.zeros(self._padded_docs, np.int64)
-        self.state: PackedDocs = empty_docs(
+        # the page-pool layouts keep their element planes in the pool their
+        # subclass builds after this init: they have no (D, S) batch
+        self.state: Optional[PackedDocs] = empty_docs(
             self._padded_docs, slot_capacity, mark_capacity, tomb_capacity,
             map_capacity=map_capacity, device=self.device,
-        )
+        ) if self._layout == "padded" else None
 
     # -- ingestion ---------------------------------------------------------
 
@@ -711,6 +721,28 @@ class StreamingMerge:
         self._object_pending.discard(doc_index)
         self._object_waiting.discard(doc_index)
 
+    def health(self) -> Dict:
+        """One snapshot of the session's fault-domain state, as a fleet
+        health endpoint would export it: counts, the quarantine registry,
+        and the padding efficiency (real ops over the op-stream capacity
+        paid) of the last committed round batch and of the session."""
+        last = self.last_round_stats
+        return {
+            "rounds": self.rounds,
+            "num_docs": self.num_docs,
+            "pending_changes": self.pending_count(),
+            "fallback_docs": sum(1 for s in self.docs if s.fallback),
+            "frame_docs": int(self._frame_mode.sum()),
+            "round_padding_efficiency": (
+                round(last.padding_efficiency, 4) if last is not None else None),
+            "padding_efficiency_cum": (
+                round(self._pad_real_ops / self._pad_capacity, 4) if self._pad_capacity else None),
+            "quarantined": {
+                d: {"reason": r.reason, "detail": r.detail, "round": r.round}
+                for d, r in sorted(self.quarantined().items())
+            },
+        }
+
     def _demote_frame_doc(self, doc_index: int, extra: Sequence[Change] = (),
                           reason: str = REASON_CAPACITY, detail: str = "") -> None:
         """Take a frame doc off the fast path: it becomes a scalar-replay
@@ -760,7 +792,10 @@ class StreamingMerge:
         for enc, widths in batch:
             touched.update(int(r) for r in np.nonzero(enc.num_ops)[0])
             real += int(enc.num_ops.sum())
-            capacity += self._padded_docs * sum(widths)
+            capacity += self._round_capacity(enc, widths)
+        extras = {"rounds": len(batch), "scheduled_changes": scheduled}
+        if self._layout != "padded":
+            extras[f"layout_{self._layout}"] = 1.0
         self.last_round_stats = MergeStats(
             docs=len(touched),
             device_docs=len(touched),
@@ -768,7 +803,7 @@ class StreamingMerge:
             encode_seconds=schedule_s,
             apply_seconds=apply_s,
             padding_efficiency=real / capacity if capacity else 0.0,
-            extras={"rounds": len(batch), "scheduled_changes": scheduled},
+            extras=extras,
         )
         if self.last_drain_marks is not None:
             self.last_drain_marks["schedule_seconds"] += schedule_s
@@ -776,6 +811,11 @@ class StreamingMerge:
             self.last_drain_marks["rounds"] += len(batch)
         self._pad_real_ops += real
         self._pad_capacity += capacity
+
+    def _round_capacity(self, enc: _RoundBuffers, widths) -> int:
+        """Op-stream capacity one committed round paid: every row at the
+        round widths (the page-pool layouts pay only what they launch)."""
+        return self._padded_docs * sum(widths)
 
     def _schedule_round(self):
         """The HOST half of a round: causal admission of every object doc's
@@ -1088,7 +1128,7 @@ class StreamingMerge:
             arrays["del"] = self._pad(dels, b_del)
             arrays.update({f"mark.{c}": self._pad(marks[c], b_mark) for c in MARK_COLS})
             arrays.update({f"map.{c}": self._pad(maps[c], b_map) for c in MAP_STREAM_COLS})
-            t = _upload(arrays, self.device)
+            t = upload_int32(arrays, self.device)
             new = apply_batch_compact(
                 self._state_block(bi), tuple(t[f"n{j}"] for j in range(4)),
                 (t["ins0"], t["ins1"], t["ins2"]), t["del"],
@@ -1161,6 +1201,17 @@ class StreamingMerge:
             return [ch for f in sess.frames for ch in decode_frame(f)]
         return sess.log + sess.pending
 
+    def _replayed(self, doc_index: int) -> Doc:
+        """The doc's scalar replay (the read path of fallback and overflowed
+        docs), kept until its history grows: every read of a long fallback
+        doc would otherwise replay all of it again.  Callers only read it."""
+        sess = self.docs[doc_index]
+        key = (sess.frame_mode, len(sess.frames), len(sess.log) + len(sess.pending))
+        hit = self._replay_cache.get(doc_index)
+        if hit is None or hit[0] != key:
+            hit = self._replay_cache[doc_index] = (key, _replay_doc(self._replay_changes(sess)))
+        return hit[1]
+
     def _attr_tables(self, sess: _DocSession, doc_index: int):
         """(link/general attr table, comment-id table) for decode: frame
         docs use the session table and their per-doc comment ids; object
@@ -1207,18 +1258,26 @@ class StreamingMerge:
             entry = cache.pop(block_index)  # re-insert: LRU, not FIFO
             cache[block_index] = entry
             return entry
-        lo, hi = self._block_bounds(block_index)
         on_device = self._block_fallback_mask(block_index)
         with self.tracer.span("streaming.resolve", block=block_index):
-            resolved, digest_dev = _resolve_block_digest(
-                self._state_block(block_index), self.comment_capacity,
-                torch.from_numpy(on_device).to(self.device), *self._digest_tables(lo, hi),
-            )
+            resolved, digest_dev = self._block_resolve_digest(
+                block_index, torch.from_numpy(on_device).to(self.device))
         entry = _BlockResolution(resolved, digest_dev, on_device)
         if len(cache) >= 2:  # bound device memory at large scale
             cache.pop(next(iter(cache)))  # least-recently-used
         cache[block_index] = entry
         return entry
+
+    def _block_resolve_digest(self, block_index: int, row_mask: torch.Tensor):
+        """The program :meth:`_resolution` caches: one block's resolution
+        and its per-doc full-state hash vector."""
+        lo, hi = self._block_bounds(block_index)
+        return _resolve_block_digest(self._state_block(block_index), self.comment_capacity,
+                                     row_mask, *self._digest_tables(lo, hi))
+
+    def _block_text_digest(self, block_index: int, row_mask: torch.Tensor):
+        """One block's text-only digest and overflow vector."""
+        return _resolve_digest(self._state_block(block_index), self.comment_capacity, row_mask)
 
     def _digest_resolution(self, block_index: int) -> _BlockResolution:
         """_resolution plus doc-mask freshness: a fallback transition without
@@ -1240,10 +1299,10 @@ class StreamingMerge:
     def read(self, doc_index: int) -> List[FormatSpan]:
         sess = self.docs[doc_index]
         if sess.fallback:
-            return _replay_spans(self._replay_changes(sess))
+            return _doc_spans(self._replayed(doc_index))
         resolved, local = self._resolved_doc(doc_index)
         if bool(resolved.overflow[local]):
-            return _replay_spans(self._replay_changes(sess))
+            return _doc_spans(self._replayed(doc_index))
         attrs, comments = self._attr_tables(sess, doc_index)
         return decode_doc_spans(resolved, local, attrs, comments)
 
@@ -1264,10 +1323,10 @@ class StreamingMerge:
 
         sess = self.docs[doc_index]
         if sess.fallback:
-            return doc_chars_scalar(_replay_doc(self._replay_changes(sess)))
+            return doc_chars_scalar(self._replayed(doc_index))
         resolved, local = self._resolved_doc(doc_index)
         if bool(resolved.overflow[local]):
-            return doc_chars_scalar(_replay_doc(self._replay_changes(sess)))
+            return doc_chars_scalar(self._replayed(doc_index))
         attrs, comments = self._attr_tables(sess, doc_index)
         bi = int(self._row_of[doc_index]) // self._read_chunk
         elem = self._state_block(bi).elem_id[local].cpu().numpy()
@@ -1311,8 +1370,7 @@ class StreamingMerge:
             for d, cursors in block_map.items():
                 out[d] = [int(p) for p in positions[int(self._row_of[d]) - lo, : len(cursors)]]
         for d in replay_docs:
-            doc = _replay_doc(self._replay_changes(self.docs[d]))
-            out[d] = oracle_cursor_positions(doc, cursor_map[d])
+            out[d] = oracle_cursor_positions(self._replayed(d), cursor_map[d])
         return out
 
     def read_root(self, doc_index: int) -> dict:
@@ -1323,10 +1381,10 @@ class StreamingMerge:
 
         sess = self.docs[doc_index]
         if sess.fallback:
-            return _replay_doc(self._replay_changes(sess)).root
+            return copy.deepcopy(self._replayed(doc_index).root)
         resolved, local = self._resolved_doc(doc_index)
         if bool(resolved.overflow[local]):
-            return _replay_doc(self._replay_changes(sess)).root
+            return copy.deepcopy(self._replayed(doc_index).root)
         block = self._state_block(int(self._row_of[doc_index]) // self._read_chunk)
         regs = SimpleNamespace(**{
             f: getattr(block, f)[local:local + 1].cpu().numpy()
@@ -1356,8 +1414,10 @@ class StreamingMerge:
     # -- the visible-prefix sweep ------------------------------------------------
 
     def _compact_cached(self, block_index: int):
-        if self._compact_cache[0] != self.rounds:
-            self._compact_cache = (self.rounds, {}, 0)
+        """CompactBlock cache lookup for the current (round, placement)."""
+        stamp = (self.rounds, self._placement_epoch)
+        if self._compact_cache[0] != stamp:
+            self._compact_cache = (stamp, {}, 0)
         return self._compact_cache[1].get(block_index)
 
     def _compact_store(self, block_index: int, c: CompactBlock) -> None:
@@ -1438,8 +1498,7 @@ class StreamingMerge:
                 for local, d in enumerate(self._doc_at[lo:hi]):
                     if d < 0:
                         continue
-                    out[d] = spans[local] if mask[local] else \
-                        _replay_spans(self._replay_changes(self.docs[d]))
+                    out[d] = spans[local] if mask[local] else _doc_spans(self._replayed(d))
             return out
 
     def read_patches_all(self) -> List[List]:
@@ -1461,7 +1520,7 @@ class StreamingMerge:
                     if d < 0:
                         continue
                     chars = chars_block[local] if mask[local] else doc_chars_scalar(
-                        _replay_doc(self._replay_changes(self.docs[d])))
+                        self._replayed(d))
                     out[d] = diff_patches(self._patch_base.get(d, []), chars)
                     self._patch_base[d] = chars
             return out
@@ -1488,7 +1547,7 @@ class StreamingMerge:
             int(self._row_of[d]) - lo: t for d, t in sorted(self._doc_comment_ids.items())
             if lo <= int(self._row_of[d]) < hi and self.docs[d].frame_mode
         }
-        key = (len(sess_attr), len(sess_keys),
+        key = (len(sess_attr), len(sess_keys), self._placement_epoch,
                tuple((row, len(e.attrs), len(e.keys)) for row, e in sorted(enc.items())),
                tuple((row, len(t)) for row, t in comments.items()))
         cached = self._digest_tables_cache.get((lo, hi))
@@ -1631,10 +1690,8 @@ class StreamingMerge:
             total = 0
             for bi in range(self._n_blocks()):
                 lo, hi = self._block_bounds(bi)
-                digest, overflow = _resolve_digest(
-                    self._state_block(bi), self.comment_capacity,
-                    torch.from_numpy(on_device_all[lo:hi]).to(self.device),
-                )
+                digest, overflow = self._block_text_digest(
+                    bi, torch.from_numpy(on_device_all[lo:hi]).to(self.device))
                 total = (total + int(digest)) & M32
                 ov = overflow.cpu().numpy()
                 replay_docs.extend(
@@ -1648,12 +1705,43 @@ class StreamingMerge:
 
     def _host_digest(self, doc_index: int, full: bool = True) -> int:
         """A doc's digest term from its scalar replay."""
-        doc = _replay_doc(self._replay_changes(self.docs[doc_index]))
+        doc = self._replayed(doc_index)
         cps, slots = _doc_char_slots(doc)
         part = doc_digest_host(cps, slots, self._slot_capacity)
         if full:
             part = (part + _doc_full_extras_host(doc, slots, self._actor_table)) & M32
         return part
+
+    def digest_async(self) -> "_PendingDigest":
+        """Queue the full-state digest without waiting for the card: the
+        hash programs of the invalid rows are enqueued, and the handle's
+        ``wait()`` fetches only their hash and overflow vectors.
+
+        The device hashes describe the state at scheduling time.  Docs that
+        were fallback then, or that the overflow vectors route to scalar
+        replay, hash at ``wait()`` from their current history, so call
+        ``wait()`` before further ingestion when such docs exist.  A round
+        or reshard before ``wait()`` keeps the fetched hashes out of the
+        carried plane (they describe rows that have since changed)."""
+        on_dev = self._on_device_mask()
+        need = ~self._digest_row_valid & on_dev & (self._doc_at >= 0)
+        parts = []
+        for bi in range(self._n_blocks()):
+            lo, hi = self._block_bounds(bi)
+            if int(need[lo:hi].sum()) > (hi - lo) // 4:
+                entry = self._digest_resolution(bi)
+                # only the vectors: the resolved planes stay evictable
+                parts.append((np.arange(lo, hi), entry.digest_dev, entry.device.overflow))
+                need[lo:hi] = False
+        rest = np.nonzero(need)[0]
+        if len(rest):
+            per_doc, ov = self._schedule_rows_digest(rest)
+            parts.append((rest, per_doc, ov))
+        snapshot = (
+            self._digest_plane.copy(), self._digest_ov.copy(), self._digest_row_valid.copy(),
+            on_dev, self._doc_at.copy(), [i for i, s in enumerate(self.docs) if s.fallback],
+        )
+        return _PendingDigest(self, parts, snapshot, self.rounds, self._placement_epoch)
 
     def doc_digest(self, doc_index: int) -> int:
         """ONE doc's full-state convergence hash — exactly the per-doc term
@@ -1737,12 +1825,157 @@ class StreamingMerge:
     @property
     def layout(self) -> str:
         """Resident-state storage layout."""
-        return "padded"
+        return self._layout
+
+    # -- placement -------------------------------------------------------------
+
+    def reshard(self, assignment: Optional[Sequence[int]] = None) -> dict:
+        """Balance doc placement across shards, here the read blocks (a
+        block bounds a read's and a digest's latency).
+
+        Docs are placed at first sight and never move otherwise, so skewed
+        arrival leaves hot blocks.  This moves doc rows between blocks by
+        one permutation of the row axis (:meth:`_permute_rows`), while every
+        logical doc id, clock, interner, pending queue and fallback flag
+        stays put: placement lives behind ``_row_of``/``_doc_at``, so reads,
+        ingest and digests do not change (the digest is a sum over docs).
+
+        ``assignment`` maps each doc to a shard (length ``num_docs``).  The
+        default places the largest doc first onto the least loaded shard
+        with a free row.  Quarantined and fallback docs are host-bound
+        (scalar replay runs on the host), so they place first and balance
+        their own load before the slot load; device docs weigh slot load
+        first.  Returns ``{"moved": n, "shard_load": [...],
+        "host_bound_load": [...]}``."""
+        n_shards = self._n_blocks()
+        if n_shards <= 1 or self.num_docs == 0:
+            return {"moved": 0, "shard_load": [0] * max(n_shards, 1),
+                    "host_bound_load": [0] * max(n_shards, 1)}
+        if self._padded_docs % n_shards:
+            raise ValueError("padded doc axis must divide the shard count")
+        rows_per_shard = self._padded_docs // n_shards
+        sizes = self._reshard_sizes()
+        host_bound = {d for d in range(self.num_docs)
+                      if self.docs[d].fallback or d in self._quarantine}
+        if assignment is None:
+            order = sorted(range(self.num_docs),
+                           key=lambda d: (d not in host_bound, -int(sizes[d])))
+            load = [0] * n_shards
+            hb_load = [0] * n_shards
+            free = [rows_per_shard] * n_shards
+            assignment = [0] * self.num_docs
+            for d in order:
+                key = ((lambda s: (hb_load[s], load[s])) if d in host_bound
+                       else (lambda s: (load[s], hb_load[s])))
+                s = min((s for s in range(n_shards) if free[s] > 0), key=key)
+                assignment[d] = s
+                load[s] += int(sizes[d])
+                if d in host_bound:
+                    hb_load[s] += int(sizes[d])
+                free[s] -= 1
+        else:
+            assignment = [int(s) for s in assignment]
+            if len(assignment) != self.num_docs:
+                raise ValueError("assignment must cover every doc")
+            for s, count in zip(*np.unique(assignment, return_counts=True)):
+                if not 0 <= s < n_shards:
+                    raise ValueError(f"shard {s} out of range")
+                if count > rows_per_shard:
+                    raise ValueError(f"shard {s} over capacity: {count} docs")
+
+        next_row = [s * rows_per_shard for s in range(n_shards)]
+        new_row = np.empty(self.num_docs, np.int64)
+        for d, s in enumerate(assignment):
+            new_row[d] = next_row[s]
+            next_row[s] += 1
+        moved = int((new_row != self._row_of).sum())
+        if moved:
+            # new row r takes old row src[r]; rows holding no doc recycle
+            # the old empty rows, so src is a full permutation
+            src = np.full(self._padded_docs, -1, np.int64)
+            src[new_row] = self._row_of
+            spare = iter(sorted(set(range(self._padded_docs)) - set(self._row_of.tolist())))
+            for r in range(self._padded_docs):
+                if src[r] < 0:
+                    src[r] = next(spare)
+            self._permute_rows(src)
+            self._cum_ins = self._cum_ins[src]  # the occupancy bound rides the rows
+            self._row_of = new_row
+            self._doc_at = np.full(self._padded_docs, -1, np.int64)
+            self._doc_at[new_row] = np.arange(self.num_docs)
+            # every row-keyed cache is stale, and a pending async digest
+            # must not write back (it checks the epoch)
+            self._resolved_cache = (-1, {})
+            self._digest_row_valid[:] = False
+            self._placement_epoch += 1
+        shard_load = [0] * n_shards
+        host_bound_load = [0] * n_shards
+        for d, s in enumerate(assignment):
+            shard_load[s] += int(sizes[d])
+            if d in host_bound:
+                host_bound_load[s] += int(sizes[d])
+        return {"moved": moved, "shard_load": shard_load, "host_bound_load": host_bound_load}
+
+    def _reshard_sizes(self) -> np.ndarray:
+        """(num_docs,) per-doc load for reshard's balancing: live device
+        slots (the page-pool layouts balance pages)."""
+        return self.state.num_slots.cpu().numpy()[self._row_of[: self.num_docs]]
+
+    def _permute_rows(self, src: np.ndarray) -> None:
+        """New row r takes old row src[r]: one gather over the doc axis."""
+        idx = torch.from_numpy(src).to(self.device)
+        self.state = PackedDocs(*(x[idx] for x in self.state))
 
     def sync_device(self) -> None:
         """Block until all queued device work has completed."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+class _PendingDigest:
+    """The handle :meth:`StreamingMerge.digest_async` returns.
+
+    Holds the queued per-row hash and overflow vectors (never the resolved
+    planes) and a scheduling-time snapshot of the carried plane and masks;
+    ``wait`` merges the fetched vectors into the snapshot, adds the host
+    replay hashes as ``digest()`` does, and writes the fresh hashes back
+    into the live plane only when no round or reshard came in between."""
+
+    __slots__ = ("_session", "_parts", "_snapshot", "_value", "_stamp", "_epoch")
+
+    def __init__(self, session: StreamingMerge, parts, snapshot, stamp: int, epoch: int) -> None:
+        self._session = session
+        self._parts = parts
+        self._snapshot = snapshot
+        self._value: Optional[int] = None
+        self._stamp = stamp  # session round at scheduling time
+        self._epoch = epoch  # placement epoch at scheduling time
+
+    def wait(self) -> int:
+        if self._value is not None:
+            return self._value
+        s = self._session
+        plane, ovp, valid, on_dev, doc_at, fallback_docs = self._snapshot
+        writeback = s.rounds == self._stamp and s._placement_epoch == self._epoch
+        for rows, vec_dev, ov_dev in self._parts:
+            vec = vec_dev.cpu().numpy()[: len(rows)].astype(np.uint32)
+            ov = ov_dev.cpu().numpy()[: len(rows)]
+            plane[rows], ovp[rows] = vec, ov
+            valid[rows] = on_dev[rows] & (doc_at[rows] >= 0)
+            if writeback:
+                s._digest_plane[rows] = vec
+                s._digest_ov[rows] = ov
+                s._digest_row_valid[rows] = valid[rows]
+        ok = valid & on_dev & ~ovp & (doc_at >= 0)
+        total = int(plane[ok].sum(dtype=np.uint32))
+        replay_docs = list(fallback_docs)
+        replay_docs.extend(int(doc_at[r]) for r in np.nonzero(ovp & on_dev & (doc_at >= 0))[0])
+        for i in replay_docs:
+            total = (total + s._host_digest(i)) & M32
+        self._value = total
+        self._parts = ()  # release the device refs
+        self._snapshot = None
+        return total
 
 
 def _doc_text_list_id(doc: Doc):
@@ -1866,8 +2099,8 @@ def _replay_doc(changes: List[Change]) -> Doc:
     return doc
 
 
-def _replay_spans(changes: List[Change]) -> List[FormatSpan]:
-    return _replay_doc(changes).get_text_with_formatting(["text"])
+def _doc_spans(doc: Doc) -> List[FormatSpan]:
+    return doc.get_text_with_formatting(["text"])
 
 
 def rebalance(workload_sizes: Sequence[int], num_shards: int) -> List[List[int]]:

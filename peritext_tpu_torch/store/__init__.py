@@ -11,19 +11,26 @@ work scale with each doc's own size.
   tables, the dense per-doc aux rows, and the gather/apply/scatter
   plumbing over ``ops.kernel.apply_batch_paged``.
 * :mod:`.ragged`: :func:`ragged_plan`, the flat pool view that
-  ``ops.ragged.apply_batch_ragged`` walks in place.
+  ``ops.ragged.apply_batch_ragged`` walks in place, and its cache.
+* :mod:`.session`: :class:`PagedStreamingMerge` and
+  :class:`RaggedStreamingMerge`, the streaming session over the pool
+  (``StreamingMerge(layout="paged" | "ragged")``).
 """
 
 from .alloc import PageAllocator, PoolExhausted
 from .paged import DEFAULT_PAGE_SIZE, PagedDocStore, plan_page_groups
-from .ragged import RaggedPlan, ragged_plan
+from .ragged import PlanCache, RaggedPlan, ragged_plan
+from .session import PagedStreamingMerge, RaggedStreamingMerge
 
 __all__ = [
     "DEFAULT_PAGE_SIZE",
     "PageAllocator",
     "PagedDocStore",
+    "PagedStreamingMerge",
+    "PlanCache",
     "PoolExhausted",
     "RaggedPlan",
+    "RaggedStreamingMerge",
     "plan_page_groups",
     "ragged_plan",
 ]

@@ -66,6 +66,9 @@ class PageAllocator:
     def num_pages(self, doc: int) -> int:
         return len(self._pages.get(doc, ()))
 
+    def docs(self) -> List[int]:
+        return sorted(self._pages)
+
     def ensure(self, doc: int, num_pages: int) -> List[int]:
         """Grow ``doc``'s page table to ``num_pages`` entries (no-op when it
         already holds at least that many).  Returns the newly assigned page
@@ -82,6 +85,19 @@ class PageAllocator:
         held.extend(fresh)
         return fresh
 
+    def free_doc(self, doc: int) -> List[int]:
+        """Release every page ``doc`` holds; returns them (table order)."""
+        held = self._pages.pop(doc, [])
+        for page in held:
+            heapq.heappush(self._free, page)
+        return held
+
+    def evacuate(self, doc: int) -> List[int]:
+        """:meth:`free_doc` for a doc whose state the caller has already
+        moved elsewhere (another host, or scalar replay): its pages go back
+        to the free list."""
+        return self.free_doc(doc)
+
     def grow(self, new_total: int) -> int:
         """Extend the pool to ``new_total`` pages (the new ids join the free
         list); returns the number of pages added.  The device tensors grow
@@ -93,3 +109,43 @@ class PageAllocator:
             heapq.heappush(self._free, page)
         self.total_pages = int(new_total)
         return added
+
+    def compact_plan(self) -> Dict[int, int]:
+        """Old-page -> new-page mapping that packs every held page into the
+        lowest ids (docs in sorted row order, each doc's pages in table
+        order), leaving the free list one contiguous tail.  Planning only:
+        :meth:`apply_compact` commits it, the store moves the pages."""
+        mapping: Dict[int, int] = {}
+        nxt = self.reserved
+        for doc in sorted(self._pages):
+            for page in self._pages[doc]:
+                mapping[page] = nxt
+                nxt += 1
+        return mapping
+
+    def reseat(self, pages_by_doc: Dict[int, List[int]]) -> None:
+        """Replace the whole page-table map at once (a row permutation: the
+        same pages under new doc rows).  Pages must be disjoint; the free
+        list rebuilds as the sorted complement, so the allocator state
+        after a reseat is a pure function of the new map."""
+        held: List[int] = []
+        self._pages = {}
+        for doc in sorted(pages_by_doc):
+            pages = list(pages_by_doc[doc])
+            if pages:
+                self._pages[int(doc)] = pages
+                held.extend(pages)
+        held_set = set(held)
+        if len(held) != len(held_set):
+            raise ValueError("reseat pages must be disjoint")
+        self._free = [p for p in range(self.reserved, self.total_pages) if p not in held_set]
+        heapq.heapify(self._free)
+
+    def apply_compact(self, mapping: Dict[int, int]) -> None:
+        """Commit a :meth:`compact_plan`: rewrite every page table through
+        ``mapping`` and rebuild the free list as the tail above the packed
+        prefix."""
+        for doc in sorted(self._pages):
+            self._pages[doc] = [mapping[p] for p in self._pages[doc]]
+        self._free = list(range(self.reserved + len(mapping), self.total_pages))
+        heapq.heapify(self._free)

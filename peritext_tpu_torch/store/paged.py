@@ -27,6 +27,7 @@ import torch
 
 from ..ops.kernel import PAGED_AUX_FIELDS, apply_batch_paged, paged_state_of
 from ..ops.packed import PackedDocs, empty_docs
+from ..utils.device import resolve_device, upload_int32
 from ..utils.shapes import next_pow2
 from .alloc import PageAllocator, PoolExhausted
 
@@ -52,22 +53,26 @@ def plan_page_groups(
 def group_stream_arrays(enc, rows, b: int, device: Union[str, torch.device]):
     """One group's stream tensors on ``device`` (the ``apply_batch``
     8-tuple): ``rows`` of an EncodedBatch-shaped object (every row when
-    ``rows`` is None), zero-padded to ``b`` rows.  Padding rows are all-zero
-    streams, which are no-ops."""
+    ``rows`` is None), zero-padded to ``b`` rows, through one upload.
+    Padding rows are all-zero streams, which are no-ops."""
     def take(a):
         a = np.asarray(a)
         src = a if rows is None else a[rows]
-        out = np.zeros((b,) + a.shape[1:], a.dtype)
+        out = np.zeros((b,) + a.shape[1:], np.int32)
         out[: src.shape[0]] = src
-        return torch.from_numpy(out).to(device)
+        return out
 
+    marks, maps = sorted(enc.marks), sorted(enc.map_ops)
+    arrays = {"ins_ref": take(enc.ins_ref), "ins_op": take(enc.ins_op),
+              "ins_char": take(enc.ins_char), "del_target": take(enc.del_target),
+              "mark_count": take(enc.mark_count), "map_count": take(enc.map_count)}
+    arrays.update({f"mark.{c}": take(enc.marks[c]) for c in marks})
+    arrays.update({f"map.{c}": take(enc.map_ops[c]) for c in maps})
+    t = upload_int32(arrays, torch.device(device))
     return (
-        take(enc.ins_ref), take(enc.ins_op), take(enc.ins_char),
-        take(enc.del_target),
-        {c: take(enc.marks[c]) for c in sorted(enc.marks)},
-        take(enc.mark_count),
-        {c: take(enc.map_ops[c]) for c in sorted(enc.map_ops)},
-        take(enc.map_count),
+        t["ins_ref"], t["ins_op"], t["ins_char"], t["del_target"],
+        {c: t[f"mark.{c}"] for c in marks}, t["mark_count"],
+        {c: t[f"map.{c}"] for c in maps}, t["map_count"],
     )
 
 
@@ -84,6 +89,7 @@ class PagedDocStore:
         map_capacity: int = 32,
         page_size: int = DEFAULT_PAGE_SIZE,
         initial_pages: Optional[int] = None,
+        max_pool_pages: Optional[int] = None,
         *,
         device: Union[str, torch.device],
     ) -> None:
@@ -92,14 +98,17 @@ class PagedDocStore:
                 f"slot_capacity {slot_capacity} must be a multiple of the "
                 f"page size {page_size}"
             )
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.num_docs = int(num_docs)
         self.page_size = int(page_size)
         self.slot_capacity = int(slot_capacity)
         self.max_doc_pages = slot_capacity // page_size
-        # every doc fully grown, plus the null page: beyond it ensure_rows
-        # raises PoolExhausted instead of growing
-        self.max_pool_pages = 1 + self.num_docs * self.max_doc_pages
+        # every doc fully grown, plus the null page (or the caller's cap):
+        # beyond it ensure_rows raises PoolExhausted instead of growing
+        self.max_pool_pages = int(
+            max_pool_pages if max_pool_pages is not None
+            else 1 + self.num_docs * self.max_doc_pages
+        )
         start = initial_pages or min(
             self.max_pool_pages, next_pow2(1 + max(self.num_docs, 8))
         )
@@ -121,11 +130,23 @@ class PagedDocStore:
         #: host-side upper bound on each row's used slots (its cumulative
         #: admitted inserts): drives allocation and the fragmentation stats
         self._used_hint = np.zeros(num_docs, np.int64)
-        #: pool growths so far (each one reallocates the pool tensors; a
-        #: ragged plan built before a growth is stale)
+        #: pool growths so far (each one reallocates the pool tensors)
         self.growths = 0
+        #: bumped whenever a page table or the pool size changes: plans
+        #: and materialized blocks key on it (with the pool size), so a
+        #: stale owner plane or page table never reaches a launch
+        self.alloc_epoch = 0
 
     # -- sizing --------------------------------------------------------------
+
+    @property
+    def aux_capacities(self) -> Dict[str, int]:
+        aux = dict(zip(PAGED_AUX_FIELDS, self.aux))
+        return {
+            "tomb_capacity": int(aux["tomb_id"].shape[1]),
+            "mark_capacity": int(aux["m_action"].shape[1]),
+            "map_capacity": int(aux["r_obj"].shape[1]),
+        }
 
     def num_pages(self, row: int) -> int:
         return int(self._num_pages[row])
@@ -137,6 +158,12 @@ class PagedDocStore:
     def pages_needed(self, used_slots: int) -> int:
         used = min(int(used_slots), self.slot_capacity)
         return max(1, -(-used // self.page_size))
+
+    def width_for_rows(self, rows: Sequence[int]) -> int:
+        """Power-of-two page bucket covering every row's allocation (at
+        least 1, capped at the doc slot capacity)."""
+        top = int(self._num_pages[np.asarray(rows, np.int64)].max()) if len(rows) else 1
+        return min(next_pow2(max(1, top)), self.max_doc_pages)
 
     # -- allocation ----------------------------------------------------------
 
@@ -156,6 +183,8 @@ class PagedDocStore:
             if delta > 0 and delta > self.alloc.free_pages:
                 self._grow_pool(self.alloc.pages_in_use + self.alloc.reserved + delta)
             self.alloc.ensure(row, need)
+            if delta > 0:
+                self.alloc_epoch += 1
             self._num_pages[row] = self.alloc.num_pages(row)
             self._used_hint[row] = max(self._used_hint[row], int(used))
 
@@ -173,6 +202,7 @@ class PagedDocStore:
             self.pool_elem = torch.cat([self.pool_elem, pad])
             self.pool_char = torch.cat([self.pool_char, pad])
             self.growths += 1
+            self.alloc_epoch += 1
 
     def page_rows(self, rows: Sequence[int], bucket_pages: int,
                   pad_rows_to: Optional[int] = None) -> np.ndarray:
@@ -186,27 +216,34 @@ class PagedDocStore:
             table[i, : len(pages)] = pages
         return table
 
-    def _group_index(self, rows, bucket_pages, pad_rows_to):
-        """Row indices (padding rows = ``num_docs``) and the page-table slab
-        of one group, as tensors on the store's device."""
+    def group_plan(self, rows: Sequence[int], bucket_pages: int,
+                   pad_rows_to: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """One group's host plan: the row indices (padding rows =
+        ``num_docs``) and a snapshot of its page-table slab, taken now, so
+        a later ``ensure_rows`` cannot reach an already planned group."""
         b = pad_rows_to if pad_rows_to is not None else len(rows)
         row_idx = np.full(b, self.num_docs, np.int64)
         row_idx[: len(rows)] = np.asarray(rows, np.int64)
-        table = self.page_rows(rows, bucket_pages, pad_rows_to=b)
+        return row_idx, self.page_rows(rows, bucket_pages, pad_rows_to=b)
+
+    def _group_index(self, rows, bucket_pages, pad_rows_to):
+        """:meth:`group_plan` as tensors on the store's device."""
+        row_idx, table = self.group_plan(rows, bucket_pages, pad_rows_to)
         return (torch.from_numpy(row_idx).to(self.device),
                 torch.from_numpy(table).to(self.device))
 
     # -- device plumbing -----------------------------------------------------
 
     def materialize_rows(
-        self, rows: Sequence[int], bucket_pages: int,
+        self, rows: Sequence[int], bucket_pages: Optional[int] = None,
         pad_rows_to: Optional[int] = None,
     ) -> PackedDocs:
         """Dense PackedDocs view of ``rows`` gathered from the pool at
-        ``bucket_pages * page_size`` slots.  Padding rows (up to
-        ``pad_rows_to``) gather null pages and the last doc's aux row;
-        callers mask them."""
-        row_idx, table = self._group_index(rows, bucket_pages, pad_rows_to)
+        ``bucket_pages * page_size`` slots (default: the rows' own bucket,
+        :meth:`width_for_rows`).  Padding rows (up to ``pad_rows_to``)
+        gather null pages and the last doc's aux row; callers mask them."""
+        g = bucket_pages or self.width_for_rows(rows)
+        row_idx, table = self._group_index(rows, g, pad_rows_to)
         return paged_state_of(self.pool_elem, self.pool_char, self.aux, row_idx, table)
 
     def apply_rows(
@@ -221,18 +258,83 @@ class PagedDocStore:
         apply_batch_paged(self.pool_elem, self.pool_char, self.aux, row_idx, table,
                           encoded_arrays)
 
+    # -- lifecycle: evacuate / compact / permute -------------------------------
+
+    def evacuate_row(self, row: int) -> int:
+        """Release one row's pages back to the (zeroed) free list and clear
+        its aux row: the doc's state has moved elsewhere (another host, or
+        scalar replay).  Returns the number of pages released."""
+        pages = self.alloc.evacuate(int(row))
+        if pages:
+            idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+            self.pool_elem[idx] = 0
+            self.pool_char[idx] = 0
+            self.alloc_epoch += 1
+        r = int(row)
+        for a in self.aux:
+            a[r] = 0
+        self._num_pages[r] = 0
+        self._used_hint[r] = 0
+        return len(pages)
+
+    def compact(self) -> int:
+        """Pack every held page into the lowest pool ids (one gather; the
+        free tail reads the null page, so it comes back zeroed).  Returns
+        the number of pages that moved.  Page tables stay deterministic:
+        the plan walks docs in sorted row order."""
+        mapping = self.alloc.compact_plan()
+        moved = sum(1 for old, new in mapping.items() if old != new)
+        if moved:
+            src = np.zeros(self.alloc.total_pages, np.int64)  # default: the null page
+            for old, new in mapping.items():
+                src[new] = old
+            idx = torch.from_numpy(src).to(self.device)
+            self.pool_elem = self.pool_elem[idx]
+            self.pool_char = self.pool_char[idx]
+            self.alloc_epoch += 1
+        self.alloc.apply_compact(mapping)
+        self._num_pages[:] = 0
+        for doc in self.alloc.docs():
+            self._num_pages[doc] = self.alloc.num_pages(doc)
+        return moved
+
+    def permute_rows(self, src: np.ndarray) -> None:
+        """Re-home doc rows: new row ``r`` takes old row ``src[r]`` (a full
+        permutation).  Pages do not move; page tables and the dense aux
+        rows do (one gather)."""
+        src = np.asarray(src, np.int64)
+        old_pages = {r: self.alloc.pages_of(r) for r in self.alloc.docs()}
+        self.alloc.reseat({
+            r: old_pages[int(src[r])] for r in range(len(src)) if int(src[r]) in old_pages
+        })
+        idx = torch.from_numpy(src).to(self.device)
+        self.aux = tuple(a[idx] for a in self.aux)
+        self._num_pages = self._num_pages[src]
+        self._used_hint = self._used_hint[src]
+        self.alloc_epoch += 1
+
     # -- telemetry -----------------------------------------------------------
+
+    def page_loads(self) -> np.ndarray:
+        """(num_docs,) pages held per row: the load a reshard balances."""
+        return self._num_pages.copy()
 
     def pool_stats(self) -> Dict:
         """Pool occupancy and internal fragmentation (allocated but unused
-        slots): the paged layout's waste is the unused tail of each doc's
-        last page."""
+        slots), overall and per doc-size decile: the paged layout's waste
+        is the unused tail of each doc's last page."""
         total = self.alloc.total_pages - self.alloc.reserved
         in_use = self.alloc.pages_in_use
         live = np.nonzero(self._num_pages > 0)[0]
         alloc_slots = self._num_pages[live].astype(np.int64) * self.page_size
         used_slots = np.minimum(self._used_hint[live], alloc_slots)
         frag = alloc_slots - used_slots
+        # the waste by doc size: rows sorted by allocation, in ten chunks
+        deciles = {}
+        if len(live):
+            for i, chunk in enumerate(np.array_split(np.argsort(alloc_slots, kind="stable"), 10)):
+                a = int(alloc_slots[chunk].sum()) if len(chunk) else 0
+                deciles[f"d{i}"] = round(int(frag[chunk].sum()) / a, 4) if a else 0.0
         return {
             "page_size": self.page_size,
             "pool_pages": total,
@@ -248,4 +350,5 @@ class PagedDocStore:
                 round(int(frag.sum()) / int(alloc_slots.sum()), 4)
                 if len(live) and int(alloc_slots.sum()) else 0.0
             ),
+            "frag_by_decile": deciles,
         }

@@ -17,14 +17,18 @@ plus the per-row ``page_count`` (true allocation, no rounding), the
 ``(B, max_doc_pages)`` ``page_table`` the CUDA kernel reads, and the flat
 ``row_idx``.  Everything is a pure function of the allocator state,
 snapshotted when the plan is built: a later pool growth makes a new plan.
+:class:`PlanCache` keeps one plan per ``(alloc_epoch, pool pages)``, so a
+streaming session rebuilds it only when a page table or the pool changed.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..ops.ragged import plan_arrays
 
 
 @dataclass(frozen=True)
@@ -91,3 +95,27 @@ def ragged_plan(store, rows: Optional[Sequence[int]] = None) -> RaggedPlan:
         docs_walked=b,
         pages_walked=pages_walked,
     )
+
+
+class PlanCache:
+    """The ragged plan of every row of a store, with its planes on the
+    store's device, rebuilt only when the allocator state it snapshots
+    changed: keyed on ``(store.alloc_epoch, pool pages)``, which every
+    allocation, evacuation, compaction, row permutation and pool growth
+    moves."""
+
+    def __init__(self) -> None:
+        self.key: Optional[Tuple[int, int]] = None
+        self._value = None
+        #: plans built so far
+        self.builds = 0
+
+    def get(self, store) -> Tuple[RaggedPlan, tuple]:
+        """``(plan, plan_arrays(plan))`` for the store's current state."""
+        key = (store.alloc_epoch, int(store.pool_elem.shape[0]))
+        if key != self.key:
+            plan = ragged_plan(store)
+            self._value = (plan, plan_arrays(plan, store.device))
+            self.key = key
+            self.builds += 1
+        return self._value

@@ -8,8 +8,9 @@ device.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "torch path on the CPU"
         )
     return dev
+
+
+def upload_int32(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """Every array of ``arrays``, as int32, on ``device`` through ONE copy of
+    one concatenated buffer; returns contiguous views of it, shaped as the
+    arrays.  The buffer is pageable and made here, so the copy has
+    completed when this returns."""
+    flat = np.concatenate([np.ascontiguousarray(a, np.int32).reshape(-1) for a in arrays.values()]) \
+        if arrays else np.zeros(0, np.int32)
+    dev = torch.from_numpy(flat).to(device)
+    out, off = {}, 0
+    for name, a in arrays.items():
+        out[name] = dev[off:off + a.size].view(a.shape)
+        off += a.size
+    return out

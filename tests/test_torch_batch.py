@@ -139,7 +139,8 @@ def test_import_leaves_jax_and_reference_out():
         "peritext_tpu_torch.store, peritext_tpu_torch.testing, "
         "peritext_tpu_torch.parallel.streaming, peritext_tpu_torch.parallel.mesh, "
         "peritext_tpu_torch.ops.patches, peritext_tpu_torch.native, "
-        "peritext_tpu_torch.parallel.codec, peritext_tpu_torch.ops.frames\n"
+        "peritext_tpu_torch.parallel.codec, peritext_tpu_torch.ops.frames, "
+        "peritext_tpu_torch.store.session, peritext_tpu_torch.parallel.faults\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"

@@ -53,9 +53,8 @@ def _assert_store_equal(js, ps):
         assert ps.alloc.pages_of(row) == js.alloc.pages_of(row)
     np.testing.assert_array_equal(ps._num_pages, js._num_pages)
     assert ps.growths == js.growths
-    # the per-decile split is the streaming sessions' telemetry, not ported
-    theirs = {k: v for k, v in js.pool_stats().items() if k != "frag_by_decile"}
-    assert ps.pool_stats() == theirs
+    assert ps.pool_stats() == js.pool_stats()
+    assert ps.alloc_epoch == js.alloc_epoch
     np.testing.assert_array_equal(ps.pool_elem.numpy(), np.asarray(js.pool_elem))
     np.testing.assert_array_equal(ps.pool_char.numpy(), np.asarray(js.pool_char))
     for f, a in zip(PAGED_AUX_FIELDS, ps.aux):

@@ -375,14 +375,24 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "item 11"),
-    (dict(layout="paged"), "item 7"),
-    (dict(layout="ragged"), "item 8"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         StreamingMerge(num_docs=1, actors=ACTORS, device="cpu", **kwargs)
     with pytest.raises(ValueError, match="unknown layout"):
         StreamingMerge(num_docs=1, actors=ACTORS, device="cpu", layout="sparse")
+
+
+@pytest.mark.parametrize("layout,cls", [
+    ("paged", "PagedStreamingMerge"),
+    ("ragged", "RaggedStreamingMerge"),
+])
+def test_layout_factory_builds_subclass(layout, cls):
+    from peritext_tpu_torch import store
+
+    s = StreamingMerge(num_docs=1, actors=ACTORS, device="cpu", layout=layout)
+    assert type(s) is getattr(store, cls) and isinstance(s, StreamingMerge)
+    assert s.layout == layout and s.state is None
 
 
 def _recorded_applies(monkeypatch, workloads, **kwargs):
@@ -436,10 +446,10 @@ def test_static_rounds_keep_configured_widths(monkeypatch):
 
 
 def test_upload_returns_complete_views():
-    from peritext_tpu_torch.parallel.streaming import _upload
+    from peritext_tpu_torch.utils.device import upload_int32
 
     arrays = {"a": np.arange(6, dtype=np.int32).reshape(2, 3), "b": np.zeros(0, np.int32),
               "c": np.asarray([7], np.int32)}
-    out = _upload(arrays, torch.device("cpu"))
+    out = upload_int32(arrays, torch.device("cpu"))
     assert out["a"].tolist() == [[0, 1, 2], [3, 4, 5]]
     assert out["b"].shape == (0,) and out["c"].tolist() == [7]
