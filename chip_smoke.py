@@ -46,21 +46,47 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    blocks), equal to A, its digest unchanged by the reshard; C's frame arm
    in the ragged layout at full width (16384 rows), equal to C_frames;
    and the long-tail session (the reference bench's ``longdoc`` shape:
-   1024 docs x 8 ops and one essay of 6144 ops, slots 8192, by frames in
+   1024 docs x 8 ops and one essay of 4096 ops, slots 8192, by frames in
    4 rounds) in all three layouts, paged and ragged equal to padded on
    every doc.  A paged session launches the insert kernel once per (round,
    page group) (``streaming.group_applies``) and never the ragged one; a
    ragged session the ragged insert kernel once per non-empty doc class of
    each round's plan (``streaming.ragged_applies``) and never the padded
    one.  Each session prints its ``health()`` and passes phase 5's checks;
+   C_frames, C_frames_ragged and A_paged_frames are saved where they end
+   (``save_session``);
+5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
+   on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
+   ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
+   such editors each, equal to their ``expected_doc``; a fuzzed session of
+   3000 transactions through ``bridge/commands.py`` on three of them and a
+   scalar editor, the oracle (:data:`BRIDGE`), every view equal to the
+   oracle's and to its own CRDT render, no doc demoted or overflowed, with
+   dispatch and remote-apply latency; and two editors with
+   ``start_queue=True`` that must converge by timer flushes alone.  Every
+   insert launch of the phase is one block apply;
+5d. durability: the three saved sessions restored on the card
+   (``restore_session``), each equal to its source in ``digest()``,
+   ``digest(full=False)``, ``read_all()``, a fresh ``read_patches_all()``,
+   ``frontier()``, ``pending_count()`` and its fallback set, with its
+   launches equal to its commit counter over the restore, and its save and
+   restore seconds, checkpoint bytes and peak memory; ``run_crash_restore``
+   at seeds 11 and 12 (64 docs x 120 ops); and ``DocBatch(guard=True)`` on
+   the padded slice's docs: without a fault it launches the insert kernel
+   and equals the unguarded merge; one injected failure at the kernel
+   wrapper raises on the card, guarded or not (the guard never moves a
+   card's work to the CPU), and degrades only a CPU batch, which then
+   replays all docs through the oracle with equal results;
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
    gathered pages, padding rows and null-page entries included; for the
    ragged one the ragged merge's and one streaming round of ragged
    C_frames; for the insert kernel also one streaming round of A and one
-   of A's frame arm, each at its ``loop_slots``, and every page group of
-   one streaming round of paged A) and at larger shapes: for the insert
+   of A's frame arm, each at its ``loop_slots``, every page group of one
+   streaming round of paged A, and one editor round of the bridge's fuzzed
+   session; for the ragged one also the first round of the ragged restore)
+   and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
    variant and a long-doc shape past the shared-memory budget; for the
@@ -115,15 +141,17 @@ MIXED_10K = dict(slots=4096, groups=((9216, 179, 1), (896, 1024, 2), (128, 4096,
 LONG_DOC_RAGGED = dict(docs=64, slots=32768, inserts=4096, seed=2)
 #: the long-tail session: the reference bench's ``longdoc`` row (bench.py
 #: --mode longdoc, defaults 1024 x 8 and 8192; docs from seed 1, the essay
-#: from seed 90001; slots: the power of two covering the essay; marks:
-#: essay / 4) moved to streaming: 4 shuffled arrival rounds by v2 frames;
-#: the round widths are session A's, which every change fits (checked).
-#: One cut, for the time limit: the essay has 6144 ops, not 8192.  At these
+#: from seed 90001; slots: the power of two covering the bench's 8192-op
+#: essay; marks: 8192 / 4) moved to streaming: 4 shuffled arrival rounds by
+#: v2 frames; the round widths are session A's, which every change fits
+#: (checked).  One cut, for the time limit: the essay has 4096 ops, not
+#: 8192 (the capacities stay the bench's).  At these
 #: capacities it overflows (more mark ops and comment ids than the tables
 #: hold), so every session replays it on the host: at 8192 ops that took
-#: 118 s a session on the card's host, the worker's essay came 146 s after
-#: the phases before it, and the script took 892.5 s in all
-LONGTAIL = dict(docs=1024, ops=8, seed=1, essay_ops=6144, essay_seed=90001, rounds=4,
+#: 118 s a session on the card's host and the script 892.5 s in all; at
+#: 6144 ops 45-56 s a session, and with the bridge and durability phases
+#: the script took 1154.1 s of its 1200
+LONGTAIL = dict(docs=1024, ops=8, seed=1, essay_ops=4096, essay_seed=90001, rounds=4,
                 slot_capacity=8192, mark_capacity=2048, tomb_capacity=8192,
                 comment_capacity=64, page_size=64, round_caps=(256, 128, 128, 16), sample=64)
 #: the streaming sessions: BASELINE config 5 as the reference's streaming
@@ -135,6 +163,33 @@ LONGTAIL = dict(docs=1024, ops=8, seed=1, essay_ops=6144, essay_seed=90001, roun
 STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capacity=384,
               mark_capacity=96, comment_capacity=32, round_caps=(256, 128, 128, 16),
               sample=64, b_read_chunk=512, c_docs=10240, wire="v2")
+
+
+#: the bridge phase's fuzzed editing session: three ``"tpu"`` editors and
+#: one scalar editor (the oracle, which only receives) on one document
+#: seeded with 40 words; 3000 transactions (typing runs of 1-3 characters
+#: 62%, deletes of 1-2 characters 22%, bold and italic toggles, links from
+#: 8 urls and comments over 24 ids, spans of 2-40 characters, 16%), each
+#: through ``bridge/commands.py``, on a random one of the three; every
+#: editor syncs after every 20th.  The sessions get the reference's round
+#: widths with 4096 slots and 512 mark rows (what this mix needs: about 3800
+#: characters inserted, 480 mark ops) and 2048 tombstone rows (about 1000
+#: characters deleted; the reference's default of 128 would overflow).
+#: ``capture_at`` is the transaction whose insert call is held against the
+#: plain version
+BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=3000, sync_every=20, seed=3,
+              initial_words=40, comment_ids=24, urls=8, capture_at=1500,
+              backend_config=dict(slot_capacity=4096, mark_capacity=512, tomb_capacity=2048))
+#: durability: the sessions checkpointed where they end and restored in
+#: the durability phase, and the crash campaign's seeds and size
+DURABLE = ("C_frames", "C_frames_ragged", "A_paged_frames")
+CRASH = dict(seeds=(11, 12), docs=64, ops=120)
+WORDS = ("the of and a to in is you that it he was for on are as with his they at be this "
+         "have from or one had by word but not what all were we when your can said there "
+         "use an each which she do how their if will up other about out many then them "
+         "these so some her would make like him into time has look two more write go see "
+         "number no way could people my than first water been call who its now find long "
+         "down day did get come made may part").split()
 
 
 def log(*parts) -> None:
@@ -494,7 +549,7 @@ def run_slice(device):
 
     sample = sorted(random.Random(cfg["seed"]).sample(range(cfg["docs"]), cfg["sample"]))
     check_oracle("slice", workloads, cursors, report, sample)
-    return batch, workloads, cursors, launches
+    return batch, workloads, cursors, launches, report
 
 
 def check_oracle(phase, workloads, cursors, report, sample) -> None:
@@ -828,13 +883,14 @@ def compare_arms(name, other, base, base_name) -> None:
             raise AssertionError(f"streaming: {name} {key} differ from {base_name}")
 
 
-def run_streaming(device):
+def run_streaming(device, ckpts):
     """The streaming slice: an untimed warm-up session, then sessions A
     (three object arms and a frame arm), B (block-chunked) and C (scale,
     an object and a frame arm), each checked; returns the K1 captures of a
     mid-session round of A's object and frame arms, the per-session
     reports, and what the layouts phase reuses (workloads, arrivals,
-    samples, oracle docs, A_default's and C_frames' results)."""
+    samples, oracle docs, A_default's and C_frames' results).  C_frames is
+    checkpointed where it ends, into ``ckpts``."""
     from peritext_tpu_torch.testing.arrival import build_arrival
 
     cfg = STREAM
@@ -895,6 +951,7 @@ def run_streaming(device):
     compare_arms("C_frames", cf, c, "C_scale")
     log(f"streaming: C_frames equals C_scale on all {len(workloads_c)} docs")
     check_stream_session("C_frames", s_cf, cf, workloads_c, cfg, sample_c, oracle_c)
+    checkpoint_session(ckpts, "C_frames", s_cf, cf)
     del s_cf
     ctx = dict(workloads=workloads, arrival=arrival, wire=wire, wire_bytes=wire_bytes,
                sample=sample, oracle_a=oracle_a, a=a, workloads_c=workloads_c, wire_c=wire_c,
@@ -902,7 +959,7 @@ def run_streaming(device):
     return capture, capture_frames, reports + [b, c, cf], ctx
 
 
-def run_stream_layouts(device, ctx, essay_job):
+def run_stream_layouts(device, ctx, essay_job, ckpts):
     """The streaming-layouts phase: session A in the paged and the ragged
     layout, by objects and by frames, each equal to A_default on every doc;
     B in the paged layout with a reshard() after its second round (4 read
@@ -912,7 +969,8 @@ def run_stream_layouts(device, ctx, essay_job):
     three layouts, paged and ragged equal to padded on every doc.  Each
     session's checks as :func:`check_stream_session`.  Returns the captured
     paged round (K1 inputs, one per group), the captured ragged round of
-    ragged C_frames (K3 inputs) and the reports."""
+    ragged C_frames (K3 inputs) and the reports.  A_paged_frames and
+    C_frames_ragged are checkpointed where they end, into ``ckpts``."""
     cfg = STREAM
     reports, capture_paged, capture_ragged = [], {}, {}
     for layout in ("paged", "ragged"):
@@ -926,6 +984,8 @@ def run_stream_layouts(device, ctx, essay_job):
             log(f"streaming: {name} equals A_default on all {cfg['docs']} docs "
                 "(read_all, read_patches_all, digest, fallback)")
             check_stream_session(name, s, out, ctx["workloads"], cfg, ctx["sample"], ctx["oracle_a"])
+            if name in DURABLE:
+                checkpoint_session(ckpts, name, s, out)
             reports.append(out)
             del s
 
@@ -959,6 +1019,7 @@ def run_stream_layouts(device, ctx, essay_job):
     compare_arms("C_frames_ragged", cr, ctx["cf"], "C_frames")
     check_stream_session("C_frames_ragged", s, cr, ctx["workloads_c"], cfg, ctx["sample_c"],
                          ctx["oracle_c"])
+    checkpoint_session(ckpts, "C_frames_ragged", s, cr)
     log(f"streaming: C_frames_ragged equals C_frames on all {len(ctx['workloads_c'])} docs; "
         f"peak memory {cr['peak_memory_bytes']} bytes (padded C_frames "
         f"{ctx['cf']['peak_memory_bytes']})")
@@ -1022,6 +1083,420 @@ def run_longtail(device, essay_job):
     return list(outs.values())
 
 
+# ---------------------------------------------------------------------------
+# the editor bridge's device backend
+# ---------------------------------------------------------------------------
+
+
+def _quantiles(ms):
+    a = np.asarray(ms, np.float64)
+    return dict(n=int(a.size), p50=float(np.percentile(a, 50)), p99=float(np.percentile(a, 99)),
+                mean=float(a.mean()), max=float(a.max()))
+
+
+def _phase_counts():
+    """The insert kernels' launch counts and the padded commit counter, read
+    at the start of a phase; :func:`_phase_delta` gives what the phase
+    added."""
+    from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+    from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.ops.ragged_insert import ragged_insert
+
+    insert_batch.launches = 0
+    ragged_insert.launches = 0
+    return {c: GLOBAL_COUNTERS.get(c) for c in APPLY_COUNTER.values()}
+
+
+def _phase_delta(start):
+    from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+    from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.ops.ragged_insert import ragged_insert
+
+    out = {"rga_insert": insert_batch.launches, "ragged_insert": ragged_insert.launches}
+    out.update({c.split(".")[1]: GLOBAL_COUNTERS.get(c) - n for c, n in start.items()})
+    return out
+
+
+def _check_padded_launches(phase, delta):
+    """Every launch of a padded-session phase is one block apply."""
+    if delta["rga_insert"] == 0 or delta["rga_insert"] != delta["block_applies"] or \
+            delta["ragged_insert"]:
+        raise AssertionError(f"{phase}: launches {delta} (one rga_insert launch per block apply)")
+
+
+def _check_editors(phase, editors, oracle=None):
+    """Each device-backed view equals its replica's full render (and the
+    scalar oracle's view), and no session demoted or overflowed its doc."""
+    from peritext_tpu_torch.bridge import editor_doc_from_crdt
+
+    for ed in editors:
+        if ed.view != editor_doc_from_crdt(ed.doc):
+            raise AssertionError(f"{phase}: {ed.actor_id}'s view differs from its CRDT render")
+        if oracle is not None and ed.view != oracle.view:
+            raise AssertionError(f"{phase}: {ed.actor_id}'s view differs from the scalar editor's")
+        if ed.session is not None:
+            if ed.session.device.type != "cuda":
+                raise AssertionError(f"{phase}: {ed.actor_id}'s session is on {ed.session.device}")
+            if ed.session.docs[0].fallback or ed.session.overflow_count():
+                raise AssertionError(f"{phase}: {ed.actor_id}'s doc left the card")
+
+
+def run_pm_fixtures():
+    """The nine ProseMirror-wire sessions of ``tests/pm_fixtures`` (plain
+    JSON), each through two ``"tpu"`` editors on the reference defaults:
+    both views must serialize to the fixture's ``expected_doc``."""
+    from peritext_tpu_torch.bridge import create_editor, initialize_docs
+    from peritext_tpu_torch.bridge.pm import editor_doc_to_pm, transaction_from_pm
+    from peritext_tpu_torch.parallel.pubsub import Publisher
+
+    paths = sorted((ROOT / "tests" / "pm_fixtures").glob("*.json"))
+    if len(paths) != 9:
+        raise AssertionError(f"bridge: {len(paths)} PM fixtures, expected 9")
+    start = _phase_counts()
+    for path in paths:
+        spec = json.loads(path.read_text())
+        pub = Publisher()
+        editors = [create_editor(name, pub, backend="tpu", actors=("alice", "bob"))
+                   for name in ("alice", "bob")]
+        by_name = {ed.actor_id: ed for ed in editors}
+        initialize_docs(editors, spec["initial"])
+        for event in spec["events"]:
+            if event.get("sync"):
+                for ed in editors:
+                    ed.sync()
+            else:
+                by_name[event["editor"]].dispatch(transaction_from_pm(event["steps"]))
+        for ed in editors:
+            ed.sync()
+        for ed in editors:
+            if editor_doc_to_pm(ed.view) != spec["expected_doc"]:
+                raise AssertionError(f"bridge: fixture {path.stem}: {ed.actor_id}'s view != "
+                                     "expected_doc")
+        _check_editors(f"bridge fixture {path.stem}", editors)
+    delta = _phase_delta(start)
+    _check_padded_launches("bridge pm fixtures", delta)
+    log(f"bridge: the {len(paths)} PM fixtures on two tpu editors each equal expected_doc; "
+        f"launches {json.dumps(delta)}")
+    return delta
+
+
+def _fuzz_transaction(rng, cfg, n, i):
+    """One transaction of the fuzzed session, as (command, args)."""
+    r = rng.random()
+    if r < 0.62 or n < 8:
+        return "type_text", (rng.randint(1, n + 1), (rng.choice(WORDS) + " ")[:rng.randint(1, 3)])
+    if r < 0.84:
+        a = rng.randint(1, n)
+        return "delete_range", (a, a + min(n + 1 - a, rng.randint(1, 2)))
+    a = rng.randint(1, n - 1)
+    b = min(n + 1, a + rng.randint(2, 40))
+    m = rng.random()
+    if m < 0.35:
+        return "toggle_bold", (a, b)
+    if m < 0.7:
+        return "toggle_italic", (a, b)
+    if m < 0.85:
+        return "set_link", (a, b, f"https://{rng.randrange(cfg['urls'])}.example")
+    return "add_comment", (a, b, f"c{i % cfg['comment_ids']}")
+
+
+def run_bridge_fuzz(capture):
+    """The fuzzed editing session (:data:`BRIDGE`): three ``"tpu"`` editors
+    on the card and one scalar editor, the oracle.  Dispatch latency is
+    each command's wall; remote apply latency each delivery's, from
+    ``_receive`` to the view updated.  ``capture`` records the insert call
+    of transaction ``capture_at``."""
+    import torch
+
+    from peritext_tpu_torch.bridge import commands, create_editor, initialize_docs
+    from peritext_tpu_torch.parallel.pubsub import Publisher
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = BRIDGE
+    rng = random.Random(cfg["seed"])
+    pub = Publisher()
+    editors = [create_editor(name, pub, backend="tpu", actors=cfg["editors"],
+                             backend_config=dict(cfg["backend_config"]))
+               for name in cfg["editors"]]
+    oracle = create_editor("oracle", pub)
+    remote_ms = []
+    for ed in editors:  # time each delivery to a device-backed editor
+        inner = pub._subscribers[ed.actor_id]
+
+        def timed(changes, inner=inner):
+            t0 = time.perf_counter()
+            inner(changes)
+            remote_ms.append((time.perf_counter() - t0) * 1e3)
+        pub._subscribers[ed.actor_id] = timed
+    undo = _arm_capture(capture, "padded")
+    start = _phase_counts()
+    kinds = {}
+    dispatch_ms = []
+    t_all = time.perf_counter()
+    try:
+        initial = " ".join(rng.choice(WORDS) for _ in range(cfg["initial_words"])) + "."
+        initialize_docs(editors + [oracle], initial)
+        for i in range(cfg["transactions"]):
+            ed = editors[rng.randrange(len(editors))]
+            name, args = _fuzz_transaction(rng, cfg, len(ed.view), i)
+            kinds[name] = kinds.get(name, 0) + 1
+            if i == cfg["capture_at"]:
+                capture["armed"] = True
+            t0 = time.perf_counter()
+            getattr(commands, name)(ed, *args)
+            dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+            if i % cfg["sync_every"] == cfg["sync_every"] - 1:
+                for e in editors + [oracle]:
+                    e.sync()
+            if i % 500 == 499:
+                _check_editors(f"bridge fuzz at {i + 1}", editors, oracle)
+        for e in editors + [oracle]:
+            e.sync()
+    finally:
+        undo()
+    wall = time.perf_counter() - t_all
+    delta = _phase_delta(start)
+    _check_editors("bridge fuzz", editors, oracle)
+    _check_padded_launches("bridge fuzz", delta)
+    report = dict(transactions=cfg["transactions"], kinds=kinds, chars=len(oracle.view),
+                  wall_seconds=wall, dispatch_ms=_quantiles(dispatch_ms),
+                  remote_apply_ms=_quantiles(remote_ms), launches=delta,
+                  rounds=[ed.session.rounds for ed in editors],
+                  peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log("bridge fuzz", json.dumps(report))
+    if sum(report["rounds"]) != delta["block_applies"]:
+        raise AssertionError(f"bridge fuzz: {report['rounds']} rounds, "
+                             f"{delta['block_applies']} block applies")
+    log(f"bridge: dispatch latency p50 {report['dispatch_ms']['p50']:.3f} ms, "
+        f"p99 {report['dispatch_ms']['p99']:.3f} ms")
+    log(f"bridge: remote apply latency p50 {report['remote_apply_ms']['p50']:.3f} ms, "
+        f"p99 {report['remote_apply_ms']['p99']:.3f} ms")
+    log(f"bridge: K1 launches {delta['rga_insert']} = block applies {delta['block_applies']} "
+        f"= the sessions' committed rounds {report['rounds']} (one block each)")
+    log(f"bridge: {cfg['transactions']} transactions on three tpu editors equal the scalar "
+        f"editor and their CRDT renders ({len(oracle.view)} characters); no doc left the card")
+    if "args" not in capture:
+        raise AssertionError("bridge: no insert call was captured")
+    return report
+
+
+def run_bridge_timer():
+    """Two ``"tpu"`` editors with ``start_queue=True``: no sync() call, the
+    queues' timer threads alone must converge them."""
+    import threading
+
+    from peritext_tpu_torch.bridge import commands, create_editor, initialize_docs
+    from peritext_tpu_torch.parallel.pubsub import Publisher
+
+    names = ("alice", "bob")
+    rng = random.Random(5)
+    pub = Publisher()
+    start = _phase_counts()
+    editors = [create_editor(name, pub, queue_interval=0.005, start_queue=True, backend="tpu",
+                             actors=names) for name in names]
+    t0 = time.perf_counter()
+    try:
+        initialize_docs(editors, "Timers alone flush this session.")
+        for i in range(60):
+            ed = editors[i % 2]
+            with ed.lock:  # the peer's timer thread delivers to ed meanwhile
+                cmd, args = _fuzz_transaction(rng, BRIDGE, len(ed.view), i)
+                getattr(commands, cmd)(ed, *args)
+        deadline = time.perf_counter() + 120
+        while time.perf_counter() < deadline:
+            a, b = editors
+            if not len(a.queue) and not len(b.queue) and a.doc.clock == b.doc.clock \
+                    and a.view == b.view:
+                break
+            time.sleep(0.01)
+        converged = time.perf_counter() - t0
+    finally:
+        for ed in editors:
+            ed.disconnect()
+        for t in threading.enumerate():
+            if isinstance(t, threading.Timer):
+                t.join(timeout=10)
+    a, b = editors
+    if a.view != b.view or a.doc.clock != b.doc.clock:
+        raise AssertionError("bridge timer: the editors did not converge by timer flushes")
+    _check_editors("bridge timer", editors)
+    delta = _phase_delta(start)
+    _check_padded_launches("bridge timer", delta)
+    log(f"bridge: two tpu editors converged by timer flushes alone in {converged:.3f} s "
+        f"({len(a.view)} characters); launches {json.dumps(delta)}")
+    return delta
+
+
+# ---------------------------------------------------------------------------
+# durability: checkpoints, the crash campaign, the guarded merge
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_session(ckpts, name, s, out) -> None:
+    """Save a session where it ends (``save_session``) and keep what its
+    restore must equal."""
+    from peritext_tpu_torch.checkpoint import save_session
+
+    directory = ckpts["root"] / name
+    t0 = time.perf_counter()
+    meta = save_session(s, directory)
+    seconds = time.perf_counter() - t0
+    ckpts[name] = dict(
+        directory=directory, layout=s.layout, docs=s.num_docs, frames=meta["frames"],
+        save_seconds=seconds, bytes=sum(f.stat().st_size for f in directory.iterdir()),
+        digest=s.digest(), digest_text=s.digest(full=False), frontier=s.frontier(),
+        pending=s.pending_count(), fallback=out["fallback"], spans=out["spans"],
+        patches=out["patches"])
+    log(f"durability: saved {name} ({s.layout}, {s.num_docs} docs, {meta['frames']} frames, "
+        f"{ckpts[name]['bytes']} bytes) in {seconds:.3f} s")
+
+
+def run_restores(ckpts, capture):
+    """Restore each checkpointed session on the card (:data:`DURABLE`) and
+    hold it to its source: digests, reads, a fresh patch sweep, frontier,
+    pending count and fallback set; its insert launches must equal its
+    commit counter over the restore.  ``capture`` records the first ragged
+    insert call of the ragged restore."""
+    import torch
+
+    from peritext_tpu_torch.checkpoint import restore_session
+
+    reports = []
+    for name in DURABLE:
+        c = ckpts.pop(name)
+        layout = c["layout"]
+        undo = _arm_capture(capture, layout) if layout == "ragged" else None
+        capture["armed"] = layout == "ragged"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = _phase_counts()
+        try:
+            t0 = time.perf_counter()
+            r = restore_session(c["directory"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            if undo is not None:
+                undo()
+        delta = _phase_delta(start)
+        peak = torch.cuda.max_memory_allocated()
+        kernel = "ragged_insert" if layout == "ragged" else "rga_insert"
+        other = "rga_insert" if layout == "ragged" else "ragged_insert"
+        applies = delta[APPLY_COUNTER[layout].split(".")[1]]
+        if delta[kernel] == 0 or delta[kernel] != applies or delta[other]:
+            raise AssertionError(f"restore {name}: launches {delta} for {applies} "
+                                 f"{APPLY_COUNTER[layout]}")
+        if r.layout != layout or r.device.type != "cuda":
+            raise AssertionError(f"restore {name}: {r.layout} on {r.device}")
+        checks = {"digest()": (r.digest(), c["digest"]),
+                  "digest(full=False)": (r.digest(full=False), c["digest_text"]),
+                  "read_all()": (r.read_all(), c["spans"]),
+                  "read_patches_all()": (r.read_patches_all(), c["patches"]),
+                  "frontier()": (r.frontier(), c["frontier"]),
+                  "pending_count()": (r.pending_count(), c["pending"]),
+                  "fallback": ([d for d, sess in enumerate(r.docs) if sess.fallback],
+                               c["fallback"])}
+        for what, (got, want) in checks.items():
+            if got != want:
+                raise AssertionError(f"restore {name}: {what} differs from the saved session")
+        report = dict(session=name, layout=layout, docs=c["docs"], frames=c["frames"],
+                      checkpoint_bytes=c["bytes"], save_seconds=c["save_seconds"],
+                      restore_seconds=seconds, rounds=r.rounds, launches=delta,
+                      peak_memory_bytes=peak)
+        log("restore", json.dumps(report))
+        log(f"durability: {name} restored in {seconds:.3f} s ({r.rounds} rounds, {delta[kernel]} "
+            f"{kernel} launches = {APPLY_COUNTER[layout]}); digests, reads, patches, frontier, "
+            "pending count and fallback set equal the saved session")
+        reports.append(report)
+        del r, c
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "args" not in capture:
+        raise AssertionError("durability: no ragged insert call was captured in the restore")
+    return reports
+
+
+def run_crash_campaigns():
+    """``run_crash_restore`` on the card at each seed of :data:`CRASH`."""
+    from peritext_tpu_torch.testing.fuzz import run_crash_restore
+
+    out = {}
+    for seed in CRASH["seeds"]:
+        start = _phase_counts()
+        t0 = time.perf_counter()
+        redelivered = run_crash_restore(seed, num_docs=CRASH["docs"], ops_per_doc=CRASH["ops"])
+        seconds = time.perf_counter() - t0
+        delta = _phase_delta(start)
+        _check_padded_launches(f"crash restore seed {seed}", delta)
+        out[seed] = delta
+        log(f"durability: run_crash_restore seed {seed} ({CRASH['docs']} docs x {CRASH['ops']} "
+            f"ops) passed in {seconds:.3f} s, {redelivered} frames redelivered; launches "
+            f"{json.dumps(delta)}")
+    return out
+
+
+def run_guarded(workloads, cursors, clean):
+    """``DocBatch(guard=True)`` on config 3: without a fault it launches the
+    insert kernel once and equals the unguarded report ``clean`` on every
+    doc.  One injected failure at the kernel wrapper raises on the card,
+    guarded or not; on a CPU batch the guard replays the whole batch
+    through the oracle (the same spans, roots and cursors) and counts one
+    guarded fallback."""
+    from peritext_tpu_torch.api.batch import DocBatch
+    from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+    from peritext_tpu_torch.ops import kernel as kernel_mod
+    from peritext_tpu_torch.ops.insert import insert_batch
+
+    cfg = SLICE
+    kw = dict(slot_capacity=cfg["slot_capacity"], mark_capacity=cfg["mark_capacity"],
+              comment_capacity=cfg["comment_capacity"])
+    batch = DocBatch(guard=True, **kw)
+    insert_batch.launches = 0
+    report = batch.merge(workloads, cursors)
+    launches = insert_batch.launches
+    if launches != 1 or "guarded_fallback" in report.stats.extras:
+        raise AssertionError(f"guarded merge: {launches} launches, extras {report.stats.extras}")
+    for field in ("spans", "roots", "cursor_positions", "fallback_docs", "device_ops"):
+        if getattr(report, field) != getattr(clean, field):
+            raise AssertionError(f"guarded merge: {field} differ from the unguarded merge")
+
+    real = kernel_mod.insert_batch
+
+    def fault(*args, **kwargs):
+        raise RuntimeError("injected device-stage failure")
+
+    kernel_mod.insert_batch = fault
+    try:
+        for name, card_batch in (("guard=True", batch), ("guard=False", DocBatch(**kw))):
+            try:
+                card_batch.merge(workloads, cursors)
+            except RuntimeError as exc:
+                if "injected" not in str(exc):
+                    raise
+            else:
+                raise AssertionError(f"guarded merge: {name} on the card did not raise the fault")
+        before = GLOBAL_COUNTERS.get("merge.guarded_fallbacks")
+        t0 = time.perf_counter()
+        degraded = DocBatch(guard=True, device="cpu", **kw).merge(workloads, cursors)
+        seconds = time.perf_counter() - t0
+        if GLOBAL_COUNTERS.get("merge.guarded_fallbacks") != before + 1:
+            raise AssertionError("guarded merge: merge.guarded_fallbacks did not count the fault")
+        if degraded.fallback_docs != list(range(len(workloads))) or \
+                degraded.stats.extras.get("guarded_fallback") != 1.0:
+            raise AssertionError("guarded merge: the faulted merge did not degrade the batch")
+        for field in ("spans", "roots", "cursor_positions"):
+            if getattr(degraded, field) != getattr(clean, field):
+                raise AssertionError(f"guarded merge: degraded {field} differ from the clean merge")
+    finally:
+        kernel_mod.insert_batch = real
+    log(f"durability: guarded merge of {len(workloads)} docs launched rga_insert {launches} "
+        f"time(s) and equals the unguarded merge; one injected failure raised on the card, "
+        f"guarded and unguarded; on a CPU batch it degraded all {len(workloads)} docs to the "
+        f"oracle in {seconds:.3f} s ({degraded.stats.extras['guarded_error']}), equal in spans, "
+        "roots and cursors")
+    return launches
+
+
 def main_path_insert_args(batch, workloads):
     """The insert kernel's inputs exactly as the padded slice's merge gives them."""
     from peritext_tpu_torch.ops.kernel import encoded_arrays_of
@@ -1037,7 +1512,7 @@ def main_path_insert_args(batch, workloads):
 
 def main_path_paged_args(batch, workloads):
     """The insert kernel's inputs exactly as the paged merge gives them,
-    one list per page-bucket group (api/batch.py ``_run_paged`` ->
+    one list per page-bucket group (api/batch.py ``_device_paged`` ->
     store/paged.apply_rows -> ops/kernel.apply_batch_paged): the group's
     pages and aux rows gathered to (B, G*P), with padding rows and
     null-page table entries, and the group's streams padded to B rows."""
@@ -1064,7 +1539,7 @@ def main_path_paged_args(batch, workloads):
 
 def main_path_ragged_args(batch, workloads):
     """The ragged insert kernel's inputs exactly as the ragged merge gives
-    them (api/batch.py ``_run_ragged`` -> ops/ragged.apply_batch_ragged)."""
+    them (api/batch.py ``_device_ragged`` -> ops/ragged.apply_batch_ragged)."""
     import torch
 
     from peritext_tpu_torch.ops.ragged import plan_arrays, stream_counts
@@ -1096,16 +1571,19 @@ def main() -> int:
     # ends with main
     import multiprocessing
 
+    import tempfile
+
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
         essay_job = pool.apply_async(_essay, (LONGTAIL["essay_seed"], LONGTAIL["essay_ops"]))
-        return run_all(device, essay_job)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            return run_all(device, essay_job, Path(tmp))
     finally:
         pool.terminate()
         pool.join()
 
 
-def run_all(device, essay_job) -> int:
+def run_all(device, essay_job, ckpt_root) -> int:
     """Every phase after the device check (module doc)."""
     import torch
 
@@ -1137,15 +1615,32 @@ def run_all(device, essay_job) -> int:
                 log("  ptxas:", line.strip())
 
     torch.manual_seed(0)
-    batch, workloads, cursors, launches = run_slice(device)
+    batch, workloads, cursors, launches, slice_report = run_slice(device)
     pooled, pooled_workloads, pooled_launches = run_pooled(device, workloads, cursors)
     log(f"merges done at {time.perf_counter() - t_start:.1f} s")
-    capture, capture_frames, stream_reports, ctx = run_streaming(device)
+    ckpts = {"root": ckpt_root}
+    capture, capture_frames, stream_reports, ctx = run_streaming(device, ckpts)
     log(f"streaming done at {time.perf_counter() - t_start:.1f} s")
-    capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx, essay_job)
+    capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx, essay_job,
+                                                                       ckpts)
     stream_reports += layout_reports
     del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"streaming layouts done at {time.perf_counter() - t_start:.1f} s")
+
+    capture_bridge = {}
+    bridge_paths = {"bridge_pm_fixtures": run_pm_fixtures()["rga_insert"]}
+    bridge_fuzz = run_bridge_fuzz(capture_bridge)
+    bridge_paths["bridge_fuzz"] = bridge_fuzz["launches"]["rga_insert"]
+    bridge_paths["bridge_timer"] = run_bridge_timer()["rga_insert"]
+    log(f"bridge done at {time.perf_counter() - t_start:.1f} s")
+    capture_restore = {}
+    restores = run_restores(ckpts, capture_restore)
+    crash = run_crash_campaigns()
+    guarded_launches = run_guarded(workloads, cursors, slice_report)
+    del slice_report
+    log(f"durability done at {time.perf_counter() - t_start:.1f} s")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
@@ -1162,7 +1657,9 @@ def run_all(device, essay_job) -> int:
         raise AssertionError("streaming: no paged group chain was captured in A_paged's third drain")
     for i, args in enumerate(capture_paged["groups"]):
         rows.append(check_insert(f"streaming_paged_round_g{i}", args))
-    del capture, capture_frames, capture_paged
+    rows.append(check_insert("bridge_round", capture_bridge["args"],
+                             loop_slots=capture_bridge["loop_slots"]))
+    del capture, capture_frames, capture_paged, capture_bridge
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
     rows.append(check_insert("batch_8k_loop_slots", args, loop_slots=BATCH_8K["inserts"]))
@@ -1178,6 +1675,7 @@ def run_all(device, essay_job) -> int:
     if "args" not in capture_ragged:
         raise AssertionError("streaming: no ragged insert call was captured in C_frames_ragged")
     ragged_rows += check_ragged("streaming_ragged_round", capture_ragged.pop("args"))
+    ragged_rows += check_ragged("restore_ragged_round", capture_restore.pop("args"))
     ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
         device, BATCH_8K["slots"],
         synth_streams(BATCH_8K["docs"], inserts_per_doc=BATCH_8K["inserts"], seed=1)[:3]))
@@ -1213,9 +1711,16 @@ def run_all(device, essay_job) -> int:
                  "pooled_paged": pooled_launches["paged"]["rga_insert"]}
     rga_paths.update({f"streaming_{r['session']}": r["rga_insert_launches"] for r in stream_reports
                       if r["layout"] != "ragged"})
+    rga_paths.update(bridge_paths)
+    rga_paths.update({f"restore_{r['session']}": r["launches"]["rga_insert"] for r in restores
+                      if r["layout"] != "ragged"})
+    rga_paths.update({f"restore_crash_seed{seed}": d["rga_insert"] for seed, d in crash.items()})
+    rga_paths["guarded_merge"] = guarded_launches
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})
+    ragged_paths.update({f"restore_{r['session']}": r["launches"]["ragged_insert"]
+                         for r in restores if r["layout"] == "ragged"})
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

@@ -18,8 +18,15 @@ imports neither JAX nor that package.
 * :mod:`peritext_tpu_torch.parallel` — causal scheduling, the convergence
   digests and ``StreamingMerge``, the streaming session (its constructor
   builds every layout).
-* :mod:`peritext_tpu_torch.testing` — seeded workload generators and
-  streaming arrival schedules.
+* :mod:`peritext_tpu_torch.bridge` — the headless editor and its
+  transforms to and from the CRDT; ``Editor(backend="tpu")`` keeps its view
+  on a one-doc ``StreamingMerge`` on the card.  Its transport is
+  :mod:`~peritext_tpu_torch.parallel.pubsub` and
+  :mod:`~peritext_tpu_torch.parallel.change_queue`.
+* :mod:`peritext_tpu_torch.checkpoint` — change logs, packed snapshots and
+  session checkpoints, in the JAX package's formats.
+* :mod:`peritext_tpu_torch.testing` — seeded workload generators, streaming
+  arrival schedules, trace replay and the crash-restore campaign.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

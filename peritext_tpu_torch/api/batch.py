@@ -24,6 +24,13 @@ Three storage layouts, with equal results:
 
 Semantically equivalent to constructing a fresh ``core.Doc`` per workload
 and replaying all changes.
+
+``guard=True`` (opt-in) turns a failure of the device stages (apply and
+resolve) of a batch on the CPU into a whole-batch replay through the
+scalar oracle, recorded in the report, the ``merge.guarded_fallbacks``
+counter and ``stats.extras``.  On a card it changes nothing: a kernel
+that does not build or launch, or device memory exhausted, raises there
+with or without the guard, so no device fault is hidden behind the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 
 from ..core.doc import Doc
 from ..core.types import Change, FormatSpan
-from ..obs import MergeStats, stage_timer
+from ..obs import GLOBAL_COUNTERS, MergeStats, stage_timer
 from ..ops.decode import decode_block_spans, decode_doc_root
 from ..ops.encode import EncodedBatch, _DocStreams, encode_doc_streams, encode_workloads, pad_doc_streams
 from ..ops.kernel import apply_batch, encoded_arrays_of
@@ -101,7 +108,9 @@ class DocBatch:
     ragged layouts (default :data:`~peritext_tpu_torch.store.DEFAULT_PAGE_SIZE`),
     and must divide ``slot_capacity`` there.  ``device`` defaults to
     ``cuda``; with no card present, pass ``device="cpu"`` to run the plain
-    torch path.
+    torch path.  ``guard`` (default off) degrades a CPU batch's merge whose
+    device stages fail to the scalar oracle; a card's faults always raise
+    (module doc).
     """
 
     def __init__(
@@ -130,12 +139,8 @@ class DocBatch:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP.md queue 1: 'Multi-GPU mesh')"
             )
-        if guard:
-            raise NotImplementedError(
-                "guard=True is not ported yet (ROADMAP.md queue 1: 'Durability', "
-                "guard and the supervisor)"
-            )
         self.device = resolve_device(device)
+        self.guard = bool(guard)
         self.slot_capacity = slot_capacity
         self.mark_capacity = mark_capacity
         self.comment_capacity = comment_capacity
@@ -167,13 +172,11 @@ class DocBatch:
         )
         return apply_batch(state, arrays)
 
-    def _run_padded(self, workloads, stats: MergeStats) -> List[_Group]:
-        with stage_timer(stats, "encode_seconds"):
-            encoded = self.encode(workloads)
+    def _device_padded(self, encoded: EncodedBatch, stats: MergeStats) -> List[_Group]:
         with stage_timer(stats, "apply_seconds", self.device):
             state = self.apply_encoded(encoded)
         with stage_timer(stats, "resolve_seconds", self.device):
-            group = self._resolve_group(np.arange(len(workloads)), encoded, state)
+            group = self._resolve_group(np.arange(encoded.num_docs), encoded, state)
         capacity = encoded.num_docs * sum(_stream_widths(encoded))
         stats.padding_efficiency = (
             float(encoded.num_ops.sum()) / capacity if capacity else 0.0
@@ -230,12 +233,10 @@ class DocBatch:
                 encs.append((g, docs, enc))
         return encs
 
-    def _run_paged(self, workloads, stats: MergeStats) -> List[_Group]:
-        with stage_timer(stats, "encode_seconds"):
-            encs = self._encode_paged(workloads)
+    def _device_paged(self, encs, stats: MergeStats) -> List[_Group]:
         with stage_timer(stats, "apply_seconds", self.device):
             store = self.last_store = PagedDocStore(
-                len(workloads),
+                stats.docs,
                 slot_capacity=self.slot_capacity,
                 mark_capacity=self.mark_capacity,
                 tomb_capacity=max((enc.del_target.shape[1] for _, _, enc in encs), default=8),
@@ -288,9 +289,7 @@ class DocBatch:
         store.ensure_rows(np.arange(enc.num_docs, dtype=np.int64), ins_counts)
         return store, ragged_plan(store)
 
-    def _run_ragged(self, workloads, stats: MergeStats) -> List[_Group]:
-        with stage_timer(stats, "encode_seconds"):
-            enc = self._encode_ragged(workloads)
+    def _device_ragged(self, enc: EncodedBatch, stats: MergeStats) -> List[_Group]:
         with stage_timer(stats, "apply_seconds", self.device):
             store, plan = self._ragged_store(enc)
             self.last_store = store
@@ -333,9 +332,19 @@ class DocBatch:
         oracle.
         """
         stats = MergeStats(docs=len(workloads))
-        run = {"padded": self._run_padded, "paged": self._run_paged,
-               "ragged": self._run_ragged}[self.layout]
-        groups = run(workloads, stats)
+        encode, device_stages = {
+            "padded": (self.encode, self._device_padded),
+            "paged": (self._encode_paged, self._device_paged),
+            "ragged": (self._encode_ragged, self._device_ragged),
+        }[self.layout]
+        with stage_timer(stats, "encode_seconds"):
+            encoded = encode(workloads)
+        try:
+            groups = device_stages(encoded, stats)
+        except Exception as exc:  # the guard's boundary: re-raised unless guarded
+            if not self.guard or self.device.type != "cpu":
+                raise
+            return self._degraded_merge(workloads, cursors, stats, exc)
 
         fallback = set()
         for grp in groups:
@@ -399,6 +408,38 @@ class DocBatch:
             device_ops=device_ops,
             stats=stats,
             cursor_positions=cursor_positions,
+            roots=roots,
+        )
+
+    def _degraded_merge(self, workloads, cursors, stats: MergeStats,
+                        exc: Exception) -> MergeReport:
+        """Guarded-merge degradation: the whole batch replays through the
+        scalar oracle (the same spans, roots and cursors, no device).  The
+        failure is kept as evidence in the counters and ``stats.extras``."""
+        GLOBAL_COUNTERS.add("merge.guarded_fallbacks")
+        spans: List[List[FormatSpan]] = []
+        roots: List[dict] = []
+        positions: Optional[List[List[int]]] = [] if cursors is not None else None
+        fallback_ops = 0
+        with stage_timer(stats, "decode_seconds"):
+            for d, workload in enumerate(workloads):
+                doc = _oracle_doc(workload)
+                spans.append(doc.get_text_with_formatting(["text"]))
+                roots.append(doc.root)
+                fallback_ops += sum(len(ch.ops) for log in workload.values() for ch in log)
+                if positions is not None:
+                    positions.append(oracle_cursor_positions(doc, cursors[d]))
+        stats.fallback_docs = len(workloads)
+        stats.device_docs = 0
+        stats.fallback_ops = fallback_ops
+        stats.extras["guarded_fallback"] = 1.0
+        stats.extras["guarded_error"] = repr(exc)
+        return MergeReport(
+            spans=spans,
+            fallback_docs=list(range(len(workloads))),
+            device_ops=0,
+            stats=stats,
+            cursor_positions=positions,
             roots=roots,
         )
 

@@ -10,6 +10,7 @@ reports its schedule and apply (dispatch) seconds from them.
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -24,16 +25,21 @@ class Counters:
     ``streaming.block_applies`` (padded: one per touched read block of a
     round), ``streaming.group_applies`` (paged: one per page group of a
     round) and ``streaming.ragged_applies`` (ragged: one per non-empty doc
-    class of a round's plan)."""
+    class of a round's plan).  A lock guards every read and update: an
+    editor's change queue flushes on a timer thread, and the flush
+    publishes and drains sessions there (``parallel/change_queue.py``)."""
 
     def __init__(self) -> None:
         self._values: Dict[str, int] = {}
+        self._lock = threading.Lock()
 
     def add(self, name: str, value: int = 1) -> None:
-        self._values[name] = self._values.get(name, 0) + value
+        with self._lock:
+            self._values[name] = self._values.get(name, 0) + value
 
     def get(self, name: str) -> int:
-        return self._values.get(name, 0)
+        with self._lock:
+            return self._values.get(name, 0)
 
 
 GLOBAL_COUNTERS = Counters()
@@ -95,7 +101,7 @@ class MergeStats:
     decode_seconds: float = 0.0
     #: real ops / padded op-stream capacity across the batch (0..1)
     padding_efficiency: float = 0.0
-    extras: Dict[str, float] = field(default_factory=dict)
+    extras: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def total_seconds(self) -> float:

@@ -33,7 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.nvcc import load_library
+from ..utils.nvcc import count_launch, load_library
 
 #: dynamic shared memory one block may take on Hopper: 227 KB per block,
 #: less a margin for the kernel's static reduction words
@@ -259,7 +259,7 @@ def insert_batch(elem_id, char, num_slots, overflow, ins_ref, ins_op, ins_char, 
                 f"insert kernel launch refused: CUDA error {err} (D={d}, S={s_cap}, "
                 f"s_loop={s_loop}, K={k}, team={launch.team}, shared={launch.shared})"
             )
-        insert_batch.launches += 1
+        count_launch(insert_batch)
     return elem_out, char_out, n_out, ov_out
 
 

@@ -31,7 +31,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.nvcc import load_library
+from ..utils.nvcc import count_launch, load_library
 from .insert import SMEM_BUDGET, TeamLaunch, num_sms, plan_teams, require_host
 
 #: "no position" for the segment minima: far above any slot position, far
@@ -224,7 +224,7 @@ def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, 
                 f"Gmax={gmax}, K={k}, team={launch.team}, docs={launch.num_docs}, "
                 f"window={launch.window}, shared={launch.shared})"
             )
-        ragged_insert.launches += 1
+        count_launch(ragged_insert)
     return n_out, ov_out
 
 

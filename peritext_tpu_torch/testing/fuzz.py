@@ -4,7 +4,10 @@ N replicas make random edits (insert / delete / addMark / removeMark) and
 randomly pairwise-sync via vector-clock anti-entropy; the per-actor change
 logs they leave are the workload of the batched merge path.  For the same
 seed the logs equal those of the reference package's generator: each step
-draws from one ``random.Random`` in the same order.
+draws from one ``random.Random`` in the same order.  :func:`run_fuzz` runs
+a campaign of such steps (its store is what a failed trace saves), and
+:func:`run_crash_restore` kills a streaming session mid-stream and restores
+it from a checkpoint.
 
 Fixes over the reference fuzzer (documented deviations):
 
@@ -19,7 +22,9 @@ from __future__ import annotations
 import random
 import string
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
+
+import torch
 
 from ..core.doc import Doc
 from ..core.types import Change, InputOperation
@@ -145,6 +150,16 @@ def fuzz_step(state: FuzzState, op_fn=random_input_op) -> None:
         apply_changes(state.docs[dst], missing)
 
 
+def run_fuzz(seed: int, iterations: int, num_replicas: int = 3) -> FuzzState:
+    """``iterations`` fuzz steps from a fresh state (the reference's
+    ``run_fuzz`` without its per-sync checks, which make no rng call, so
+    the store equals the reference's for the same seed)."""
+    state = make_fuzz_state(seed, num_replicas)
+    for _ in range(iterations):
+        fuzz_step(state)
+    return state
+
+
 def _workloads(seeds, ops_per_doc, num_replicas, initial_text, op_fn):
     workloads = []
     for seed in seeds:
@@ -198,3 +213,120 @@ def sample_cursors(workloads, per_doc: int, seed: int) -> List[List[dict]]:
         picks = [rng.choice(elems) for _ in range(per_doc)] if elems else []
         out.append([{"objectId": text_obj, "elemId": e} for e in picks])
     return out
+
+
+def _campaign_session(num_docs: int, ops_per_doc: int, mesh=None,
+                      device: Optional[Union[str, torch.device]] = None):
+    """The streaming-session configuration shared by every streaming fuzz
+    campaign (capacities scale with the workload's op count)."""
+    from ..parallel.streaming import StreamingMerge
+
+    return StreamingMerge(
+        num_docs=num_docs,
+        actors=("doc1", "doc2", "doc3"),
+        slot_capacity=max(256, 4 * ops_per_doc),
+        mark_capacity=max(64, ops_per_doc),
+        tomb_capacity=max(128, ops_per_doc),
+        round_insert_capacity=128,
+        round_delete_capacity=64,
+        round_mark_capacity=64,
+        mesh=mesh,
+        device=device,
+    )
+
+
+def run_crash_restore(
+    seed: int, num_docs: int = 8, ops_per_doc: int = 80, mesh=None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> int:
+    """Crash-consistency campaign: kill a streaming session mid-stream and
+    restore it from a CheckpointManager checkpoint (event-sourced frame
+    histories, checkpoint.py), then repair via one anti-entropy redelivery.
+
+    Per seed: deliver each doc's changes as shuffled chunked frames with
+    device rounds interleaved; checkpoint at a random mid-point; "crash"
+    (drop the session object); restore from the LATEST checkpoint, meshless;
+    then redeliver a random overlapping suffix of every doc's frames
+    (duplicate-tolerant anti-entropy).  The restored session must reach the
+    clean session's digest, spans and roots, all equal to the oracle.
+    Every session runs on ``device`` (default ``cuda``); ``mesh`` is not
+    ported and raises.  Returns the number of frames redelivered after
+    restore."""
+    import tempfile
+
+    from ..api.batch import _oracle_doc
+    from ..checkpoint import CheckpointManager
+    from ..parallel.codec import encode_frame
+
+    rng = random.Random(seed ^ 0xC4A54)
+    workloads = generate_workload(seed, num_docs=num_docs, ops_per_doc=ops_per_doc)
+
+    def mk(use_mesh):
+        return _campaign_session(num_docs, ops_per_doc, use_mesh, device=device)
+
+    # per-doc frame schedule
+    plans = []
+    for w in workloads:
+        changes = [ch for log in w.values() for ch in log]
+        rng.shuffle(changes)
+        chunk = rng.randrange(5, 12)
+        plans.append(
+            [encode_frame(changes[i : i + chunk]) for i in range(0, len(changes), chunk)]
+        )
+
+    # clean reference session (no crash)
+    clean = mk(None)
+    for d, frames in enumerate(plans):
+        for f in frames:
+            clean.ingest_frame(d, f)
+    clean.drain()
+    clean_digest = clean.digest()
+
+    # crashing session: deliver a prefix, checkpoint, deliver a bit more, die
+    sess = mk(mesh)
+    cut = [rng.randrange(1, len(frames) + 1) for frames in plans]
+    for d, frames in enumerate(plans):
+        for f in frames[: cut[d]]:
+            sess.ingest_frame(d, f)
+            if rng.random() < 0.4:
+                sess.step()
+    sess.drain()
+    with tempfile.TemporaryDirectory() as tmp:
+        manager = CheckpointManager(tmp, keep=2, device=device)
+        manager.save(step=1, session=sess)
+        # post-checkpoint deliveries that will be LOST in the crash
+        for d, frames in enumerate(plans):
+            for f in frames[cut[d] : cut[d] + 1]:
+                sess.ingest_frame(d, f)
+        sess.step()
+        del sess  # crash
+
+        restored = manager.latest().session(mesh=None)  # meshless restore
+        assert restored is not None
+
+        # anti-entropy repair: redeliver an overlapping suffix (dup-tolerant)
+        redelivered = 0
+        for d, frames in enumerate(plans):
+            start = max(0, cut[d] - rng.randrange(0, 3))  # overlap into the ckpt
+            for f in frames[start:]:
+                restored.ingest_frame(d, f)
+                redelivered += 1
+                if rng.random() < 0.3:
+                    restored.step()
+        restored.drain()
+
+    assert restored.pending_count() == 0, f"seed={seed}: stuck changes after repair"
+    assert restored.digest() == clean_digest, (
+        f"seed={seed}: restored digest diverges after crash/repair"
+    )
+    for d, w in enumerate(workloads):
+        oracle = _oracle_doc(w)
+        expected = oracle.get_text_with_formatting(["text"])
+        got = restored.read(d)
+        assert got == expected, (
+            f"seed={seed} doc={d}: restored spans diverge from oracle"
+        )
+        assert restored.read_root(d) == oracle.root, (
+            f"seed={seed} doc={d}: restored root diverges from oracle"
+        )
+    return redelivered

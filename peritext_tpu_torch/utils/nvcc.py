@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_launch_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -92,3 +93,11 @@ def load_library(name: str) -> ctypes.CDLL:
             path = build_libraries([name])[name]
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count a kernel wrapper
+    keeps, under a lock: an editor's change queue launches from its timer
+    thread while the caller's thread may launch too."""
+    with _launch_lock:
+        wrapper.launches += 1

@@ -126,7 +126,6 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "Multi-GPU mesh"),
-    (dict(guard=True), "Durability"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -140,7 +139,12 @@ def test_import_leaves_jax_and_reference_out():
         "peritext_tpu_torch.parallel.streaming, peritext_tpu_torch.parallel.mesh, "
         "peritext_tpu_torch.ops.patches, peritext_tpu_torch.native, "
         "peritext_tpu_torch.parallel.codec, peritext_tpu_torch.ops.frames, "
-        "peritext_tpu_torch.store.session, peritext_tpu_torch.parallel.faults\n"
+        "peritext_tpu_torch.store.session, peritext_tpu_torch.parallel.faults, "
+        "peritext_tpu_torch.bridge, peritext_tpu_torch.bridge.commands, "
+        "peritext_tpu_torch.bridge.pm, peritext_tpu_torch.bridge.playback, "
+        "peritext_tpu_torch.checkpoint, peritext_tpu_torch.core.comment, "
+        "peritext_tpu_torch.parallel.pubsub, peritext_tpu_torch.parallel.change_queue, "
+        "peritext_tpu_torch.testing.traces\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"
