@@ -48,7 +48,7 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    and the long-tail session (the reference bench's ``longdoc`` shape:
    1024 docs x 8 ops and one essay of 4096 ops, slots 8192, by frames in
    4 rounds) in all three layouts, paged and ragged equal to padded on
-   every doc.  A paged session launches the insert kernel once per (round,
+   every doc, the essay overflowed and replayed on the host in each.  A paged session launches the insert kernel once per (round,
    page group) (``streaming.group_applies``) and never the ragged one; a
    ragged session the ragged insert kernel once per non-empty doc class of
    each round's plan (``streaming.ragged_applies``) and never the padded
@@ -77,6 +77,29 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    wrapper raises on the card, guarded or not (the guard never moves a
    card's work to the CPU), and degrades only a CPU batch, which then
    replays all docs through the oracle with equal results;
+5e. serve: the serving tier (``serve/``) over padded static-round sessions
+   on ``cuda`` (:data:`SERVE`): (a) the reference bench's
+   ``serve_sustained`` row at its own shape, 64 client sessions on one
+   ``SessionMux``: the warm-up walk of batch sizes, the open-loop
+   ``sustained_ladder`` with its midpoint rung, and a traced rung with the
+   latency and history planes armed, whose stage decomposition must be
+   sum-consistent with no negative stage (docs/s at the SLO, the
+   sustained and breaking rungs, ``stages_ms``, the window); then one hot
+   client whose session quota sheds past the mux's demotion threshold,
+   whose doc must stay on the card (the sheds stay backpressure) and equal
+   a plain session on the CPU and the oracle; (b) the same
+   server at config 5's width, 2048 sessions: a ladder, then a full feed
+   of every session's frames through the mux, which must equal a plain
+   session fed the same frames (``digest()``, ``digest(full=False)``,
+   ``read_all()``, ``mux.read`` on a seeded sample of 64) and, on that
+   sample, the scalar oracle, with no doc off the card (peak memory);
+   (c) ``GuardedSession`` over session A's shape on the card, fed A's four
+   frame rounds, recovering from one injected failure and one injected
+   delay past its deadline by rollback, equal to A_frames, with no scalar
+   degradation; then a persistent fault that raises on the card without
+   demoting a doc and degrades a CPU session to the oracle.  Each part's
+   insert launches equal its block applies (the abandoned round of (c)
+   waited for first);
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
@@ -84,8 +107,9 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    ragged one the ragged merge's and one streaming round of ragged
    C_frames; for the insert kernel also one streaming round of A and one
    of A's frame arm, each at its ``loop_slots``, every page group of one
-   streaming round of paged A, and one editor round of the bridge's fuzzed
-   session; for the ragged one also the first round of the ragged restore)
+   streaming round of paged A, one editor round of the bridge's fuzzed
+   session and one committed mux round of the serve phase's full feed; for
+   the ragged one also the first round of the ragged restore)
    and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
@@ -145,12 +169,11 @@ LONG_DOC_RAGGED = dict(docs=64, slots=32768, inserts=4096, seed=2)
 #: essay; marks: 8192 / 4) moved to streaming: 4 shuffled arrival rounds by
 #: v2 frames; the round widths are session A's, which every change fits
 #: (checked).  One cut, for the time limit: the essay has 4096 ops, not
-#: 8192 (the capacities stay the bench's).  At these
-#: capacities it overflows (more mark ops and comment ids than the tables
-#: hold), so every session replays it on the host: at 8192 ops that took
-#: 118 s a session on the card's host and the script 892.5 s in all; at
-#: 6144 ops 45-56 s a session, and with the bridge and durability phases
-#: the script took 1154.1 s of its 1200
+#: 8192 (the capacities stay the bench's).  It overflows at these
+#: capacities (more mark ops and comment ids than the tables hold; checked
+#: in every layout), so every session replays it on the host, a cost that
+#: grows faster than the essay: at 8192 ops 118 s a session on an H100
+#: machine's host, at 6144 ops 45-56 s, at 4096 ops 15-29 s
 LONGTAIL = dict(docs=1024, ops=8, seed=1, essay_ops=4096, essay_seed=90001, rounds=4,
                 slot_capacity=8192, mark_capacity=2048, tomb_capacity=8192,
                 comment_capacity=64, page_size=64, round_caps=(256, 128, 128, 16), sample=64)
@@ -172,11 +195,11 @@ STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capa
 #: 8 urls and comments over 24 ids, spans of 2-40 characters, 16%), each
 #: through ``bridge/commands.py``, on a random one of the three; every
 #: editor syncs after every 20th.  The sessions get the reference's round
-#: widths with 4096 slots and 512 mark rows (what this mix needs: about 3800
-#: characters inserted, 480 mark ops) and 2048 tombstone rows (about 1000
-#: characters deleted; the reference's default of 128 would overflow).
-#: ``capture_at`` is the transaction whose insert call is held against the
-#: plain version
+#: widths with 4096 slots and 512 mark rows (what 3000 transactions of this
+#: mix need: about 3800 characters inserted, 480 mark ops) and 2048
+#: tombstone rows (about 1000 characters deleted; the reference's default
+#: of 128 would overflow).  ``capture_at`` is the transaction whose insert
+#: call is held against the plain version
 BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=3000, sync_every=20, seed=3,
               initial_words=40, comment_ids=24, urls=8, capture_at=1500,
               backend_config=dict(slot_capacity=4096, mark_capacity=512, tomb_capacity=2048))
@@ -184,6 +207,27 @@ BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=3000, sync_every=20, seed
 #: the durability phase, and the crash campaign's seeds and size
 DURABLE = ("C_frames", "C_frames_ragged", "A_paged_frames")
 CRASH = dict(seeds=(11, 12), docs=64, ops=120)
+#: phase 5e, the serving tier: ``row`` is the reference bench's
+#: ``serve_sustained`` row at its own shape (``bench.py --mode serve``
+#: defaults: 64 docs x 96 ops, workload seed 11; each doc's changes in v2
+#: frames of 6; capacities max(256, 4 ops), max(64, ops), max(128, ops);
+#: round widths 128/64/64; static rounds; a queue of max(256, 4 docs) with
+#: no session quota; rates 50 * 2**i for i < 12 in rungs of 1.5 s against a
+#: 250 ms p99 apply-latency SLO, one midpoint rung, then a traced rung with
+#: a read every 4th pump); ``wide`` the same server at config 5's width
+#: (2048 docs x 192 ops, a ladder of at most 8 rungs from 400 frames/s),
+#: then a full feed whose ``capture_pump``-th pump's round is held against
+#: the plain insert.  No rung runs uncounted first: the bench's ``warmup=2``
+#: keeps XLA compiles out of its percentiles, and a torch session compiles
+#: nothing; the warm-up walk of batch sizes runs before each ladder
+SERVE = dict(row=dict(docs=64, ops=96, base_rate=50.0, rungs=12),
+             wide=dict(docs=2048, ops=192, base_rate=400.0, rungs=8, sample=64, capture_pump=10),
+             seed=11, frame_changes=6, round_caps=(128, 64, 64, 16), rung_seconds=1.5,
+             slo_ms=250.0, read_every=4)
+#: phase 5e (c), the supervisor: session A's shape (:data:`STREAM`) under
+#: ``GuardedSession`` with a fixed watchdog deadline, an injected delay past
+#: it, and the persistent fault's session size
+SUPERVISED = dict(deadline=5.0, delay=7.0, persistent_docs=64)
 WORDS = ("the of and a to in is you that it he was for on are as with his they at be this "
          "have from or one had by word but not what all were we when your can said there "
          "use an each which she do how their if will up other about out many then them "
@@ -200,6 +244,14 @@ def _generate_chunk(args):
     from peritext_tpu_torch.testing.fuzz import generate_workload
 
     return generate_workload(*args)
+
+
+def _workload(seed: int, docs: int, ops: int):
+    """``generate_workload(seed, docs, ops)`` in one worker process: the
+    serve phase's 2048 sessions, made while the earlier phases run."""
+    from peritext_tpu_torch.testing.fuzz import generate_workload
+
+    return generate_workload(seed, docs, ops)
 
 
 def _essay(seed: int, ops: int):
@@ -1076,6 +1128,10 @@ def run_longtail(device, essay_job):
             f"ops/s, peak memory {out['peak_memory_bytes']} bytes, fallback docs "
             f"{out['fallback']}, overflow docs {out['overflow_docs']}, pool_stats "
             f"{json.dumps(out['health'].get('page_pool'))}")
+    for layout, out in outs.items():
+        if not out["overflow_docs"]:
+            raise AssertionError(f"longtail_{layout}: the essay did not overflow, so the host "
+                                 "replay of an overflowed doc went untested")
     for layout in ("paged", "ragged"):
         compare_arms(f"longtail_{layout}", outs[layout], outs["padded"], "longtail_padded")
     log(f"longtail: paged and ragged equal padded on all {len(workloads)} docs (read_all, "
@@ -1497,6 +1553,483 @@ def run_guarded(workloads, cursors, clean):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the serving tier and the supervisor
+# ---------------------------------------------------------------------------
+
+
+def serve_frames(workloads):
+    """Each doc's changes (actor by actor, as the reference bench's serve
+    row lists them) in v2 frames of ``SERVE["frame_changes"]`` changes."""
+    from peritext_tpu_torch.parallel.codec import encode_frame
+
+    n = SERVE["frame_changes"]
+    plans = []
+    for w in workloads:
+        changes = [ch for log in w.values() for ch in log]
+        plans.append([encode_frame(changes[i:i + n]) for i in range(0, len(changes), n)])
+    return plans
+
+
+def serve_session(device, docs, ops):
+    """The serve row's session: the bench's capacities for ``ops`` ops a
+    doc, its round widths, static rounds."""
+    from peritext_tpu_torch.parallel.streaming import StreamingMerge
+
+    ki, kd, km, kp = SERVE["round_caps"]
+    return StreamingMerge(
+        num_docs=docs, actors=("doc1", "doc2", "doc3"), slot_capacity=max(256, 4 * ops),
+        mark_capacity=max(64, ops), tomb_capacity=max(128, ops), round_insert_capacity=ki,
+        round_delete_capacity=kd, round_mark_capacity=km, round_map_capacity=kp,
+        static_rounds=True, device=device)
+
+
+def serve_factory(device, docs, ops, plans):
+    """A fresh mux over a fresh session with one open client session per
+    doc, and each session's frames: what every ladder rung starts from."""
+    from peritext_tpu_torch.serve import AdmissionController, SessionMux
+
+    def factory():
+        mux = SessionMux(serve_session(device, docs, ops),
+                         admission=AdmissionController(max_depth=max(256, 4 * docs),
+                                                       session_quota=None),
+                         host="chip_smoke")
+        frames = {}
+        for doc in range(docs):
+            sid, verdict = mux.open_session(f"client{doc}")
+            if not verdict.admitted:
+                raise AssertionError(f"serve: session for doc {doc} refused: {verdict.to_json()}")
+            frames[sid] = plans[doc]
+        return mux, frames
+
+    return factory
+
+
+def serve_warm_walk(factory, docs):
+    """The bench's warm-up: batches of 1, 2, 4, ... 2 * docs frames, each
+    flushed, on a throwaway mux, so the allocator has grown for every
+    batch size before a rung is measured."""
+    mux, frames = factory()
+    sids = sorted(frames)
+    cursor = dict.fromkeys(sids, 0)
+    batch = 1
+    while batch <= 2 * docs:
+        for i in range(batch):
+            sid = sids[i % len(sids)]
+            mux.submit(sid, frames[sid][cursor[sid] % len(frames[sid])])
+            cursor[sid] += 1
+        mux.flush()
+        batch *= 2
+
+
+def _rung_line(name, rung):
+    r = rung.result
+    return (f"{name} rung {rung.rate_per_s:.1f}/s: {'sustained' if rung.sustained else 'broke'}, "
+            f"offered {r.offered}, admitted {r.admitted}, delayed {r.delayed}, shed {r.shed}, "
+            f"p50 {r.p50_apply_s * 1e3:.3f} ms, p99 {r.p99_apply_s * 1e3:.3f} ms, rounds "
+            f"{r.rounds}, window {r.window_seconds * 1e3:.3f} ms, wall {r.wall_seconds:.3f} s")
+
+
+def serve_ladder(name, factory, base_rate, count, midpoint):
+    """``sustained_ladder`` at ``base_rate * 2**i`` for i < ``count`` in
+    rungs of ``SERVE["rung_seconds"]`` against the p99 SLO; with
+    ``midpoint``, one more rung at 1.5x the best sustained rate when a rung
+    broke (the bench's refinement).  Every rung must account for every
+    offered frame.  Returns (rungs, best, broke)."""
+    from peritext_tpu_torch.serve import sustained_ladder
+
+    slo = SERVE["slo_ms"] / 1e3
+    duration = SERVE["rung_seconds"]
+    rungs, best = sustained_ladder(factory, [base_rate * 2 ** i for i in range(count)],
+                                   slo_p99_s=slo, duration_s=duration)
+    broke = next((r for r in rungs if not r.sustained), None)
+    if midpoint and best is not None and broke is not None:
+        mid, mid_best = sustained_ladder(factory, [best.rate_per_s * 1.5], slo_p99_s=slo,
+                                         duration_s=duration)
+        rungs += mid
+        best = mid_best or best
+    for rung in rungs:
+        if not rung.result.accounted():
+            raise AssertionError(f"{name}: a rung lost frames: {rung.to_json()}")
+        log(_rung_line(name, rung))
+    return rungs, best, broke
+
+
+def _check_served(name, mux):
+    s = mux.session
+    fallback = [d for d, sess in enumerate(s.docs) if sess.fallback]
+    if fallback or s.quarantined() or s.overflow_count():
+        raise AssertionError(f"{name}: fallback {fallback[:20]}, quarantine "
+                             f"{sorted(s.quarantined())[:20]}, overflow {s.overflow_count()}")
+
+
+def run_serve_row(device):
+    """Phase 5e (a): the reference bench's ``serve_sustained`` row at its
+    own shape (:data:`SERVE` ``row``): the warm-up walk, the ladder with
+    its midpoint rung, then the traced rung with the latency and history
+    planes armed and a read every 4th committed pump, whose decomposition
+    must be sum-consistent with no negative stage.  Returns the report and
+    the insert launches of the phase (equal to its block applies)."""
+    from peritext_tpu_torch.obs import LatencyPlane, TimeSeriesPlane, check_sum_consistency
+    from peritext_tpu_torch.serve import build_arrivals, run_open_loop
+    from peritext_tpu_torch.testing.fuzz import generate_workload
+
+    cfg = SERVE["row"]
+    t_phase = time.perf_counter()
+    plans = serve_frames(generate_workload(SERVE["seed"], cfg["docs"], cfg["ops"]))
+    factory = serve_factory(device, cfg["docs"], cfg["ops"], plans)
+    start = _phase_counts()
+    serve_warm_walk(factory, cfg["docs"])
+    rungs, best, broke = serve_ladder("serve_row", factory, cfg["base_rate"], cfg["rungs"],
+                                      midpoint=True)
+    value = best.rate_per_s if best is not None else 0.0
+    tmux, tframes = factory()
+    plane = tmux.latency_plane = LatencyPlane().enable()
+    history = tmux.history_plane = TimeSeriesPlane(sample_every=1, min_frames=4).enable()
+    duration = SERVE["rung_seconds"]
+    trace_rate = max(cfg["base_rate"], value / 2.0) if value else cfg["base_rate"]
+    traced = run_open_loop(tmux, build_arrivals(tframes, trace_rate, duration),
+                           deadline_s=max(duration * 4, duration + 2.0),
+                           read_every=SERVE["read_every"])
+    lat = traced.latency
+    if lat is None or not lat["records"] or not lat["sum_consistent"] or \
+            not check_sum_consistency(plane.last) or \
+            any(v < 0 for v in lat["stages_ms"].values()):
+        raise AssertionError(f"serve_row: traced rung's decomposition is not sum-consistent: {lat}")
+    if not traced.accounted():
+        raise AssertionError(f"serve_row: the traced rung lost frames: {traced.to_json()}")
+    _check_served("serve_row traced", tmux)
+    delta = _phase_delta(start)
+    _check_padded_launches("serve_row", delta)
+    report = dict(
+        docs_per_s_at_slo=value, slo_ms=SERVE["slo_ms"],
+        sustained=best.to_json() if best is not None else None,
+        breaking=broke.to_json() if broke is not None else None,
+        rungs=[r.to_json() for r in rungs], traced=traced.to_json(),
+        stages_ms=lat["stages_ms"], time_to_visibility_ms=lat["time_to_visibility_ms"],
+        window=tmux.tuner.snapshot(), history_frames=history.snapshot()["frames_sampled"],
+        launches=delta, seconds=time.perf_counter() - t_phase)
+    log("serve_row", json.dumps(report))
+    log(f"serve_row: {value:.1f} docs/s at the {SERVE['slo_ms']:.0f} ms p99 SLO "
+        f"({cfg['docs']} sessions); traced rung at {trace_rate:.1f}/s: stages_ms "
+        f"{json.dumps(lat['stages_ms'])}, time to visibility {lat['time_to_visibility_ms']} ms, "
+        f"window {tmux.window_seconds() * 1e3:.3f} ms; {delta['rga_insert']} rga_insert "
+        f"launches = block applies; {report['seconds']:.1f} s")
+    return report, delta["rga_insert"]
+
+
+def run_serve_quota(device):
+    """Phase 5e (a), the quota rung: one hot client on the serve row's
+    server whose quota is a quarter of a queue of 8 frames, submitting its
+    doc's frames in order, each resubmitted until admitted, with a flush
+    after every ``2 * degrade_after`` quota sheds in a row.  Its streak must
+    pass the mux's demotion threshold, and the doc must stay on the card
+    (the sheds stay backpressure: no demotion, no fallback), equal a plain
+    session on the CPU fed the same frames and the scalar oracle; the
+    insert launches must equal the block applies.  Returns the launches."""
+    from peritext_tpu_torch.api.batch import _oracle_doc
+    from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+    from peritext_tpu_torch.serve import (
+        ADMIT,
+        SHED_SESSION_QUOTA,
+        AdmissionController,
+        SessionMux,
+    )
+    from peritext_tpu_torch.testing.fuzz import generate_workload
+
+    cfg = SERVE["row"]
+    workload = generate_workload(SERVE["seed"], 1, cfg["ops"])[0]  # the row's doc 0
+    frames = serve_frames([workload])[0]
+    t0 = time.perf_counter()
+    start = _phase_counts()
+    refused = GLOBAL_COUNTERS.get("serve.degrade_refused_on_device")
+    mux = SessionMux(serve_session(device, cfg["docs"], cfg["ops"]),
+                     admission=AdmissionController(max_depth=8, session_quota=0.25),
+                     host="chip_smoke")
+    hot, _ = mux.open_session("hot")
+    streak = sheds = longest = 0
+    for frame in frames:
+        while (verdict := mux.submit(hot, frame)).kind != ADMIT:
+            if verdict.reason != SHED_SESSION_QUOTA:
+                raise AssertionError(f"serve_quota: {verdict.to_json()}")
+            sheds, streak = sheds + 1, streak + 1
+            longest = max(longest, streak)
+            if streak == 2 * mux.degrade_after:
+                mux.flush()
+                streak = 0
+        streak = 0
+    mux.flush()
+    refused = GLOBAL_COUNTERS.get("serve.degrade_refused_on_device") - refused
+    if longest < mux.degrade_after or not refused:
+        raise AssertionError(f"serve_quota: the shed streak ({longest}) never passed the "
+                             f"demotion threshold ({mux.degrade_after})")
+    if mux.sessions()[hot].degraded or mux.degraded_docs:
+        raise AssertionError("serve_quota: the hot session was demoted on the card")
+    _check_served("serve_quota", mux)
+    delta = _phase_delta(start)  # before the CPU session's applies move the counter
+    _check_padded_launches("serve_quota", delta)
+    plain = serve_session("cpu", 1, cfg["ops"])
+    plain.ingest_frames([(0, f) for f in frames])
+    plain.drain()
+    got = mux.read(hot)
+    if got != plain.read(0) or got != _oracle_doc(workload).get_text_with_formatting(["text"]):
+        raise AssertionError("serve_quota: the hot doc differs from the plain session or oracle")
+    log(f"serve_quota: {len(frames)} frames of one hot client, {sheds} quota sheds (longest "
+        f"streak {longest}, demotion threshold {mux.degrade_after}, {refused} demotions refused "
+        f"on the card); the doc stayed on the card and equals a plain CPU session and the "
+        f"oracle; {delta['rga_insert']} rga_insert launches = block applies; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return delta["rga_insert"]
+
+
+def run_serve_wide(device, workload_job, capture):
+    """Phase 5e (b): the same server at config 5's width (:data:`SERVE`
+    ``wide``): the warm-up walk, the ladder, then a full feed — every frame
+    of every session submitted once, in each session's order, round robin,
+    each submit followed by ``pump()`` (a delayed frame is retried after a
+    flush), then flushed.  The session must equal a plain session fed the
+    same frames by ``ingest_frames`` and ``drain()`` (digests, ``read_all``,
+    ``mux.read`` on a seeded sample), a seeded sample must equal the scalar
+    oracle, no doc may leave the card, and the insert launches of the phase
+    must equal its block applies.  The workload comes from
+    ``workload_job``, made in a worker since the start.  ``capture``
+    records one committed round's insert call of the feed."""
+    import torch
+
+    from peritext_tpu_torch.api.batch import _oracle_doc
+    from peritext_tpu_torch.serve import ADMIT
+
+    cfg = SERVE["wide"]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    workloads = workload_job.get(timeout=900)
+    plans = serve_frames(workloads)
+    n_frames = sum(len(p) for p in plans)
+    log(f"serve_2048: {cfg['docs']} docs x {cfg['ops']} ops ({n_frames} frames) ready in "
+        f"{time.perf_counter() - t0:.1f} s after the earlier phases")
+    factory = serve_factory(device, cfg["docs"], cfg["ops"], plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = _phase_counts()
+    serve_warm_walk(factory, cfg["docs"])
+    rungs, best, broke = serve_ladder("serve_2048", factory, cfg["base_rate"], cfg["rungs"],
+                                      midpoint=False)
+
+    mux, frames = factory()
+    sids = sorted(frames)
+    undo = _arm_capture(capture, "padded")
+    retried = pumps = 0
+    t0 = time.perf_counter()
+    try:
+        for k in range(max(len(f) for f in frames.values())):
+            for sid in sids:
+                if k >= len(frames[sid]):
+                    continue
+                verdict = mux.submit(sid, frames[sid][k])
+                if verdict.kind != ADMIT:
+                    retried += 1
+                    mux.flush()
+                    verdict = mux.submit(sid, frames[sid][k])
+                    if verdict.kind != ADMIT:
+                        raise AssertionError(f"serve_2048: a retry after a flush was not "
+                                             f"admitted: {verdict.to_json()}")
+                if mux.pump():
+                    pumps += 1
+                    if pumps == cfg["capture_pump"]:
+                        capture["armed"] = True
+        if "args" not in capture:  # a feed of fewer pumps: the final flush's round
+            capture["armed"] = True
+        mux.flush()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    feed_seconds = time.perf_counter() - t0
+    if mux.applied != n_frames or mux.admission.stats.shed:
+        raise AssertionError(f"serve_2048: {mux.applied} of {n_frames} frames applied, "
+                             f"{mux.admission.stats.shed} shed")
+    _check_served("serve_2048", mux)
+
+    t0 = time.perf_counter()
+    plain = serve_session(device, cfg["docs"], cfg["ops"])
+    plain.ingest_frames([(d, f) for d, plan in enumerate(plans) for f in plan])
+    plain.drain()
+    plain_seconds = time.perf_counter() - t0
+    s = mux.session
+    checks = {"digest()": (s.digest(), plain.digest()),
+              "digest(full=False)": (s.digest(full=False), plain.digest(full=False)),
+              "read_all()": (s.read_all(), plain.read_all()),
+              "pending_count()": (s.pending_count(), 0)}
+    for what, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"serve_2048: the mux's session {what} differs from the plain "
+                                 "session's")
+    sample = sorted(random.Random(SERVE["seed"]).sample(sids, cfg["sample"]))
+    for sid in sample:
+        doc = mux.sessions()[sid].doc_index
+        got = mux.read(sid)
+        if got != plain.read(doc):
+            raise AssertionError(f"serve_2048: mux.read({sid}) differs from the plain session")
+        if got != _oracle_doc(workloads[doc]).get_text_with_formatting(["text"]):
+            raise AssertionError(f"serve_2048: doc {doc} differs from the oracle")
+    delta = _phase_delta(start)
+    _check_padded_launches("serve_2048", delta)
+    peak = torch.cuda.max_memory_allocated()
+    report = dict(
+        docs=cfg["docs"], frames=n_frames, docs_per_s_at_slo=best.rate_per_s if best else 0.0,
+        sustained=best.to_json() if best is not None else None,
+        breaking=broke.to_json() if broke is not None else None,
+        rungs=[r.to_json() for r in rungs], feed_seconds=feed_seconds,
+        feed_frames_per_s=n_frames / feed_seconds, feed_pumps=mux.rounds, feed_retried=retried,
+        feed_rounds=s.rounds, feed_window=mux.tuner.snapshot(), plain_seconds=plain_seconds,
+        launches=delta, peak_memory_bytes=peak, seconds=time.perf_counter() - t_phase)
+    log("serve_2048", json.dumps(report))
+    log(f"serve_2048: {report['docs_per_s_at_slo']:.1f} docs/s at the SLO ({cfg['docs']} "
+        f"sessions); full feed of {n_frames} frames in {feed_seconds:.3f} s ({mux.rounds} pumps, "
+        f"{s.rounds} rounds, {retried} retried) equals the plain session (digests, read_all, "
+        f"{len(sample)} sampled reads) and the oracle on the sample; no fallback; "
+        f"{delta['rga_insert']} rga_insert launches = block applies; peak memory {peak} bytes; "
+        f"{report['seconds']:.1f} s")
+    if "args" not in capture:
+        raise AssertionError("serve_2048: no insert call was captured in the full feed")
+    return report, delta["rga_insert"]
+
+
+def _supervisor_script(g, rounds, delay):
+    """The supervised session's arrival: per round one ``ingest_frames``;
+    a failure injected before round 2's drain; round 3's ``step()`` held
+    past its deadline by an injected delay; every round drained.  Returns
+    the seconds of each rolled-back call: the rollback (restore and
+    re-drain), and for the delayed round the deadline's wait too."""
+    seconds = []
+    for r, items in enumerate(rounds):
+        g.ingest_frames(items)
+        if r in (1, 2):
+            t0 = time.perf_counter()
+            if r == 1:
+                g.inject_failure(RuntimeError("injected device fault"))
+                rolled = g.drain() == 0
+            else:
+                g.inject_delay(delay)
+                rolled = g.step() == 0
+            seconds.append(time.perf_counter() - t0)
+            if not rolled:
+                raise AssertionError(f"supervisor: the fault injected in round {r + 1} did not "
+                                     "roll back")
+        g.drain()
+    return seconds
+
+
+def run_supervisor(device, sup, ckpt_root):
+    """Phase 5e (c): ``GuardedSession`` on the card over session A's shape
+    (:data:`STREAM`), fed A's four frame rounds with ``checkpoint_every=1``
+    and a fixed deadline; one injected failure before round 2 and one
+    injected delay past the deadline in round 3 must both roll back and
+    recover on the card, equal to A (digest, read_all), with no fallback
+    and no scalar degradation; the abandoned round is waited for, then the
+    insert launches must equal the block applies.  Then a persistent fault
+    (every insert call raises) on a 64-doc session: on the card the drain
+    raises and no doc is demoted; on the CPU the same script degrades every
+    pending doc (reason ``device-round``) and reads equal the oracle."""
+    import torch
+
+    from peritext_tpu_torch.api.batch import _oracle_doc
+    from peritext_tpu_torch.core.errors import DeviceRoundError
+    from peritext_tpu_torch.ops import kernel as kernel_mod
+    from peritext_tpu_torch.parallel.streaming import REASON_DEVICE_ROUND, StreamingMerge
+    from peritext_tpu_torch.parallel.supervisor import GuardedSession
+
+    cfg, scfg = STREAM, SUPERVISED
+    ki, kd, km, kp = cfg["round_caps"]
+
+    def factory(docs, dev):
+        return lambda: StreamingMerge(
+            num_docs=docs, actors=("doc1", "doc2", "doc3"), slot_capacity=cfg["slot_capacity"],
+            mark_capacity=cfg["mark_capacity"], tomb_capacity=cfg["tomb_capacity"],
+            round_insert_capacity=ki, round_delete_capacity=kd, round_mark_capacity=km,
+            round_map_capacity=kp, comment_capacity=cfg["comment_capacity"], device=dev)
+
+    wire = sup["wire"]
+    rounds = [[(d, batches[r]) for d, batches in enumerate(wire) if r < len(batches)]
+              for r in range(cfg["rounds"])]
+    t_phase = time.perf_counter()
+    start = _phase_counts()
+    g = GuardedSession(factory(cfg["docs"], device), ckpt_root / "supervisor",
+                       deadline=scfg["deadline"], checkpoint_every=1, autotune=False)
+    t0 = time.perf_counter()
+    rollback_seconds = _supervisor_script(g, rounds, scfg["delay"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not g.join_abandoned(timeout=120):
+        raise AssertionError("supervisor: the abandoned round did not end")
+    delta = _phase_delta(start)
+    _check_padded_launches("supervisor", delta)
+    health = g.health()
+    if g.session.device.type != device.type or health["rollbacks"] != 2 or \
+            health["scalar_degradations"] or health["fallback_docs"] or health["quarantined"]:
+        raise AssertionError(f"supervisor: health {json.dumps(health, default=str)[:2000]}")
+    if g.digest() != sup["digest"] or g.read_all() != sup["spans"]:
+        raise AssertionError("supervisor: the recovered session differs from A_frames")
+    report = dict(docs=cfg["docs"], rounds=g.session.rounds, seconds=seconds,
+                  rollback_seconds=rollback_seconds,
+                  rollbacks=health["rollbacks"], checkpoints=health["checkpoints"],
+                  scalar_degradations=health["scalar_degradations"],
+                  flight_recorder=health["flight_recorder"], launches=delta,
+                  supervisor_round_seconds=health["round_latency"])
+    g.close()
+    del g
+
+    docs = scfg["persistent_docs"]
+    small = [[(d, f) for d, f in items if d < docs] for items in rounds]
+    real = kernel_mod.insert_batch
+
+    def fault(*args, **kwargs):
+        raise RuntimeError("injected persistent device fault")
+
+    outcomes = {}
+    for dev in (device, torch.device("cpu")):
+        g = GuardedSession(factory(docs, dev), ckpt_root / f"persistent_{dev.type}",
+                           deadline=60.0, checkpoint_every=1, autotune=False)
+        g.ingest_frames(small[0])
+        g.drain()
+        kernel_mod.insert_batch = fault
+        try:
+            for items in small[1:]:
+                g.ingest_frames(items)
+            g.drain()
+        except DeviceRoundError as exc:
+            outcomes[dev.type] = repr(exc)[:160]
+        else:
+            outcomes[dev.type] = None
+        finally:
+            kernel_mod.insert_batch = real
+        demoted = {d: r.reason for d, r in g.quarantined().items()}
+        if dev.type != "cpu":
+            if outcomes[dev.type] is None or demoted or any(s.fallback for s in g.session.docs):
+                raise AssertionError(f"supervisor: the persistent fault on the card did not raise "
+                                     f"or demoted docs ({outcomes[dev.type]}, {demoted})")
+        else:
+            if outcomes["cpu"] is not None or g.scalar_degradations != 1 or not demoted or \
+                    set(demoted.values()) != {REASON_DEVICE_ROUND}:
+                raise AssertionError(f"supervisor: the CPU session did not degrade "
+                                     f"({outcomes['cpu']}, {demoted})")
+            g.drain()
+            for d in range(docs):
+                if g.read(d) != _oracle_doc(sup["workloads"][d]).get_text_with_formatting(["text"]):
+                    raise AssertionError(f"supervisor: degraded doc {d} differs from the oracle")
+            report["cpu_demoted_docs"] = len(demoted)
+        g.close()
+    report.update(persistent=outcomes, phase_seconds=time.perf_counter() - t_phase)
+    log("supervisor", json.dumps(report))
+    log(f"supervisor: {cfg['docs']} docs recovered on the card from one injected failure and one "
+        f"injected {scfg['delay']:.1f} s delay (deadline {scfg['deadline']:.1f} s): 2 rollbacks "
+        f"({rollback_seconds[0]:.3f} s; {rollback_seconds[1]:.3f} s with the deadline's wait), "
+        f"0 scalar degradations, equal to A_frames; {delta['rga_insert']} rga_insert launches = "
+        f"block applies (the abandoned round included); the persistent fault raised on the card "
+        f"with no doc demoted, and degraded {report['cpu_demoted_docs']} docs on the CPU, equal "
+        f"to the oracle; {report['phase_seconds']:.1f} s")
+    return report, delta["rga_insert"]
+
+
 def main_path_insert_args(batch, workloads):
     """The insert kernel's inputs exactly as the padded slice's merge gives them."""
     from peritext_tpu_torch.ops.kernel import encoded_arrays_of
@@ -1566,24 +2099,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
     device = torch.device("cuda")
-    # the long-tail essay (one doc of thousands of fuzz ops) and its oracle
-    # replay take minutes on one core: they start now, in a worker, which
-    # ends with main
+    # the long-tail essay (one doc of thousands of fuzz ops) with its oracle
+    # replay, and the serve phase's 2048-session workload, take minutes on
+    # one core each: they start now, in two workers, which end with main
     import multiprocessing
 
     import tempfile
 
-    pool = multiprocessing.get_context("spawn").Pool(1)
+    pool = multiprocessing.get_context("spawn").Pool(2)
     try:
-        essay_job = pool.apply_async(_essay, (LONGTAIL["essay_seed"], LONGTAIL["essay_ops"]))
+        jobs = dict(
+            essay=pool.apply_async(_essay, (LONGTAIL["essay_seed"], LONGTAIL["essay_ops"])),
+            serve_wide=pool.apply_async(_workload, (SERVE["seed"], SERVE["wide"]["docs"],
+                                                    SERVE["wide"]["ops"])))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-            return run_all(device, essay_job, Path(tmp))
+            return run_all(device, jobs, Path(tmp))
     finally:
         pool.terminate()
         pool.join()
 
 
-def run_all(device, essay_job, ckpt_root) -> int:
+def run_all(device, jobs, ckpt_root) -> int:
     """Every phase after the device check (module doc)."""
     import torch
 
@@ -1621,9 +2157,11 @@ def run_all(device, essay_job, ckpt_root) -> int:
     ckpts = {"root": ckpt_root}
     capture, capture_frames, stream_reports, ctx = run_streaming(device, ckpts)
     log(f"streaming done at {time.perf_counter() - t_start:.1f} s")
-    capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx, essay_job,
+    capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx, jobs["essay"],
                                                                        ckpts)
     stream_reports += layout_reports
+    sup = dict(workloads=ctx["workloads"], wire=ctx["wire"], digest=ctx["a"]["digest"],
+               spans=ctx["a"]["spans"])
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -1642,6 +2180,17 @@ def run_all(device, essay_job, ckpt_root) -> int:
     del slice_report
     log(f"durability done at {time.perf_counter() - t_start:.1f} s")
 
+    serve_paths = {}
+    _, serve_paths["serve_row"] = run_serve_row(device)
+    serve_paths["serve_quota"] = run_serve_quota(device)
+    capture_serve = {}
+    _, serve_paths["serve_2048"] = run_serve_wide(device, jobs["serve_wide"], capture_serve)
+    _, serve_paths["supervisor"] = run_supervisor(device, sup, ckpt_root)
+    del sup
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve done at {time.perf_counter() - t_start:.1f} s")
+
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
     for name, args in main_path_paged_args(pooled["paged"], pooled_workloads):
@@ -1659,7 +2208,9 @@ def run_all(device, essay_job, ckpt_root) -> int:
         rows.append(check_insert(f"streaming_paged_round_g{i}", args))
     rows.append(check_insert("bridge_round", capture_bridge["args"],
                              loop_slots=capture_bridge["loop_slots"]))
-    del capture, capture_frames, capture_paged, capture_bridge
+    rows.append(check_insert("serve_round", capture_serve["args"],
+                             loop_slots=capture_serve["loop_slots"]))
+    del capture, capture_frames, capture_paged, capture_bridge, capture_serve
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
     rows.append(check_insert("batch_8k_loop_slots", args, loop_slots=BATCH_8K["inserts"]))
@@ -1716,6 +2267,7 @@ def run_all(device, essay_job, ckpt_root) -> int:
                       if r["layout"] != "ragged"})
     rga_paths.update({f"restore_crash_seed{seed}": d["rga_insert"] for seed, d in crash.items()})
     rga_paths["guarded_merge"] = guarded_launches
+    rga_paths.update(serve_paths)
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})

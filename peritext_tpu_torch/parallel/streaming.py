@@ -62,7 +62,14 @@ from .. import native
 from ..core.doc import Doc
 from ..core.errors import DecodeError
 from ..core.types import Change, Clock, FormatSpan
-from ..obs import GLOBAL_COUNTERS, GLOBAL_TRACER, MergeStats, TraceContext
+from ..obs import (
+    GLOBAL_COUNTERS,
+    GLOBAL_HISTOGRAMS,
+    GLOBAL_TRACER,
+    SIZE_BUCKETS,
+    MergeStats,
+    TraceContext,
+)
 from ..ops.decode import CompactBlock, decode_doc_spans
 from ..ops.encode import MAP_STREAM_COLS, MARK_COLS, DocEncoder, _DocStreams
 from ..ops.frames import (
@@ -392,6 +399,9 @@ class StreamingMerge:
         #: (D, K) apply at the configured widths (no adaptive shrink)
         self.static_rounds = bool(static_rounds)
         self.tracer = tracer if tracer is not None else GLOBAL_TRACER
+        #: flight recorder (``obs/recorder.py``) a quarantine reports to, with
+        #: an auto-dump of its ring; a supervisor attaches its own
+        self.recorder = None
         #: MergeStats of the most recent committed round batch
         self.last_round_stats: Optional[MergeStats] = None
         #: per-drain schedule/apply span sums (reset by drain())
@@ -657,6 +667,13 @@ class StreamingMerge:
             self._quarantine[doc_index] = QuarantineRecord(
                 reason=reason, detail=detail, round=self.rounds)
             GLOBAL_COUNTERS.add("streaming.quarantined_docs")
+            if self.recorder is not None:
+                # the quarantine becomes a post-mortem: fault() dumps the
+                # recent span/event ring as JSONL
+                self.recorder.fault(
+                    "quarantine", doc=doc_index, quarantine_reason=reason,
+                    detail=detail, round=self.rounds,
+                )
         elif rec.reason == REASON_DECODE and reason != REASON_DECODE:
             self._quarantine[doc_index] = QuarantineRecord(
                 reason=reason, detail=detail, round=self.rounds)
@@ -811,6 +828,9 @@ class StreamingMerge:
             self.last_drain_marks["rounds"] += len(batch)
         self._pad_real_ops += real
         self._pad_capacity += capacity
+        GLOBAL_HISTOGRAMS.observe("streaming.round_seconds", schedule_s + apply_s)
+        GLOBAL_HISTOGRAMS.observe(
+            "streaming.round_scheduled_changes", scheduled, buckets=SIZE_BUCKETS)
 
     def _round_capacity(self, enc: _RoundBuffers, widths) -> int:
         """Op-stream capacity one committed round paid: every row at the

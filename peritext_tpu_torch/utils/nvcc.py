@@ -30,6 +30,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+class KernelBuildError(RuntimeError):
+    """A CUDA source failed to build, or its library failed to load.  A
+    fault of the installation, not of a device round: callers that contain
+    round failures (the guarded session) let it through."""
+
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 _launch_lock = threading.Lock()
@@ -59,7 +65,8 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
     """Build every named source that has no current library, one ``nvcc``
     per source, all started together.  Returns each library's path; the
     compiler's report (``-Xptxas -v``) lands beside it as ``.log``.
-    Raises with the compiler's output if a build fails."""
+    Raises :class:`KernelBuildError` with the compiler's output if a build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
     jobs = {}
@@ -81,17 +88,22 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
             continue
         os.replace(tmp, paths[name])  # atomic: a concurrent build sees all or nothing
     if failed:
-        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+        raise KernelBuildError("CUDA build failed: " + "\n".join(failed))
     return paths
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Raises :class:`KernelBuildError` if it cannot be built or loaded."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             path = build_libraries([name])[name]
-            lib = _loaded[name] = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as exc:
+                raise KernelBuildError(f"cannot load {path.name}: {exc}") from exc
+            _loaded[name] = lib
         return lib
 
 

@@ -144,7 +144,8 @@ def test_import_leaves_jax_and_reference_out():
         "peritext_tpu_torch.bridge.pm, peritext_tpu_torch.bridge.playback, "
         "peritext_tpu_torch.checkpoint, peritext_tpu_torch.core.comment, "
         "peritext_tpu_torch.parallel.pubsub, peritext_tpu_torch.parallel.change_queue, "
-        "peritext_tpu_torch.testing.traces\n"
+        "peritext_tpu_torch.testing.traces, peritext_tpu_torch.obs, peritext_tpu_torch.serve, "
+        "peritext_tpu_torch.parallel.supervisor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"

@@ -176,25 +176,21 @@ def test_frame_session_equals_object_twin(frame_sessions):
 
 
 def test_ingest_span_carries_the_senders_trace_context(workloads):
-    class Recorder:
-        def __init__(self):
-            self.spans = []
+    from peritext_tpu_torch.obs import Tracer
 
-        def span(self, name, **args):
-            from peritext_tpu_torch.obs import Span
-
-            self.spans.append(Span(name, args))
-            return self.spans[-1]
-
-    tracer = Recorder()
+    tracer = Tracer(trace_id=0x77)
+    spans = []
+    tracer.add_sink(spans.append)
     t = StreamingMerge(num_docs=2, actors=ACTORS, **CAPS, tracer=tracer, device="cpu")
     changes = _port(_changes_of(workloads[0]))
     t.ingest_frames([(0, encode_frame_traced(changes, 0xABCDEF, 42)),
                      (1, encode_frame_checked(changes, 7, 9))])
     t.ingest_frame(1, encode_frame(changes))
-    ingest = [sp.args for sp in tracer.spans if sp.name == "streaming.ingest"]
-    assert ingest[0]["ctx"] == (0xABCDEF, 42) and ingest[0]["frames"] == 2
-    assert ingest[1]["ctx"] is None
+    ingest = [sp for sp in spans if sp.name == "streaming.ingest"]
+    # the traced frame's context parents the ingest span in the sender's trace
+    assert (ingest[0].trace_id, ingest[0].parent_id) == (0xABCDEF, 42)
+    assert ingest[0].args["frames"] == 2
+    assert (ingest[1].trace_id, ingest[1].parent_id) == (0x77, 0)
     # the traced forms were stored as their self-contained v2 frames
     assert t.doc_history_frames(0) == t.doc_history_frames(1)[:1] == [encode_frame(changes)]
     t.drain()
