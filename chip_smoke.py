@@ -59,7 +59,7 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
    such editors each, equal to their ``expected_doc``; a fuzzed session of
-   3000 transactions through ``bridge/commands.py`` on three of them and a
+   1500 transactions through ``bridge/commands.py`` on three of them and a
    scalar editor, the oracle (:data:`BRIDGE`), every view equal to the
    oracle's and to its own CRDT render, no doc demoted or overflowed, with
    dispatch and remote-apply latency; and two editors with
@@ -100,6 +100,29 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    demoting a doc and degrades a CPU session to the oracle.  Each part's
    insert launches equal its block applies (the abandoned round of (c)
    waited for first);
+5f. fused and fleet serving (:data:`FUSED`, :data:`FLEET`), on ``cuda``:
+   (a) the reference bench's ``serve_multitenant`` row at its own shape:
+   32 one-doc tenants on one ``FusedMuxGroup`` lane against 32 standalone
+   muxes, same frames and windows, both arms walked once and then
+   measured; every tenant's patch stream equal to its twin's, the armed
+   latency plane sum-consistent, occupancy rows in the history plane
+   (dispatches of both arms and their ratio, walls, p99 apply latencies);
+   (b) the group at config 5's width: serve_2048's workload as 256
+   tenants x 8 docs on a padded (1024 rows), a paged (512) and a ragged
+   (512) lane, on the same alternating windows: each lane equal to a plain
+   session of its layout fed the same frames in the same windows, 16
+   tenants equal to standalone muxes, 64 docs to the oracle, no doc off
+   the card, K1 launches equal to the block plus group applies and K3
+   launches to the ragged applies (``fusion_snapshot()``, window walls,
+   peak memory); (c) the host-kill failover episode over TCP ship
+   endpoints: 3 ``FleetHost``s of 1536 rows, 2048 docs, 16 migrations and
+   a rebalance at half the frames, then the busiest host killed: typed
+   verdicts with ``submitted == admitted + delayed + shed``, acked ops
+   surviving on 64 sampled victim docs before any retry, every doc's
+   digest and the fleet-wide sum equal to a fault-free session after the
+   resubmissions, 64 docs equal to the oracle, K1 launches over the hosts
+   equal to their block applies (applied frames/s, detection rounds,
+   failover docs and seconds, ships, migrations, rollbacks);
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
@@ -108,8 +131,11 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    C_frames; for the insert kernel also one streaming round of A and one
    of A's frame arm, each at its ``loop_slots``, every page group of one
    streaming round of paged A, one editor round of the bridge's fuzzed
-   session and one committed mux round of the serve phase's full feed; for
-   the ragged one also the first round of the ragged restore)
+   session, one committed mux round of the serve phase's full feed, the
+   fused padded lane's round in a sparse window, every page group of the
+   fused paged lane's round there and one failover re-drain round of a
+   fleet host; for the ragged one also the first round of the ragged
+   restore and the fused ragged lane's round in the sparse window)
    and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
@@ -190,7 +216,7 @@ STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capa
 
 #: the bridge phase's fuzzed editing session: three ``"tpu"`` editors and
 #: one scalar editor (the oracle, which only receives) on one document
-#: seeded with 40 words; 3000 transactions (typing runs of 1-3 characters
+#: seeded with 40 words; 1500 transactions (typing runs of 1-3 characters
 #: 62%, deletes of 1-2 characters 22%, bold and italic toggles, links from
 #: 8 urls and comments over 24 ids, spans of 2-40 characters, 16%), each
 #: through ``bridge/commands.py``, on a random one of the three; every
@@ -198,10 +224,13 @@ STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capa
 #: widths with 4096 slots and 512 mark rows (what 3000 transactions of this
 #: mix need: about 3800 characters inserted, 480 mark ops) and 2048
 #: tombstone rows (about 1000 characters deleted; the reference's default
-#: of 128 would overflow).  ``capture_at`` is the transaction whose insert
-#: call is held against the plain version
-BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=3000, sync_every=20, seed=3,
-              initial_words=40, comment_ids=24, urls=8, capture_at=1500,
+#: of 128 would overflow).  Cut from 3000 transactions for the time limit:
+#: every read decodes the whole document, so the session's cost grows
+#: faster than its length (256-315 s at 3000 on an H100 machine).
+#: ``capture_at`` is the transaction whose insert call is held against the
+#: plain version
+BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=1500, sync_every=20, seed=3,
+              initial_words=40, comment_ids=24, urls=8, capture_at=750,
               backend_config=dict(slot_capacity=4096, mark_capacity=512, tomb_capacity=2048))
 #: durability: the sessions checkpointed where they end and restored in
 #: the durability phase, and the crash campaign's seeds and size
@@ -228,6 +257,31 @@ SERVE = dict(row=dict(docs=64, ops=96, base_rate=50.0, rungs=12),
 #: ``GuardedSession`` with a fixed watchdog deadline, an injected delay past
 #: it, and the persistent fault's session size
 SUPERVISED = dict(deadline=5.0, delay=7.0, persistent_docs=64)
+#: phase 5f, fused and fleet serving.  ``row`` is the reference bench's
+#: ``serve_multitenant`` row at its own shape (``bench.py --mode
+#: serve-fused`` defaults: 32 one-doc tenants x 96 ops from workload seed
+#: 13; each doc's changes, sorted by actor and seq, in 6 strided frames;
+#: every tenant active in even windows, every 4th in odd ones, then a tail
+#: window; capacities max(256, 4 ops), max(64, ops), max(128, ops); round
+#: widths 128/64/64; one padded static-round lane against 32 standalone
+#: muxes).  ``wide`` is the group at config 5's width: serve_2048's
+#: workload (:data:`SERVE` ``wide``: 2048 docs x 192 ops, seed 11, v2
+#: frames of 6 changes, its capacities) as 256 tenants of 8 docs, 128 on a
+#: padded lane of 1024 rows, 64 on a paged lane of 512 (pages of 64) and 64
+#: on a ragged lane of 512, on the same alternating full and sparse windows
+#: until every frame is in.  ``fleet`` is the reference's host-kill
+#: failover episode (``testing/chaos.py`` ``run_host_kill_failover``, the
+#: ``fleet_serve`` row's) at the same width: 3 hosts with TCP ship
+#: endpoints on 127.0.0.1, each a mux over a padded static-round session of
+#: 1536 rows, leases of 2 rounds, a checkpoint every 4; at half the frames
+#: 16 directed migrations and one rebalance, then the busiest host killed
+FUSED = dict(row=dict(tenants=32, ops=96, seed=13, windows=6),
+             wide=dict(tenants=256, docs=8, lanes=(("padded", 128), ("paged", 64), ("ragged", 64)),
+                       lane_capacity=1024, sample_tenants=16, sample_docs=64, seed=5))
+FLEET = dict(hosts=3, rows=1536, lease_rounds=2, checkpoint_every=4, migrate=16, sample=64,
+             seed=7)
+#: the fuzz workloads' three replicas (every session's actor table)
+ACTORS = ("doc1", "doc2", "doc3")
 WORDS = ("the of and a to in is you that it he was for on are as with his they at be this "
          "have from or one had by word but not what all were we when your can said there "
          "use an each which she do how their if will up other about out many then them "
@@ -732,7 +786,7 @@ def _arm_capture(capture, layout):
         return insert(*args, loop_slots=loop_slots, **kw)
 
     def groups_rec(*args, **kw):
-        if not capture.get("armed"):
+        if not capture.get("armed") or layout != "paged":
             return groups(*args, **kw)
         capture.update(armed=False, recording=True, groups=[])
         try:
@@ -741,7 +795,7 @@ def _arm_capture(capture, layout):
             capture["recording"] = False
 
     def ragged_rec(*args, **kw):
-        if capture.get("armed"):
+        if capture.get("armed") and layout == "ragged":
             capture.update(armed=False, args=clone(args))
         return ragged(*args, **kw)
 
@@ -1576,12 +1630,16 @@ def serve_session(device, docs, ops):
     doc, its round widths, static rounds."""
     from peritext_tpu_torch.parallel.streaming import StreamingMerge
 
+    return StreamingMerge(num_docs=docs, actors=ACTORS, static_rounds=True, device=device,
+                          **_serve_widths(ops))
+
+
+def _serve_widths(ops):
+    """The serve row's capacities for ``ops`` ops a doc and its round widths."""
     ki, kd, km, kp = SERVE["round_caps"]
-    return StreamingMerge(
-        num_docs=docs, actors=("doc1", "doc2", "doc3"), slot_capacity=max(256, 4 * ops),
-        mark_capacity=max(64, ops), tomb_capacity=max(128, ops), round_insert_capacity=ki,
-        round_delete_capacity=kd, round_mark_capacity=km, round_map_capacity=kp,
-        static_rounds=True, device=device)
+    return dict(slot_capacity=max(256, 4 * ops), mark_capacity=max(64, ops),
+                tomb_capacity=max(128, ops), round_insert_capacity=ki,
+                round_delete_capacity=kd, round_mark_capacity=km, round_map_capacity=kp)
 
 
 def serve_factory(device, docs, ops, plans):
@@ -1656,7 +1714,11 @@ def serve_ladder(name, factory, base_rate, count, midpoint):
 
 
 def _check_served(name, mux):
-    s = mux.session
+    _check_on_card(name, mux.session)
+
+
+def _check_on_card(name, s):
+    """No doc of session ``s`` fell back, was quarantined or overflowed."""
     fallback = [d for d, sess in enumerate(s.docs) if sess.fallback]
     if fallback or s.quarantined() or s.overflow_count():
         raise AssertionError(f"{name}: fallback {fallback[:20]}, quarantine "
@@ -2030,6 +2092,523 @@ def run_supervisor(device, sup, ckpt_root):
     return report, delta["rga_insert"]
 
 
+# ---------------------------------------------------------------------------
+# fused multi-tenant and fleet serving
+# ---------------------------------------------------------------------------
+
+def _check_lane(name, s):
+    """The lane session is on the card and no doc of it left the card."""
+    if s.device.type != "cuda":
+        raise AssertionError(f"{name}: the session is on {s.device}")
+    _check_on_card(name, s)
+
+
+def _p99_ms(values):
+    return float(np.percentile(np.asarray(values, np.float64), 99) * 1e3) if values else None
+
+
+def fused_row_plan(names, workloads, windows):
+    """The reference bench's ``serve_multitenant`` plan: each doc's changes
+    (sorted by actor and seq) in ``windows`` strided frames; every tenant
+    in even windows, every 4th in odd ones; leftovers in a tail window.
+    Returns [[(tenant, frame), ...] per window]."""
+    from peritext_tpu_torch.parallel.codec import encode_frame
+
+    frames = {}
+    for name, w in zip(names, workloads):
+        changes = sorted((ch for log in w.values() for ch in log), key=lambda c: (c.actor, c.seq))
+        frames[name] = [encode_frame(changes[i::windows]) for i in range(windows)]
+    cursor = dict.fromkeys(names, 0)
+    plan = []
+    for w in range(windows):
+        step = []
+        for n in (names if w % 2 == 0 else names[(w // 2) % 4::4]):
+            if cursor[n] < windows:
+                step.append((n, frames[n][cursor[n]]))
+                cursor[n] += 1
+        plan.append(step)
+    tail = [(n, frames[n][c]) for n in names for c in range(cursor[n], windows)]
+    return plan + ([tail] if tail else [])
+
+
+def run_fused_row(device):
+    """Phase 5f (a): the reference bench's ``serve_multitenant`` row
+    (:data:`FUSED` ``row``): a ``FusedMuxGroup`` of one-doc tenants on one
+    padded lane against the same tenants as standalone muxes, same frames,
+    same windows; both arms walked once, then measured.  Every tenant's
+    patch stream must equal its twin's; the armed latency plane must be
+    sum-consistent with no negative stage, and the history plane must hold
+    occupancy rows.  Returns the report and the group's insert launches
+    (equal to its block applies)."""
+    import torch
+
+    from peritext_tpu_torch.obs import GLOBAL_COUNTERS, LatencyPlane, TimeSeriesPlane
+    from peritext_tpu_torch.parallel.streaming import StreamingMerge
+    from peritext_tpu_torch.plan import TenantSpec
+    from peritext_tpu_torch.serve import FusedMuxGroup, SessionMux, default_lane_factory
+    from peritext_tpu_torch.testing.fuzz import generate_workload
+
+    cfg = FUSED["row"]
+    t_phase = time.perf_counter()
+    names = [f"tenant{i:03d}" for i in range(cfg["tenants"])]
+    plan = fused_row_plan(names, generate_workload(cfg["seed"], cfg["tenants"], cfg["ops"]),
+                          cfg["windows"])
+    kw = dict(_serve_widths(cfg["ops"]), device=device)
+
+    def build_group():
+        group = FusedMuxGroup([TenantSpec(tenant=n, docs=1) for n in names],
+                              default_lane_factory(ACTORS, **kw), host="chip_smoke-fused")
+        sids = {}
+        for n in names:
+            sid, verdict = group.open_session(n, "client")
+            if not verdict.admitted:
+                raise AssertionError(f"fused_row: {n} refused: {verdict.to_json()}")
+            sids[n] = sid
+            group.muxes[n].latency_sink = []
+        return group, sids
+
+    def build_solo():
+        muxes, sids = {}, {}
+        for n in names:
+            muxes[n] = SessionMux(StreamingMerge(num_docs=1, actors=ACTORS, static_rounds=True,
+                                                 **kw), host="chip_smoke-solo")
+            sids[n], verdict = muxes[n].open_session("client")
+            if not verdict.admitted:
+                raise AssertionError(f"fused_row: solo {n} refused: {verdict.to_json()}")
+            muxes[n].latency_sink = []
+        return muxes, sids
+
+    def drive(submit, flush):
+        d0 = GLOBAL_COUNTERS.get("streaming.fused_dispatches")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in plan:
+            for n, frame in step:
+                verdict = submit(n, frame)
+                if not verdict.admitted:
+                    raise AssertionError(f"fused_row: {n}: {verdict.to_json()}")
+            flush(step)
+        torch.cuda.synchronize()
+        return int(GLOBAL_COUNTERS.get("streaming.fused_dispatches") - d0), \
+            time.perf_counter() - t0
+
+    def drive_group(group, sids):
+        return drive(lambda n, f: group.submit(n, sids[n], f), lambda step: group.flush())
+
+    def drive_solo(muxes, sids):
+        return drive(lambda n, f: muxes[n].submit(sids[n], f),
+                     lambda step: [muxes[n].flush() for n in dict.fromkeys(n for n, _ in step)])
+
+    drive_group(*build_group())  # the warm-up walk of both arms
+    drive_solo(*build_solo())
+    group, gsids = build_group()
+    plane = LatencyPlane().enable()
+    history = TimeSeriesPlane(sample_every=1, min_frames=4)
+    group.history = history.enable()
+    for n in names:
+        group.muxes[n].latency_plane = plane
+    start = _phase_counts()
+    fused_dispatches, fused_wall = drive_group(group, gsids)
+    delta = _phase_delta(start)
+    _check_padded_launches("fused_row", delta)
+    muxes, ssids = build_solo()
+    solo_dispatches, solo_wall = drive_solo(muxes, ssids)
+    for n in names:
+        if group.patches(n, gsids[n]) != muxes[n].patches(ssids[n]):
+            raise AssertionError(f"fused_row: {n}'s patch stream differs from its standalone twin")
+    _check_lane("fused_row", group._lane_sessions[0])
+    lat = plane.decomposition()
+    if not lat["records"] or not lat["sum_consistent"] or \
+            any(v < 0 for v in lat["stages_ms"].values()):
+        raise AssertionError(f"fused_row: latency decomposition: {lat}")
+    if not history.occupancy_rows():
+        raise AssertionError("fused_row: the armed history plane recorded no occupancy rows")
+    if not fused_dispatches:
+        raise AssertionError("fused_row: the fused arm counted no dispatches")
+    report = dict(
+        tenants=len(names), ops_per_doc=cfg["ops"], windows=len(plan),
+        serve_multitenant_dispatch_amortization=solo_dispatches / fused_dispatches,
+        fused_dispatches=fused_dispatches, per_session_dispatches=solo_dispatches,
+        fused_wall_s=fused_wall, per_session_wall_s=solo_wall,
+        fused_p99_apply_ms=_p99_ms([x for n in names for x in group.muxes[n].latency_sink]),
+        per_session_p99_apply_ms=_p99_ms([x for n in names for x in muxes[n].latency_sink]),
+        fusion=group.fusion_snapshot(), stages_ms=lat["stages_ms"],
+        occupancy=history.snapshot()["occupancy"], launches=delta,
+        seconds=time.perf_counter() - t_phase)
+    log("fused_row", json.dumps(report))
+    log(f"fused_row: {len(names)} tenants' patch streams equal their standalone twins; "
+        f"dispatches {fused_dispatches} fused vs {solo_dispatches} per session "
+        f"(amortization {report['serve_multitenant_dispatch_amortization']:.2f}x); walls "
+        f"{fused_wall:.4f} s vs {solo_wall:.4f} s; p99 apply {report['fused_p99_apply_ms']:.3f} "
+        f"vs {report['per_session_p99_apply_ms']:.3f} ms; {delta['rga_insert']} rga_insert "
+        f"launches = block applies; {report['seconds']:.1f} s")
+    return report, delta["rga_insert"]
+
+
+def fused_wide_plan(names, docs, frames_of):
+    """The row's window plan at any depth: every tenant in even windows,
+    every 4th in odd ones, each active tenant's docs one frame further a
+    window, until every frame is in.  Returns [[(tenant, doc, frame), ...]]."""
+    cursor = {(n, d): 0 for n in names for d in range(docs)}
+    plan, w = [], 0
+    while any(cursor[k] < len(frames_of[k]) for k in cursor):
+        step = []
+        for n in (names if w % 2 == 0 else names[(w // 2) % 4::4]):
+            for d in range(docs):
+                if cursor[n, d] < len(frames_of[n, d]):
+                    step.append((n, d, frames_of[n, d][cursor[n, d]]))
+                    cursor[n, d] += 1
+        if step:
+            plan.append(step)
+        w += 1
+    return plan
+
+
+def run_fused_wide(device, workloads, captures):
+    """Phase 5f (b): the group at config 5's width (:data:`FUSED` ``wide``):
+    three lanes, one per layout, on the alternating window plan.  Each lane
+    must equal a plain session of its layout fed the same frames in the
+    same windows (digests, ``read_all``); a seeded sample of tenants' patch
+    streams must equal standalone muxes on the card, and a seeded sample
+    of docs the scalar oracle; no doc may leave the card; K1 launches must
+    equal the padded lane's block applies plus the paged lane's group
+    applies, K3 launches the ragged lane's ragged applies.  ``captures``
+    (one per layout) record the lanes' kernel calls of the first sparse
+    window.  Returns the report and the (K1, K3) launches."""
+    import torch
+
+    from peritext_tpu_torch.api.batch import _oracle_doc
+    from peritext_tpu_torch.parallel.streaming import StreamingMerge
+    from peritext_tpu_torch.plan import TenantSpec
+    from peritext_tpu_torch.serve import FusedMuxGroup, SessionMux, default_lane_factory
+
+    cfg = FUSED["wide"]
+    t_phase = time.perf_counter()
+    ops = SERVE["wide"]["ops"]
+    frames = serve_frames(workloads)
+    names = [f"tenant{i:03d}" for i in range(cfg["tenants"])]
+    layout_of = {}
+    for layout, count in cfg["lanes"]:
+        for n in names[len(layout_of):len(layout_of) + count]:
+            layout_of[n] = layout
+    docs = cfg["docs"]
+    frames_of = {(n, d): frames[i * docs + d] for i, n in enumerate(names) for d in range(docs)}
+    plan = fused_wide_plan(names, docs, frames_of)
+    kw = dict(_serve_widths(ops), device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group = FusedMuxGroup([TenantSpec(n, docs=docs, layout=layout_of[n]) for n in names],
+                          default_lane_factory(ACTORS, **kw), lane_capacity=cfg["lane_capacity"],
+                          host="chip_smoke-fused2048")
+    lanes = [(p.layout, p.docs) for p in group.group.lanes]
+    if lanes != [(layout, count * docs) for layout, count in cfg["lanes"]]:
+        raise AssertionError(f"fused_2048: lanes {lanes}")
+    sids = {}
+    for n in names:
+        for d in range(docs):
+            sid, verdict = group.open_session(n, f"client{d}")
+            if not verdict.admitted:
+                raise AssertionError(f"fused_2048: {n} doc {d} refused: {verdict.to_json()}")
+            sids[n, d] = sid
+    undo = [_arm_capture(captures[layout], layout) for layout in ("padded", "paged", "ragged")]
+    start = _phase_counts()
+    walls, sparse = [], None
+    t0 = time.perf_counter()
+    try:
+        for i, step in enumerate(plan):
+            for n, d, frame in step:
+                verdict = group.submit(n, sids[n, d], frame)
+                if not verdict.admitted:
+                    raise AssertionError(f"fused_2048: {n} doc {d}: {verdict.to_json()}")
+            if sparse is None and len(step) < len(names) * docs:
+                sparse = i
+                for c in captures.values():
+                    c["armed"] = True
+            tw = time.perf_counter()
+            group.flush()
+            walls.append(time.perf_counter() - tw)
+        torch.cuda.synchronize()
+    finally:
+        for u in reversed(undo):
+            u()
+    feed_seconds = time.perf_counter() - t0
+    delta = _phase_delta(start)
+    peak = torch.cuda.max_memory_allocated()
+    if delta["rga_insert"] != delta["block_applies"] + delta["group_applies"] or \
+            delta["ragged_insert"] != delta["ragged_applies"] or not delta["block_applies"] or \
+            not delta["group_applies"] or not delta["ragged_applies"]:
+        raise AssertionError(f"fused_2048: launches {delta} (K1 = block + group applies, "
+                             "K3 = ragged applies)")
+    for plan_lane, s in zip(group.group.lanes, group._lane_sessions):
+        _check_lane(f"fused_2048 lane {plan_lane.lane}", s)
+
+    t1 = time.perf_counter()
+    slot = group.group.slots
+    plains = [StreamingMerge(num_docs=p.docs, actors=ACTORS, layout=p.layout,
+                             static_rounds=p.layout == "padded", **kw) for p in group.group.lanes]
+    for step in plan:
+        per_lane = {}
+        for n, d, frame in step:
+            per_lane.setdefault(slot[n].lane, []).append((slot[n].doc_base + d, frame))
+        for lane, items in sorted(per_lane.items()):
+            plains[lane].ingest_frames(items)
+            plains[lane].drain()
+    for p, s, plain in zip(group.group.lanes, group._lane_sessions, plains):
+        for what, got, want in (("digest()", s.digest(), plain.digest()),
+                                ("digest(full=False)", s.digest(full=False),
+                                 plain.digest(full=False)),
+                                ("read_all()", s.read_all(), plain.read_all())):
+            if got != want:
+                raise AssertionError(f"fused_2048: lane {p.lane} ({p.layout}) {what} differs "
+                                     "from a plain session of its layout")
+    rng = random.Random(cfg["seed"])
+    twins = sorted(rng.sample(names, cfg["sample_tenants"]))
+    for n in twins:
+        twin = SessionMux(StreamingMerge(num_docs=docs, actors=ACTORS, layout=layout_of[n],
+                                         static_rounds=layout_of[n] == "padded", **kw))
+        tsids = [twin.open_session(f"client{d}")[0] for d in range(docs)]
+        for step in plan:
+            mine = [(d, f) for m, d, f in step if m == n]
+            for d, f in mine:
+                twin.submit(tsids[d], f)
+            if mine:
+                twin.flush()
+        for d in range(docs):
+            if group.patches(n, sids[n, d]) != twin.patches(tsids[d]):
+                raise AssertionError(f"fused_2048: {n} doc {d}'s patch stream differs from "
+                                     "its standalone twin's")
+    sample = sorted(rng.sample(range(len(names) * docs), cfg["sample_docs"]))
+    for i in sample:
+        n, d = names[i // docs], i % docs
+        if group.read(n, sids[n, d]) != \
+                _oracle_doc(workloads[i]).get_text_with_formatting(["text"]):
+            raise AssertionError(f"fused_2048: doc {i} ({n} doc {d}) differs from the oracle")
+    report = dict(
+        tenants=len(names), docs=len(names) * docs, lanes=lanes, windows=len(plan),
+        frames=sum(len(f) for f in frames), sparse_window=sparse,
+        fusion=group.fusion_snapshot(), feed_seconds=feed_seconds,
+        window_ms=_quantiles([w * 1e3 for w in walls]), lane_rounds=[s.rounds for s in
+                                                                      group._lane_sessions],
+        launches=delta, peak_memory_bytes=peak, check_seconds=time.perf_counter() - t1,
+        seconds=time.perf_counter() - t_phase)
+    log("fused_2048", json.dumps(report))
+    log(f"fused_2048: {len(names)} tenants x {docs} docs on lanes {lanes}, {len(plan)} windows "
+        f"in {feed_seconds:.3f} s (window p50 {report['window_ms']['p50']:.3f} ms, p99 "
+        f"{report['window_ms']['p99']:.3f} ms); each lane equals a plain session of its layout, "
+        f"{len(twins)} tenants equal their standalone twins, {len(sample)} docs the oracle; "
+        f"fusion {json.dumps(report['fusion'])}; K1 {delta['rga_insert']} = block "
+        f"{delta['block_applies']} + group {delta['group_applies']} applies, K3 "
+        f"{delta['ragged_insert']} = ragged applies; peak memory {peak} bytes; "
+        f"{report['seconds']:.1f} s")
+    for layout, c in captures.items():
+        if not c.get("groups" if layout == "paged" else "args"):
+            raise AssertionError(f"fused_2048: no {layout} kernel call captured in window {sparse}")
+    return report, delta["rga_insert"], delta["ragged_insert"]
+
+
+def run_fleet(device, workloads, capture):
+    """Phase 5f (c): the host-kill failover episode (:data:`FLEET`) at
+    config 5's width, over TCP ship endpoints.  Round-robin client traffic,
+    one frontend ``round()`` a pass, each frame submitted once; at half the
+    frames 16 directed migrations (digest-checked cutover) and one
+    ``rebalance()``, then the busiest host killed; the lease detects it and
+    failover re-places its docs.  Oracles (the reference's, minus its
+    incident plane): typed verdicts only with ``submitted == admitted +
+    delayed + shed``; before any retry, a seeded sample of victim docs
+    equals a plain session fed exactly their acked frames; after the
+    clients resubmit what was not admitted and the frontend flushes, every
+    doc's digest and the fleet-wide sum equal a fault-free plain
+    session's, and a sample equals the scalar oracle; K1 launches, over all
+    hosts, equal their block applies.  ``capture`` records the first
+    insert call of the failover's re-drains.  Returns the report and the
+    fleet's insert launches."""
+    import torch
+
+    from peritext_tpu_torch.api.batch import _oracle_doc
+    from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+    from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.serve import (
+        ADMIT,
+        SHED,
+        SHED_REASONS,
+        AdmissionController,
+        FleetFrontend,
+        SessionMux,
+    )
+
+    cfg = FLEET
+    t_phase = time.perf_counter()
+    ops = SERVE["wide"]["ops"]
+    plans = serve_frames(workloads)
+    keys = [f"doc{d}" for d in range(len(plans))]
+    n_frames = sum(len(p) for p in plans)
+    counters = ("fleet.ship_frames_sent", "fleet.ship_bytes_sent", "fleet.ship_frames_received")
+    c0 = {c: GLOBAL_COUNTERS.get(c) for c in counters}
+    fe = FleetFrontend(lease_rounds=cfg["lease_rounds"], checkpoint_every=cfg["checkpoint_every"])
+    try:
+        for i in range(cfg["hosts"]):
+            fe.add_host(f"host{i}", SessionMux(
+                serve_session(device, cfg["rows"], ops),
+                admission=AdmissionController(max_depth=4 * cfg["rows"], session_quota=None),
+                host=f"host{i}"), transport=True)
+        for k in keys:
+            verdict = fe.open_doc(k, f"client-{k}")
+            if not verdict.admitted:
+                raise AssertionError(f"fleet_2048: {k} not placed: {verdict.to_json()}")
+        failover = {}
+        inner = fe._failover
+
+        def timed_failover(name):
+            capture["armed"] = True
+            t0 = time.perf_counter()
+            inner(name)
+            failover.update(host=name, seconds=time.perf_counter() - t0, round=fe.rounds)
+
+        fe._failover = timed_failover
+        undo = _arm_capture(capture, "padded")
+        start = _phase_counts()
+        plain_k1 = plain_applies = 0
+        acked = {k: [] for k in keys}
+        missed = {k: [] for k in keys}
+        kinds = {}
+        rng = random.Random(cfg["seed"])
+        half = max(len(p) for p in plans) // 2
+        victim = kill_round = None
+        t0 = time.perf_counter()
+        try:
+            for k_frame in range(max(len(p) for p in plans)):
+                for d, k in enumerate(keys):
+                    if k_frame >= len(plans[d]):
+                        continue
+                    frame = plans[d][k_frame]
+                    verdict = fe.submit(k, frame)
+                    kinds[verdict.kind] = kinds.get(verdict.kind, 0) + 1
+                    if verdict.kind == ADMIT:
+                        acked[k].append(frame)
+                    else:
+                        if verdict.kind == SHED and verdict.reason not in SHED_REASONS:
+                            raise AssertionError(f"fleet_2048: untyped shed {verdict.to_json()}")
+                        missed[k].append(frame)
+                fe.round()
+                if k_frame == half:
+                    moved = sorted(rng.sample(keys, cfg["migrate"]), key=lambda k: int(k[3:]))
+                    hosts = sorted(fe.hosts)
+                    for k in moved:
+                        src = fe._serving[k]
+                        fe.migrate(k, hosts[(hosts.index(src) + 1) % len(hosts)])
+                    rebalanced = fe.rebalance()
+                    load = {}
+                    for h in fe._serving.values():
+                        load[h] = load.get(h, 0) + 1
+                    victim = max(sorted(load), key=lambda h: load[h])
+                    victim_docs = sorted((k for k, h in fe._serving.items() if h == victim),
+                                         key=lambda k: int(k[3:]))
+                    fe.hosts[victim].kill()
+                    kill_round = fe.rounds
+            while victim not in fe.ledger.dead_hosts():
+                fe.round()
+                if fe.rounds - kill_round > 2 * cfg["lease_rounds"] + 2:
+                    raise AssertionError("fleet_2048: the lease never expired")
+            detection_rounds = failover["round"] - kill_round
+            if fe.failovers != 1 or fe.failover_docs != len(victim_docs):
+                raise AssertionError(f"fleet_2048: {fe.failovers} failovers re-placed "
+                                     f"{fe.failover_docs} of {len(victim_docs)} docs")
+            # acked ops survive: before any retry, each sampled victim doc on
+            # its new host equals a plain session fed exactly its acked frames
+            sample = sorted(rng.sample(victim_docs, min(cfg["sample"], len(victim_docs))),
+                            key=lambda k: int(k[3:]))
+            k1, applies = insert_batch.launches, GLOBAL_COUNTERS.get("streaming.block_applies")
+            plain = serve_session(device, len(sample), ops)
+            plain.ingest_frames([(j, f) for j, k in enumerate(sample) for f in acked[k]])
+            plain.drain()
+            survived = [fe.doc_digest(k) == plain.doc_digest(j) for j, k in enumerate(sample)]
+            plain_k1 += insert_batch.launches - k1
+            plain_applies += GLOBAL_COUNTERS.get("streaming.block_applies") - applies
+            if not all(survived):
+                raise AssertionError(f"fleet_2048: acked ops lost in failover on "
+                                     f"{survived.count(False)} of {len(sample)} sampled docs")
+            if any(fe._serving[k] == victim for k in victim_docs):
+                raise AssertionError("fleet_2048: a doc still served by the dead host")
+            retried = 0
+            for _ in range(20):
+                if not any(missed.values()):
+                    break
+                for k in keys:
+                    left = []
+                    for frame in missed[k]:
+                        verdict = fe.submit(k, frame)
+                        retried += 1
+                        kinds[verdict.kind] = kinds.get(verdict.kind, 0) + 1
+                        (acked[k] if verdict.kind == ADMIT else left).append(frame)
+                    missed[k] = left
+                fe.round()
+            if any(missed.values()):
+                raise AssertionError("fleet_2048: resubmissions never all admitted")
+            fe.flush()
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        episode = time.perf_counter() - t0
+        delta = _phase_delta(start)
+        delta["rga_insert"] -= plain_k1
+        delta["block_applies"] -= plain_applies
+        _check_padded_launches("fleet_2048", delta)
+        stats = fe.stats
+        if not stats.accounted() or set(kinds) - {"admit", "delay", "shed"} or \
+                not stats.delayed + stats.shed:
+            raise AssertionError(f"fleet_2048: verdicts {kinds}, stats {stats.to_json()}")
+        applied = sum(h.mux.applied for h in fe.hosts.values())
+        for name, host in sorted(fe.hosts.items()):
+            if host.alive:
+                _check_served(f"fleet_2048 {name}", host.mux)
+
+        t1 = time.perf_counter()
+        clean = serve_session(device, len(plans), ops)
+        clean.ingest_frames([(d, f) for d, p in enumerate(plans) for f in p])
+        clean.drain()
+        total = 0
+        for d, k in enumerate(keys):
+            got = fe.doc_digest(k)
+            if got != clean.doc_digest(d):
+                raise AssertionError(f"fleet_2048: {k}'s post-heal digest differs from the "
+                                     "fault-free session's")
+            total = (total + got) & 0xFFFFFFFF
+        if total != clean.digest():
+            raise AssertionError("fleet_2048: the fleet-wide digest differs from the "
+                                 "fault-free session's")
+        for d in sorted(rng.sample(range(len(keys)), cfg["sample"])):
+            host = fe.hosts[fe._serving[keys[d]]]
+            if host.mux.read(host.session_of(keys[d])) != \
+                    _oracle_doc(workloads[d]).get_text_with_formatting(["text"]):
+                raise AssertionError(f"fleet_2048: {keys[d]} differs from the oracle")
+        ships = {c.split(".", 1)[1]: int(GLOBAL_COUNTERS.get(c) - c0[c]) for c in counters}
+        report = dict(
+            docs=len(keys), frames=n_frames, hosts=cfg["hosts"], victim=victim,
+            victim_docs=len(victim_docs), episode_seconds=episode,
+            fleet_serve_applied_frames_per_sec=applied / episode, applied_frames=applied,
+            detection_rounds=detection_rounds, failover_docs=fe.failover_docs,
+            failover_seconds=failover["seconds"], migrations=fe.migrations,
+            migration_rollbacks=fe.migration_rollbacks, rebalance_moves=len(rebalanced),
+            resubmitted=retried, verdicts=stats.to_json(), acked_survived=len(sample),
+            ships=ships, checkpoint_ships=fe.checkpoint_ships, rounds=fe.rounds,
+            launches=delta, check_seconds=time.perf_counter() - t1,
+            seconds=time.perf_counter() - t_phase)
+    finally:
+        fe.stop()
+    log("fleet_2048", json.dumps(report))
+    log(f"fleet_2048: {len(keys)} docs on {cfg['hosts']} hosts; {victim} killed with "
+        f"{len(victim_docs)} docs, dead after {detection_rounds} rounds, failover in "
+        f"{failover['seconds']:.3f} s; {fe.migrations} migrations ({len(rebalanced)} by "
+        f"rebalance), {fe.migration_rollbacks} rollbacks; {ships['ship_frames_sent']} frames "
+        f"shipped ({ships['ship_bytes_sent']} bytes); {applied / episode:.1f} applied frames/s "
+        f"over {episode:.3f} s; acked ops survived on {len(sample)} sampled victim docs; "
+        f"post-heal digests equal the fault-free session; {delta['rga_insert']} rga_insert "
+        f"launches = block applies; {report['seconds']:.1f} s")
+    if "args" not in capture:
+        raise AssertionError("fleet_2048: no insert call was captured in the failover")
+    return report, delta["rga_insert"]
+
+
 def main_path_insert_args(batch, workloads):
     """The insert kernel's inputs exactly as the padded slice's merge gives them."""
     from peritext_tpu_torch.ops.kernel import encoded_arrays_of
@@ -2191,6 +2770,20 @@ def run_all(device, jobs, ckpt_root) -> int:
     torch.cuda.empty_cache()
     log(f"serve done at {time.perf_counter() - t_start:.1f} s")
 
+    t0 = time.perf_counter()
+    captures_fused = {"padded": {}, "paged": {}, "ragged": {}}
+    capture_fleet = {}
+    _, serve_paths["fused_row"] = run_fused_row(device)
+    wide_workloads = jobs["serve_wide"].get(timeout=900)
+    _, serve_paths["fused_2048"], fused_ragged = run_fused_wide(device, wide_workloads,
+                                                                captures_fused)
+    _, serve_paths["fleet_2048"] = run_fleet(device, wide_workloads, capture_fleet)
+    del wide_workloads
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fused and fleet done at {time.perf_counter() - t_start:.1f} s "
+        f"(phase 5f {time.perf_counter() - t0:.1f} s)")
+
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
     for name, args in main_path_paged_args(pooled["paged"], pooled_workloads):
@@ -2210,7 +2803,13 @@ def run_all(device, jobs, ckpt_root) -> int:
                              loop_slots=capture_bridge["loop_slots"]))
     rows.append(check_insert("serve_round", capture_serve["args"],
                              loop_slots=capture_serve["loop_slots"]))
-    del capture, capture_frames, capture_paged, capture_bridge, capture_serve
+    rows.append(check_insert("fused_padded_sparse_round", captures_fused["padded"]["args"],
+                             loop_slots=captures_fused["padded"]["loop_slots"]))
+    for i, args in enumerate(captures_fused["paged"]["groups"]):
+        rows.append(check_insert(f"fused_paged_round_g{i}", args))
+    rows.append(check_insert("fleet_failover_round", capture_fleet["args"],
+                             loop_slots=capture_fleet["loop_slots"]))
+    del capture, capture_frames, capture_paged, capture_bridge, capture_serve, capture_fleet
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
     rows.append(check_insert("batch_8k_loop_slots", args, loop_slots=BATCH_8K["inserts"]))
@@ -2227,6 +2826,8 @@ def run_all(device, jobs, ckpt_root) -> int:
         raise AssertionError("streaming: no ragged insert call was captured in C_frames_ragged")
     ragged_rows += check_ragged("streaming_ragged_round", capture_ragged.pop("args"))
     ragged_rows += check_ragged("restore_ragged_round", capture_restore.pop("args"))
+    ragged_rows += check_ragged("fused_ragged_round", captures_fused["ragged"].pop("args"))
+    del captures_fused
     ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
         device, BATCH_8K["slots"],
         synth_streams(BATCH_8K["docs"], inserts_per_doc=BATCH_8K["inserts"], seed=1)[:3]))
@@ -2273,6 +2874,7 @@ def run_all(device, jobs, ckpt_root) -> int:
                          for r in stream_reports if r["layout"] == "ragged"})
     ragged_paths.update({f"restore_{r['session']}": r["launches"]["ragged_insert"]
                          for r in restores if r["layout"] == "ragged"})
+    ragged_paths["fused_2048"] = fused_ragged
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

@@ -13,13 +13,26 @@
 * :mod:`.recorder` — the flight recorder: a ring of recent spans and
   events, dumped as JSONL on quarantine and rollback;
 * :mod:`.latency` — the time-to-visibility plane the serve tier feeds;
-* :mod:`.timeseries` — the round-counted history plane.
+* :mod:`.timeseries` — the round-counted history plane, with the fused
+  serving tier's occupancy channel;
+* :mod:`.convergence` — per-peer replication-lag watermarks and
+  divergence probes over the multihost frontier exchanges.
 
 Every plane is host-side: none synchronizes the card.  The device planes
 (a cost and memory profiler, a build sentinel, the perf ledger) are still
 to port.
 """
 
+from .convergence import (
+    CONVERGED,
+    DIVERGENCE,
+    LAG,
+    ConvergenceMonitor,
+    DivergenceIncident,
+    PeerLag,
+    clock_delta_ops,
+    clocks_equal,
+)
 from .histograms import (
     GLOBAL_HISTOGRAMS,
     Histogram,
@@ -49,11 +62,16 @@ from .timeseries import (
     GLOBAL_HISTORY,
     TimeSeriesPlane,
     anomaly_kind,
+    occupancy_distribution,
     replay_segments,
 )
 
 __all__ = [
+    "CONVERGED",
+    "ConvergenceMonitor",
     "Counters",
+    "DIVERGENCE",
+    "DivergenceIncident",
     "FlightRecorder",
     "GLOBAL_COUNTERS",
     "GLOBAL_HISTOGRAMS",
@@ -62,9 +80,11 @@ __all__ = [
     "GLOBAL_TRACER",
     "Histogram",
     "HistogramRegistry",
+    "LAG",
     "LATENCY_BUCKETS_S",
     "LatencyPlane",
     "MergeStats",
+    "PeerLag",
     "SIZE_BUCKETS",
     "STAGES",
     "Span",
@@ -73,10 +93,13 @@ __all__ = [
     "Tracer",
     "ambient_parent",
     "anomaly_kind",
+    "clock_delta_ops",
+    "clocks_equal",
     "check_sum_consistency",
     "current_span",
     "health_snapshot",
     "merge_traces",
+    "occupancy_distribution",
     "replay_segments",
     "stage_timer",
 ]

@@ -27,9 +27,10 @@ counters still fire while float jitter on drifting gauges stays quiet.
 Findings are typed dicts; :func:`anomaly_kind` maps a gauge key's source
 prefix onto the incident taxonomy.
 
-The reference's occupancy channel (``record_occupancy`` and the
-snapshot's ``occupancy`` sections) is fed only by the fused serving tier,
-which the port does not have yet: it comes with that tier.
+The occupancy channel (:meth:`TimeSeriesPlane.record_occupancy`) takes
+one row per lane per committed window from the fused serving tier; the
+snapshot reports the rows and their distribution (p90 utilization, the
+sparse-window fraction), the raw material a planner weights by.
 
 Off by default: arming is ``plane.enable()``, and every feed site checks
 ``plane.enabled``.
@@ -257,6 +258,24 @@ def query_snapshot(snap: Dict[str, Any],
     return snap
 
 
+def occupancy_distribution(values: Sequence[float]) -> Dict[str, Any]:
+    """The distribution body a planner weights by: count, mean, the
+    p10/p50/p90 spread, and the sparse-window fraction (occupancy < 0.5
+    — windows that under-amortize the drain)."""
+    vals = sorted(float(v) for v in values)
+    if not vals:
+        return {"count": 0}
+    sparse = sum(1 for v in vals if v < 0.5)
+    return {
+        "count": len(vals),
+        "mean": round(sum(vals) / len(vals), 6),
+        "p10": _percentile(vals, 0.10),
+        "p50": _percentile(vals, 0.50),
+        "p90": _percentile(vals, 0.90),
+        "sparse_frac": round(sparse / len(vals), 6),
+    }
+
+
 def _merge_frames(chunk: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     """Merge N chronological frames into one downsampled frame: min of
     mins, max of maxes, last by round order, key union."""
@@ -305,6 +324,7 @@ class TimeSeriesPlane:
         segment_frames: int = 256,
         dir: Optional[Any] = None,
         host: str = "local",
+        occupancy_cap: int = 1024,
     ) -> None:
         if sample_every < 1:
             raise ValueError(f"sample_every must be >= 1, got {sample_every}")
@@ -342,6 +362,8 @@ class TimeSeriesPlane:
         self._anomaly_counts: Dict[str, int] = {}
         self._anomaly_first_round: Dict[str, int] = {}
         self.anomalies_total = 0
+        self._occ_rows: deque = deque(maxlen=int(occupancy_cap))
+        self.occupancy_total = 0
         self.overhead_seconds = 0.0
 
     # -- arming --------------------------------------------------------------
@@ -467,6 +489,30 @@ class TimeSeriesPlane:
 
     # -- overhead is fed IN, never read here (no clock in this plane) --------
 
+    # -- the occupancy channel -----------------------------------------------
+
+    def record_occupancy(self, lane: int, occupancy: float,
+                         docs: int = 0) -> None:
+        """One per-window occupancy row from the fused serving tier."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self.occupancy_total += 1
+            self._occ_rows.append({
+                "row": self.occupancy_total,
+                "lane": int(lane),
+                "occupancy": round(float(occupancy), 6),
+                "docs": int(docs),
+            })
+
+    def occupancy_rows(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return [dict(r) for r in self._occ_rows]
+
+    def occupancy_values(self) -> List[float]:
+        with self._lock:
+            return [float(r["occupancy"]) for r in self._occ_rows]
+
     def note_overhead(self, seconds: float) -> None:
         """Callers measure their own sampling wall and report it: the
         plane reads no clock (its determinism contract)."""
@@ -527,6 +573,7 @@ class TimeSeriesPlane:
                       for k in sorted(self._anomaly_counts)}
             first = {k: self._anomaly_first_round[k]
                      for k in sorted(self._anomaly_first_round)}
+            occ_rows = [dict(r) for r in self._occ_rows]
             segs = self._segment_index + (1 if self._segment_count else 0)
         snap: Dict[str, Any] = {
             "host": self.host,
@@ -551,6 +598,14 @@ class TimeSeriesPlane:
                 "counts": counts,
                 "first_round": first,
             },
+            "occupancy": {
+                "rows": len(occ_rows),
+                "total": self.occupancy_total,
+                "distribution": occupancy_distribution(
+                    [r["occupancy"] for r in occ_rows]
+                ),
+            },
+            "occupancy_rows": occ_rows,
             "overhead_seconds": round(self.overhead_seconds, 6),
         }
         snap["keys"] = snapshot_keys(snap)

@@ -362,6 +362,12 @@ class StreamingMerge:
     #: memory of a batch's staging buffers
     FUSE_MAX_ROUNDS = 8
 
+    #: whether a fused-eligible drain counts ``streaming.fused_dispatches``,
+    #: one per scheduled batch: the reference counts the padded layout's
+    #: batch program only (its paged and ragged commits count none), and
+    #: FusedMuxGroup.dispatches reads deltas of the counter
+    _COUNTS_FUSED_DISPATCHES = True
+
     def __init__(
         self,
         num_docs: int,
@@ -475,6 +481,14 @@ class StreamingMerge:
         #: every round commits the same way here, and False only turns the
         #: drain-end digest prefetch off
         self.fused_pipeline = True
+        #: cross-tenant fusion window extents (plan/fusion.FusionGroup
+        #: window_rows): ``(row_bases, block_docs)``, set by the serve
+        #: tier's FusedMuxGroup around a drain whose window touched a
+        #: SUBSET of the lane's tenants, None otherwise.  The commit reads
+        #: nothing from it: each round already uploads only the rows that
+        #: carry ops (``_apply_compact``), which is what the reference's
+        #: offset-plane form buys with it
+        self.fusion_rows = None
         # per-row cumulative admitted inserts: an upper bound on each row's
         # slot occupancy; its power-of-two bucket bounds the insert kernel's
         # slot window each round
@@ -1183,7 +1197,7 @@ class StreamingMerge:
                 break
             with self.tracer.span("streaming.apply", rounds=len(batch)) as asp:
                 self._commit_rounds(batch)
-            if fused:
+            if fused and self._COUNTS_FUSED_DISPATCHES:
                 GLOBAL_COUNTERS.add("streaming.fused_dispatches")
             self._emit_round_stats(batch, scheduled_total, ssp.duration, asp.duration)
             rounds += len(batch)

@@ -12,13 +12,18 @@
   ragged), with the round-open window autotuned from the rolling round
   latency (:class:`BatchWindowTuner`) and sustained per-session quota
   shedding degraded through the session's fallback ladder.
+* :mod:`.fused` — :class:`FusedMuxGroup`: many tenants' muxes fused onto
+  shared device lanes (the planner's :class:`~..plan.fusion.FusionGroup`
+  packing), one drain per touched lane per window; each tenant keeps its
+  own admission and patch stream, and byte equality with the unfused path
+  holds per tenant.
+* :mod:`.fleet` — :class:`FleetFrontend`: docs placed across serving
+  hosts by the :class:`~..parallel.router.FleetRouter`, host death
+  detected by round-counted leases, failover from checkpoint plus journal,
+  and digest-checked migration over the multihost ship leg.
 * :mod:`.traffic` — the open-loop traffic generator: arrival times fixed
   by the offered rate, never by service completions; the ladder sweeps
   the rate until the p99 apply-latency SLO breaks.
-
-Still to port: the fused multi-tenant group (``serve/fused.py``, with the
-planner's lane packing) and the fleet frontend (``serve/fleet.py``, with
-its transport).
 """
 
 from .admission import (
@@ -38,6 +43,8 @@ from .admission import (
     Verdict,
 )
 from .auth import AuthError, SessionKeyring
+from .fleet import CutoverError, FleetFrontend, FleetHost, FleetStats, HostDown
+from .fused import FusedMuxGroup, default_lane_factory
 from .mux import BatchWindowTuner, ClientSession, SessionMux
 from .traffic import (
     LadderRung,
@@ -53,7 +60,13 @@ __all__ = [
     "AuthError",
     "BatchWindowTuner",
     "ClientSession",
+    "CutoverError",
     "DELAY",
+    "FleetFrontend",
+    "FleetHost",
+    "FleetStats",
+    "FusedMuxGroup",
+    "HostDown",
     "LadderRung",
     "OpenLoopResult",
     "SHED",
@@ -70,6 +83,7 @@ __all__ = [
     "SessionMux",
     "Verdict",
     "build_arrivals",
+    "default_lane_factory",
     "run_open_loop",
     "sustained_ladder",
 ]

@@ -163,10 +163,11 @@ class SessionMux:
     """Multiplexes client sessions onto one streaming device pipeline.
 
     ``session`` is the backing :class:`StreamingMerge` (its ``num_docs`` is
-    the slot budget); sessions claim doc slots append-only — a closed
+    the slot budget, or ``doc_capacity`` rows from ``doc_base`` on a fused
+    group's member); sessions claim doc slots append-only — a closed
     session's doc state stays resident (CRDT state is history, not a
     buffer), so slot reuse is a placement concern for the
-    fleet router (still to port), not the mux.  ``clock`` is
+    :class:`~..parallel.router.FleetRouter`, not the mux.  ``clock`` is
     monotonic seconds (injected for tests).  All submission paths return a
     typed :class:`~.admission.Verdict`; nothing is ever silently dropped.
     """
@@ -182,10 +183,30 @@ class SessionMux:
         host: str = "local",
         auth=None,
         auth_per_frame: bool = False,
+        doc_base: int = 0,
+        doc_capacity: Optional[int] = None,
     ) -> None:
         self.session = session
-        #: the slot budget: the mux owns the session's whole doc axis
-        self.doc_capacity = session.num_docs
+        #: the doc-row slice of ``session`` this mux owns: a standalone mux
+        #: owns the whole doc axis; a FusedMuxGroup member owns the
+        #: disjoint ``[doc_base, doc_base + doc_capacity)`` range its
+        #: LaneSlot assigned — isolation between fused tenants is this
+        #: range discipline, never a runtime filter
+        self.doc_base = int(doc_base)
+        if not 0 <= self.doc_base <= session.num_docs:
+            raise ValueError(
+                f"doc_base {doc_base} outside session's {session.num_docs} docs"
+            )
+        self.doc_capacity = (
+            int(doc_capacity) if doc_capacity is not None
+            else session.num_docs - self.doc_base
+        )
+        if self.doc_base + self.doc_capacity > session.num_docs:
+            raise ValueError(
+                f"doc range [{self.doc_base}, "
+                f"{self.doc_base + self.doc_capacity}) exceeds session's "
+                f"{session.num_docs} docs"
+            )
         self.admission = admission if admission is not None else AdmissionController()
         self.tuner = tuner if tuner is not None else BatchWindowTuner()
         #: per-session wire auth (serve/auth.SessionKeyring): when set,
@@ -232,6 +253,9 @@ class SessionMux:
         #: clean rounds stops reporting unhealthy (a health check reads
         #: recency, not the process-lifetime counter)
         self._shed_mark = 0
+        #: a fused group member's shared ``fusion`` section (set by
+        #: FusedMuxGroup); None on a standalone mux
+        self._fusion_stats: Optional[Callable[[], Dict]] = None
         # wire the flight-recorder incident-context hook: a quarantine/
         # rollback fault dump on the backing session appends the affected
         # doc's admission-verdict tail (the backpressure picture around
@@ -259,7 +283,7 @@ class SessionMux:
             return None, self.admission.shed_out_of_band(SHED_CAPACITY)
         sid = self._next_session
         self._next_session += 1
-        doc = self._next_doc
+        doc = self.doc_base + self._next_doc
         self._next_doc += 1
         self._sessions[sid] = ClientSession(
             session_id=sid, client=client, doc_index=doc,
@@ -378,6 +402,14 @@ class SessionMux:
         assert self._window_opened is not None
         return (self.clock() - self._window_opened) >= self.window_seconds()
 
+    def _take_batch(self) -> List[Tuple[int, int, bytes, float, float]]:
+        """Close the open round: detach the buffered frames and reset the
+        window.  The round pump's first third, split out so a fused group
+        can take EVERY member's batch before any lane drains."""
+        batch, self._buffer = self._buffer, []
+        self._window_opened = None
+        return batch
+
     def close_cause(self, force: bool) -> str:
         """Why the open round is closing — the typed vocabulary the
         latency plane's force-close counters report.  Read BEFORE the
@@ -388,32 +420,30 @@ class SessionMux:
             return CLOSE_BACKPRESSURE
         return CLOSE_WINDOW
 
-    def pump(self, force: bool = False) -> int:
-        """Close the open round if its window expired (or ``force``) and
-        drain it through the device: bulk-ingest the buffered frames
-        (corrupt frames quarantine their doc — per-doc fault isolation,
-        never an exception out of the serving loop), run device rounds to
-        empty, release queue space, and feed the window tuner + latency
-        histograms.  Returns the number of frames applied.  The drain's
-        return is the commit watermark: on the card the round's kernels
-        are queued by then, not yet run.  The latency plane's batch record
-        anchors on the FIRST buffered frame — the op that waited the whole
-        window, the worst case an SLO cares about."""
-        if not self._buffer or not (force or self.window_expired()):
-            return 0
-        armed = self.latency_plane.enabled
-        cause = self.close_cause(force) if armed else CLOSE_WINDOW
-        batch, self._buffer = self._buffer, []
-        self._window_opened = None
-        t0 = self.clock()
+    def _ingest_batch(self, batch: Sequence[Tuple[int, int, bytes, float, float]]) -> None:
+        """Bulk-ingest a taken batch into the backing session (corrupt
+        frames quarantine their doc — per-doc fault isolation, never an
+        exception out of the serving loop).  No drain: the caller owns
+        when the device round runs."""
         self.session.ingest_frames(
             [(doc, frame) for _, doc, frame, _, _ in batch],
             on_corrupt="quarantine",
         )
-        t_staged = self.clock() if armed else None
-        self.session.drain()
-        now = self.clock()
-        wall = max(0.0, now - t0)
+
+    def _settle_batch(self, batch: Sequence[Tuple[int, int, bytes, float, float]],
+                      wall: float, now: float,
+                      close: Optional[float] = None,
+                      staged: Optional[float] = None,
+                      cause: str = CLOSE_WINDOW) -> None:
+        """Account a committed batch after its drain: release queue
+        space, feed the window tuner + latency histograms, advance the
+        round/apply tallies.  ``wall`` is the committed round's wall (on
+        a fused group: the SHARED window's wall — every rider pays the
+        window it rode); ``now`` is the commit clock.  ``close``/``staged``
+        are the latency plane's window-close and staged watermarks (passed
+        only while the plane is armed); the batch record anchors on the
+        FIRST buffered frame — the op that waited the whole window, the
+        worst case an SLO cares about."""
         self.rounds += 1
         self.applied += len(batch)
         self.tuner.observe(wall)
@@ -427,11 +457,13 @@ class SessionMux:
         GLOBAL_HISTOGRAMS.observe("serve.round_seconds", wall)
         self.counters.add("serve.rounds")
         self.counters.add("serve.applied_frames", len(batch))
-        if armed:
+        plane = self.latency_plane
+        if (plane.enabled and batch
+                and close is not None and staged is not None):
             _, _, _, enq0, sub0 = batch[0]
             mesh = getattr(self.session, "mesh", None)
-            self.latency_plane.observe_batch(
-                submit=sub0, admit=enq0, close=t0, staged=t_staged,
+            plane.observe_batch(
+                submit=sub0, admit=enq0, close=close, staged=staged,
                 commit=now,
                 marks=getattr(self.session, "last_drain_marks", None),
                 cause=cause, batch=len(batch),
@@ -446,6 +478,30 @@ class SessionMux:
             # sample_every decimates); measured by the caller's wall via
             # note_overhead, never by the plane itself
             self.history_plane.advance_round(serve=self)
+
+    def pump(self, force: bool = False) -> int:
+        """Close the open round if its window expired (or ``force``) and
+        drain it through the device: bulk-ingest the buffered frames, run
+        device rounds to empty, release queue space, and feed the window
+        tuner + latency histograms.  Returns the number of frames applied.
+        The drain's return is the commit watermark: on the card the
+        round's kernels are queued by then, not yet run.  (The
+        take/ingest/settle thirds are split methods so
+        :class:`~.fused.FusedMuxGroup` can recompose them around ONE
+        shared lane drain.)"""
+        if not self._buffer or not (force or self.window_expired()):
+            return 0
+        armed = self.latency_plane.enabled
+        cause = self.close_cause(force) if armed else CLOSE_WINDOW
+        batch = self._take_batch()
+        t0 = self.clock()
+        self._ingest_batch(batch)
+        t_staged = self.clock() if armed else None
+        self.session.drain()
+        t1 = self.clock()
+        self._settle_batch(batch, max(0.0, t1 - t0), t1,
+                           close=t0 if armed else None,
+                           staged=t_staged, cause=cause)
         return len(batch)
 
     def flush(self) -> int:
@@ -527,7 +583,7 @@ class SessionMux:
         sizes = self.session._reshard_sizes()
         slot_load = 0
         host_bound = 0
-        for d in range(self._next_doc):
+        for d in range(self.doc_base, self.doc_base + self._next_doc):
             size = int(sizes[d]) if d < len(sizes) else 0
             if self.session.docs[d].fallback:
                 host_bound += size
@@ -550,9 +606,13 @@ class SessionMux:
         return self.admission.backpressure
 
     def fusion_snapshot(self) -> Dict:
-        """The snapshot's ``fusion`` section, as the reference reports it
-        for a standalone mux: one tenant, one lane, one dispatch per
-        committed round."""
+        """The snapshot's ``fusion`` section: how many tenants share this
+        mux's drains.  Standalone, the identity report — one tenant, one
+        lane, one dispatch per committed round.  On a fused group member,
+        the group's shared-window stats (injected via ``_fusion_stats``),
+        so every tenant's snapshot shows the amortization it got."""
+        if self._fusion_stats is not None:
+            return self._fusion_stats()
         return {
             "grouped": False,
             "tenants": 1,

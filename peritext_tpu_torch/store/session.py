@@ -72,6 +72,7 @@ class PagedStreamingMerge(StreamingMerge):
     padded layout; ``mesh=`` is not ported (ROADMAP.md queue 1 item 11)."""
 
     _layout = "paged"
+    _COUNTS_FUSED_DISPATCHES = False
 
     def __init__(self, num_docs, actors, *args, layout: str = "paged",
                  page_size: int = DEFAULT_PAGE_SIZE, pool_pages: Optional[int] = None,

@@ -145,7 +145,14 @@ def test_import_leaves_jax_and_reference_out():
         "peritext_tpu_torch.checkpoint, peritext_tpu_torch.core.comment, "
         "peritext_tpu_torch.parallel.pubsub, peritext_tpu_torch.parallel.change_queue, "
         "peritext_tpu_torch.testing.traces, peritext_tpu_torch.obs, peritext_tpu_torch.serve, "
-        "peritext_tpu_torch.parallel.supervisor\n"
+        "peritext_tpu_torch.parallel.supervisor, peritext_tpu_torch.plan, "
+        "peritext_tpu_torch.plan.fusion, peritext_tpu_torch.serve.fused, "
+        "peritext_tpu_torch.serve.fleet, peritext_tpu_torch.parallel.multihost, "
+        "peritext_tpu_torch.parallel.gossip, peritext_tpu_torch.parallel.lease, "
+        "peritext_tpu_torch.parallel.router, peritext_tpu_torch.parallel.anti_entropy, "
+        "peritext_tpu_torch.obs.convergence\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_fleet_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"

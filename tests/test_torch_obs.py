@@ -329,18 +329,18 @@ def _history_script(plane_cls, directory):
     return plane
 
 
-#: the reference snapshot's sections that only its fused serving tier feeds
-#: (the port leaves them out until it ports that tier)
-FUSED_ONLY = ("occupancy", "occupancy_rows")
-
-
 def test_history_plane_equal(tmp_path):
     ref = _history_script(JaxHistory, tmp_path / "ref")
     port = _history_script(TimeSeriesPlane, tmp_path / "port")
+    for plane in (ref, port):
+        for i in range(5):
+            plane.record_occupancy(i % 2, 0.125 * i, docs=i)
+    assert port.occupancy_rows() == ref.occupancy_rows()
+    assert port.occupancy_values() == ref.occupancy_values()
     snap = port.snapshot()
     want = ref.snapshot()
-    assert want["occupancy_rows"] == []
-    assert {k: v for k, v in want.items() if k not in ("dir",) + FUSED_ONLY} == \
+    assert len(want["occupancy_rows"]) == 5
+    assert {k: v for k, v in want.items() if k != "dir"} == \
         {k: v for k, v in snap.items() if k != "dir"}
     assert ref.frames_json() == port.frames_json()
     assert snap["anomaly"]["total"] > 0 and snap["tier_frames"][1] > 0
@@ -367,6 +367,9 @@ def test_history_helpers_equal():
     for x in (0.5, 3.0, -2.0):
         assert ts_mod.mad_z(x, base) == jax_ts_mod.mad_z(x, base)
     assert ts_mod.mad_z(5.0, [1.0] * 8) == jax_ts_mod.mad_z(5.0, [1.0] * 8)
+    for values in ([], base, [0.2, 0.9, 0.4, 1.0]):
+        assert ts_mod.occupancy_distribution(values) == \
+            jax_ts_mod.occupancy_distribution(values)
     with pytest.raises(TypeError):
         ts_mod.flatten_gauges("x", 3)
     with pytest.raises(ValueError):
@@ -399,8 +402,6 @@ def test_health_snapshot_equal(tmp_path):
         out.append(snapshot(counters=counters, histograms=hists, recorder=recorder,
                             latency=latency, history=history, serve=_Snap({"sessions": 2}),
                             plan={"proposal": 1}, mesh={"shards": 1}))
-    for key in FUSED_ONLY:
-        del out[0]["history"][key]
     assert out[0] == out[1]
     assert set(out[1]) == {"counters", "histograms", "flight_recorder", "latency", "history",
                            "serve", "plan", "mesh"}
