@@ -122,7 +122,24 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    digest and the fleet-wide sum equal to a fault-free session after the
    resubmissions, 64 docs equal to the oracle, K1 launches over the hosts
    equal to their block applies (applied frames/s, detection rounds,
-   failover docs and seconds, ships, migrations, rollbacks);
+   failover docs and seconds, ships, migrations, rollbacks); and the
+   reference episode's incident plane: a private ``IncidentMonitor`` and
+   ``TimeSeriesPlane`` fed once per frontend round open exactly
+   ``['host-death']`` within ``2 * lease_rounds + 2`` monitor rounds,
+   resolve it after the heal, flag the delay/shed anomaly no later, and
+   the frontend's flight dumps merge into one timeline (detection rounds,
+   the monitor's digest);
+5g. chaos and differential fuzz (:data:`CHAOS`), every session on
+   ``cuda``: the port's ``testing/chaos.py`` episodes at the shapes the
+   reference runs them (``run_chaos`` seeds 0-3 at its defaults, the
+   mid-drain kill, the mark-heavy campaign, the divergence injection, the
+   serving-tier overload, the reference bench's ``reconnect_storm``,
+   ``fleet_serve`` and ``fleet_heal`` rows), each passing its own oracles;
+   ``run_differential`` at ``make fuzz``'s shape on a padded and on a
+   ragged ``DocBatch`` and ``run_differential_frames``, each against the
+   scalar oracle; each path's launches counted from 0 over its run (a
+   session's K1 launches equal its block applies); one chaos drain under
+   ``obs.profile_trace``, whose trace must hold an insert-kernel event;
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
@@ -133,9 +150,10 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    streaming round of paged A, one editor round of the bridge's fuzzed
    session, one committed mux round of the serve phase's full feed, the
    fused padded lane's round in a sparse window, every page group of the
-   fused paged lane's round there and one failover re-drain round of a
-   fleet host; for the ragged one also the first round of the ragged
-   restore and the fused ragged lane's round in the sparse window)
+   fused paged lane's round there, one failover re-drain round of a
+   fleet host and the first round of chaos seed 0; for the ragged one also
+   the first round of the ragged restore, the fused ragged lane's round in
+   the sparse window and the first call of the ragged differential)
    and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
@@ -274,12 +292,34 @@ SUPERVISED = dict(deadline=5.0, delay=7.0, persistent_docs=64)
 #: ``fleet_serve`` row's) at the same width: 3 hosts with TCP ship
 #: endpoints on 127.0.0.1, each a mux over a padded static-round session of
 #: 1536 rows, leases of 2 rounds, a checkpoint every 4; at half the frames
-#: 16 directed migrations and one rebalance, then the busiest host killed
+#: 16 directed migrations and one rebalance, then the busiest host killed,
+#: with the episode's incident and history planes armed
 FUSED = dict(row=dict(tenants=32, ops=96, seed=13, windows=6),
              wide=dict(tenants=256, docs=8, lanes=(("padded", 128), ("paged", 64), ("ragged", 64)),
                        lane_capacity=1024, sample_tenants=16, sample_docs=64, seed=5))
 FLEET = dict(hosts=3, rows=1536, lease_rounds=2, checkpoint_every=4, migrate=16, sample=64,
              seed=7)
+#: phase 5g, the chaos harness and the differential fuzz on the card, each
+#: at the shape the reference runs it: ``run_chaos`` at its defaults (6 docs
+#: x 40 ops) for seeds 0-3, and the mid-drain kill, the mark-heavy campaign,
+#: the divergence injection and the serving-tier overload for one seed at
+#: theirs; the reference bench's ``reconnect_storm`` row (``bench.py --mode
+#: storm``: seed 3, 8 docs x 64 ops, a backlog of 4000 ops, 250 frames/s for
+#: 1.5 s), its ``fleet_serve`` row (``--mode fleet-serve``: seed 29, 3 hosts,
+#: 8 docs x 48 ops, TCP ship endpoints) and its ``fleet_heal`` row (4 hosts,
+#: seed 0, no ``/metrics`` scrape); ``run_differential`` at ``make fuzz``'s
+#: defaults (32 docs x 160 ops; slots 512, marks 128, comment ids 32) for
+#: seeds 0-3 on a padded and on a ragged ``DocBatch`` (pages of 64), and
+#: ``run_differential_frames`` at the same shape for seeds 0-1
+CHAOS = dict(chaos_seeds=(0, 1, 2, 3), seed=0,
+             storm=dict(seed=3, backlog_ops=4000, num_docs=8, ops_per_doc=64,
+                        serve_rate_per_s=250.0, storm_duration_s=1.5),
+             failover=dict(seed=29, hosts=3, num_docs=8, ops_per_doc=48, transport=True),
+             fleet_heal=dict(seed=0, hosts=4),
+             differential=dict(seeds=(0, 1, 2, 3), docs=32, ops=160,
+                               capacities=dict(slot_capacity=512, mark_capacity=128,
+                                               comment_capacity=32)),
+             frames_seeds=(0, 1))
 #: the fuzz workloads' three replicas (every session's actor table)
 ACTORS = ("doc1", "doc2", "doc3")
 WORDS = ("the of and a to in is you that it he was for on are as with his they at be this "
@@ -903,7 +943,7 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
         gc.callbacks.remove(gc_clock)
     wall = time.perf_counter() - t_all
     launches = {"rga_insert": insert_batch.launches, "ragged_insert": ragged_insert.launches}
-    counts = {c.split(".")[1]: GLOBAL_COUNTERS.get(c) - n for c, n in counters.items()}
+    counts = {c.split(".")[1]: int(GLOBAL_COUNTERS.get(c) - n) for c, n in counters.items()}
     applies = counts[APPLY_COUNTER[layout].split(".")[1]]
     ops = sum(len(ch.ops) for w in workloads for log in w.values() for ch in log)
     fallback = [d for d, sess in enumerate(s.docs) if sess.fallback]
@@ -1223,7 +1263,7 @@ def _phase_delta(start):
     from peritext_tpu_torch.ops.ragged_insert import ragged_insert
 
     out = {"rga_insert": insert_batch.launches, "ragged_insert": ragged_insert.launches}
-    out.update({c.split(".")[1]: GLOBAL_COUNTERS.get(c) - n for c, n in start.items()})
+    out.update({c.split(".")[1]: int(GLOBAL_COUNTERS.get(c) - n) for c, n in start.items()})
     return out
 
 
@@ -1821,7 +1861,7 @@ def run_serve_quota(device):
                 streak = 0
         streak = 0
     mux.flush()
-    refused = GLOBAL_COUNTERS.get("serve.degrade_refused_on_device") - refused
+    refused = int(GLOBAL_COUNTERS.get("serve.degrade_refused_on_device") - refused)
     if longest < mux.degrade_after or not refused:
         raise AssertionError(f"serve_quota: the shed streak ({longest}) never passed the "
                              f"demotion threshold ({mux.degrade_after})")
@@ -2406,26 +2446,39 @@ def run_fused_wide(device, workloads, captures):
     return report, delta["rga_insert"], delta["ragged_insert"]
 
 
-def run_fleet(device, workloads, capture):
+def run_fleet(device, workloads, capture, flight_dir):
     """Phase 5f (c): the host-kill failover episode (:data:`FLEET`) at
-    config 5's width, over TCP ship endpoints.  Round-robin client traffic,
+    config 5's width, over TCP ship endpoints, with the incident plane
+    armed as the reference's episode arms it.  Round-robin client traffic,
     one frontend ``round()`` a pass, each frame submitted once; at half the
     frames 16 directed migrations (digest-checked cutover) and one
     ``rebalance()``, then the busiest host killed; the lease detects it and
-    failover re-places its docs.  Oracles (the reference's, minus its
-    incident plane): typed verdicts only with ``submitted == admitted +
-    delayed + shed``; before any retry, a seeded sample of victim docs
-    equals a plain session fed exactly their acked frames; after the
-    clients resubmit what was not admitted and the frontend flushes, every
-    doc's digest and the fleet-wide sum equal a fault-free plain
-    session's, and a sample equals the scalar oracle; K1 launches, over all
-    hosts, equal their block applies.  ``capture`` records the first
-    insert call of the failover's re-drains.  Returns the report and the
-    fleet's insert launches."""
+    failover re-places its docs.  Oracles (the reference's): typed verdicts
+    only with ``submitted == admitted + delayed + shed``; before any retry,
+    a seeded sample of victim docs equals a plain session fed exactly their
+    acked frames; after the clients resubmit what was not admitted and the
+    frontend flushes, every doc's digest and the fleet-wide sum equal a
+    fault-free plain session's, and a sample equals the scalar oracle; K1
+    launches, over all hosts, equal their block applies.  A private
+    ``IncidentMonitor`` and ``TimeSeriesPlane``, fed the fleet's snapshot
+    once per frontend round, must open exactly ``['host-death']`` within
+    ``2 * lease_rounds + 2`` monitor rounds of the kill, resolve it within
+    ``clear_after + 1`` quiet rounds after the heal, and score the kill's
+    delay/shed spike as an anomaly no later; the flight recorder they share
+    with the frontend (dumps in ``flight_dir``) must hold the host-death
+    and failover-complete faults, and its dumps must merge into one
+    timeline.  ``capture`` records the first insert call of the failover's
+    re-drains.  Returns the report and the fleet's insert launches."""
     import torch
 
     from peritext_tpu_torch.api.batch import _oracle_doc
-    from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+    from peritext_tpu_torch.obs import (
+        GLOBAL_COUNTERS,
+        FlightRecorder,
+        IncidentMonitor,
+        TimeSeriesPlane,
+        merge_flight_dumps,
+    )
     from peritext_tpu_torch.ops.insert import insert_batch
     from peritext_tpu_torch.serve import (
         ADMIT,
@@ -2444,7 +2497,27 @@ def run_fleet(device, workloads, capture):
     n_frames = sum(len(p) for p in plans)
     counters = ("fleet.ship_frames_sent", "fleet.ship_bytes_sent", "fleet.ship_frames_received")
     c0 = {c: GLOBAL_COUNTERS.get(c) for c in counters}
-    fe = FleetFrontend(lease_rounds=cfg["lease_rounds"], checkpoint_every=cfg["checkpoint_every"])
+    recorder = FlightRecorder(capacity=256, dump_dir=flight_dir, min_dump_interval=0.0,
+                              host="frontend")
+    imon = IncidentMonitor(host="frontend", clear_after=2, recorder=recorder)
+    tsp = TimeSeriesPlane(sample_every=1, min_frames=4).enable()
+    plane = {"kill_mon": None, "kill_tsp": None, "anomaly": None, "keys": [], "seconds": 0.0}
+    fe = FleetFrontend(lease_rounds=cfg["lease_rounds"], checkpoint_every=cfg["checkpoint_every"],
+                       recorder=recorder)
+
+    def monitor_round():
+        """The incident and history planes' feed, once per frontend round."""
+        t_mon = time.perf_counter()
+        imon.observe_fleet(fe)
+        imon.advance_round()
+        tsp.sample(fleet=fe)
+        if plane["anomaly"] is None:
+            hits = [a for a in tsp.active_anomalies()
+                    if a["key"] in ("fleet.verdicts.delayed", "fleet.verdicts.shed")]
+            if hits:
+                plane.update(anomaly=tsp.rounds, keys=sorted(a["key"] for a in hits))
+        plane["seconds"] += time.perf_counter() - t_mon
+
     try:
         for i in range(cfg["hosts"]):
             fe.add_host(f"host{i}", SessionMux(
@@ -2465,6 +2538,8 @@ def run_fleet(device, workloads, capture):
             failover.update(host=name, seconds=time.perf_counter() - t0, round=fe.rounds)
 
         fe._failover = timed_failover
+        for _ in range(tsp.min_frames + 2):  # the history plane's flat baseline
+            tsp.sample(fleet=fe)
         undo = _arm_capture(capture, "padded")
         start = _phase_counts()
         plain_k1 = plain_applies = 0
@@ -2490,6 +2565,7 @@ def run_fleet(device, workloads, capture):
                             raise AssertionError(f"fleet_2048: untyped shed {verdict.to_json()}")
                         missed[k].append(frame)
                 fe.round()
+                monitor_round()
                 if k_frame == half:
                     moved = sorted(rng.sample(keys, cfg["migrate"]), key=lambda k: int(k[3:]))
                     hosts = sorted(fe.hosts)
@@ -2505,8 +2581,10 @@ def run_fleet(device, workloads, capture):
                                          key=lambda k: int(k[3:]))
                     fe.hosts[victim].kill()
                     kill_round = fe.rounds
+                    plane.update(kill_mon=imon.rounds, kill_tsp=tsp.rounds)
             while victim not in fe.ledger.dead_hosts():
                 fe.round()
+                monitor_round()
                 if fe.rounds - kill_round > 2 * cfg["lease_rounds"] + 2:
                     raise AssertionError("fleet_2048: the lease never expired")
             detection_rounds = failover["round"] - kill_round
@@ -2523,7 +2601,7 @@ def run_fleet(device, workloads, capture):
             plain.drain()
             survived = [fe.doc_digest(k) == plain.doc_digest(j) for j, k in enumerate(sample)]
             plain_k1 += insert_batch.launches - k1
-            plain_applies += GLOBAL_COUNTERS.get("streaming.block_applies") - applies
+            plain_applies += int(GLOBAL_COUNTERS.get("streaming.block_applies") - applies)
             if not all(survived):
                 raise AssertionError(f"fleet_2048: acked ops lost in failover on "
                                      f"{survived.count(False)} of {len(sample)} sampled docs")
@@ -2542,6 +2620,7 @@ def run_fleet(device, workloads, capture):
                         (acked[k] if verdict.kind == ADMIT else left).append(frame)
                     missed[k] = left
                 fe.round()
+                monitor_round()
             if any(missed.values()):
                 raise AssertionError("fleet_2048: resubmissions never all admitted")
             fe.flush()
@@ -2561,6 +2640,33 @@ def run_fleet(device, workloads, capture):
         for name, host in sorted(fe.hosts.items()):
             if host.alive:
                 _check_served(f"fleet_2048 {name}", host.mux)
+        # the incident plane (the reference episode's oracles): post-heal,
+        # quiet rounds resolve the one incident the kill opened
+        for _ in range(imon.clear_after + 1):
+            monitor_round()
+        ttd = imon.time_to_detection("host-death", plane["kill_mon"])
+        if imon.incident_kinds() != ["host-death"] or imon.open_incidents() or ttd is None or \
+                ttd > 2 * cfg["lease_rounds"] + 2:
+            raise AssertionError(f"fleet_2048: incidents {imon.incidents_json()}, detection "
+                                 f"{ttd} monitor rounds")
+        if plane["anomaly"] is None or plane["anomaly"] - plane["kill_tsp"] > ttd:
+            raise AssertionError(f"fleet_2048: the delay/shed anomaly at history round "
+                                 f"{plane['anomaly']} lags the incident (kill at "
+                                 f"{plane['kill_tsp']}, detection {ttd})")
+        dumps = sorted(Path(flight_dir).glob("*.jsonl"))
+        merged = merge_flight_dumps(dumps)
+        reasons = {r.get("reason") for r in merged["timeline"] if r.get("kind") == "fault"}
+        if not {"host-death", "failover-complete"} <= reasons or "frontend" not in merged["hosts"]:
+            raise AssertionError(f"fleet_2048: flight dumps {[d.name for d in dumps]} hold "
+                                 f"faults {sorted(reasons)} from hosts {merged['hosts']}")
+        incidents = dict(kinds=imon.incident_kinds(), detection_rounds=ttd,
+                         anomaly_rounds=plane["anomaly"] - plane["kill_tsp"],
+                         anomaly_keys=plane["keys"], digest=imon.digest(),
+                         wire_summary=imon.wire_summary(), monitor_rounds=imon.rounds,
+                         opened_round=imon.incidents()[0].opened_round,
+                         resolved_round=imon.incidents()[0].resolved_round,
+                         flight_dumps=len(dumps), timeline_records=merged["records"],
+                         monitor_seconds=plane["seconds"])
 
         t1 = time.perf_counter()
         clean = serve_session(device, len(plans), ops)
@@ -2591,7 +2697,7 @@ def run_fleet(device, workloads, capture):
             migration_rollbacks=fe.migration_rollbacks, rebalance_moves=len(rebalanced),
             resubmitted=retried, verdicts=stats.to_json(), acked_survived=len(sample),
             ships=ships, checkpoint_ships=fe.checkpoint_ships, rounds=fe.rounds,
-            launches=delta, check_seconds=time.perf_counter() - t1,
+            incidents=incidents, launches=delta, check_seconds=time.perf_counter() - t1,
             seconds=time.perf_counter() - t_phase)
     finally:
         fe.stop()
@@ -2604,9 +2710,124 @@ def run_fleet(device, workloads, capture):
         f"over {episode:.3f} s; acked ops survived on {len(sample)} sampled victim docs; "
         f"post-heal digests equal the fault-free session; {delta['rga_insert']} rga_insert "
         f"launches = block applies; {report['seconds']:.1f} s")
+    log(f"fleet_2048 incidents: kinds {incidents['kinds']}, host-death opened "
+        f"{incidents['detection_rounds']} monitor rounds after the kill (round "
+        f"{incidents['opened_round']}, resolved at {incidents['resolved_round']}), the "
+        f"{incidents['anomaly_keys']} anomaly {incidents['anomaly_rounds']} rounds after the kill; "
+        f"digest {incidents['digest']:#010x}; {incidents['flight_dumps']} flight dumps merged "
+        f"into {incidents['timeline_records']} records; monitor and history planes "
+        f"{incidents['monitor_seconds']:.3f} s")
     if "args" not in capture:
         raise AssertionError("fleet_2048: no insert call was captured in the failover")
     return report, delta["rga_insert"]
+
+
+def run_chaos_phase(device, trace_dir):
+    """Phase 5g: every episode of :data:`CHAOS` on ``device``, each passing
+    its own oracles (they raise).  Each path's launch counts are set to 0
+    just before it and read just after: an episode's sessions are padded,
+    so its K1 launches must equal its block applies and K3 must not launch;
+    the padded differential launches K1 only, the ragged one K3 only; the
+    divergence injection and the fleet heal build no session and launch
+    nothing.  The first insert call of ``run_chaos`` seed 0 and the first
+    ragged insert call of the ragged differential are captured for the
+    kernel rows, and the mid-drain kill runs under ``obs.profile_trace``
+    (trace in ``trace_dir``), whose trace must hold an insert-kernel event.
+    Returns the report, each kernel's launches by path and the captures."""
+    import torch
+
+    from peritext_tpu_torch.api.batch import DocBatch
+    from peritext_tpu_torch.obs import profile_trace
+    from peritext_tpu_torch.testing import chaos
+    from peritext_tpu_torch.testing.fuzz import run_differential, run_differential_frames
+
+    cfg = CHAOS
+    t_phase = time.perf_counter()
+    captures = {"padded": {}, "ragged": {}}
+    reports, seconds = {}, {}
+    paths = {"rga_insert": {}, "ragged_insert": {}}
+
+    def episode(name, fn, launches, capture=None):
+        """Run one path with its counts from 0; ``launches`` says which
+        kernels it must launch: ``session`` (K1 = block applies), ``rga``,
+        ``ragged`` or ``none``."""
+        undo = None
+        if capture is not None:
+            captures[capture]["armed"] = True
+            undo = _arm_capture(captures[capture], capture)
+        start = _phase_counts()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            if undo is not None:
+                undo()
+        seconds[name] = time.perf_counter() - t0
+        delta = _phase_delta(start)
+        if launches == "session":
+            _check_padded_launches(f"chaos {name}", delta)
+        elif (launches == "rga") != (delta["rga_insert"] > 0) or \
+                (launches == "ragged") != (delta["ragged_insert"] > 0):
+            raise AssertionError(f"chaos {name}: launches {delta}, expected {launches}")
+        if delta["rga_insert"]:
+            paths["rga_insert"][f"chaos_{name}"] = delta["rga_insert"]
+        if delta["ragged_insert"]:
+            paths["ragged_insert"][f"chaos_{name}"] = delta["ragged_insert"]
+        reports[name] = dict(out.to_json() if hasattr(out, "to_json") else
+                             out if isinstance(out, dict) else {"result": out},
+                             launches=delta, seconds=seconds[name])
+        log(f"chaos {name}", json.dumps(reports[name], default=str))
+        return out
+
+    for seed in cfg["chaos_seeds"]:
+        episode(f"run_chaos_seed{seed}", lambda: chaos.run_chaos(seed, device=device), "session",
+                capture="padded" if seed == cfg["chaos_seeds"][0] else None)
+    with profile_trace(trace_dir):
+        episode("fused_drain_kill", lambda: chaos.run_fused_drain_kill(cfg["seed"], device=device),
+                "session")
+    events = [e for path in sorted(Path(trace_dir).glob("*.json"))
+              for e in json.loads(path.read_text()).get("traceEvents", [])]
+    k1_events = [e for e in events if e.get("cat") == "kernel" and "insert_kernel" in e.get("name", "")]
+    if not k1_events:
+        raise AssertionError(f"chaos: the profile_trace of the mid-drain kill holds no insert "
+                             f"kernel event ({len(events)} events)")
+    reports["profile_trace"] = dict(events=len(events), insert_kernel_events=len(k1_events),
+                                    insert_kernel_us=sum(float(e.get("dur", 0)) for e in k1_events))
+    log("chaos profile_trace", json.dumps(reports["profile_trace"]))
+    episode("markheavy", lambda: chaos.run_markheavy_chaos(cfg["seed"], device=device), "session")
+    episode("divergence_injection", lambda: chaos.run_divergence_injection(cfg["seed"]), "none")
+    episode("serve_chaos", lambda: chaos.run_serve_chaos(cfg["seed"], device=device), "session")
+    storm = dict(cfg["storm"])
+    episode("reconnect_storm", lambda: chaos.run_reconnect_storm(storm.pop("seed"), device=device,
+                                                                 **storm), "session")
+    failover = dict(cfg["failover"])
+    episode("host_kill_failover", lambda: chaos.run_host_kill_failover(
+        failover.pop("seed"), device=device, **failover), "session")
+    episode("fleet_heal", lambda: chaos.run_fleet_chaos(
+        cfg["fleet_heal"]["seed"], hosts=cfg["fleet_heal"]["hosts"], metrics=False), "none")
+    diff = cfg["differential"]
+    padded = DocBatch(device=device, **diff["capacities"])
+    ragged = DocBatch(device=device, layout="ragged", **diff["capacities"])
+    for seed in diff["seeds"]:
+        for name, batch, kind in (("padded", padded, "rga"), ("ragged", ragged, "ragged")):
+            on_device = episode(
+                f"differential_{name}_seed{seed}",
+                lambda: run_differential(seed, diff["docs"], diff["ops"], batch=batch), kind,
+                capture="ragged" if name == "ragged" and seed == diff["seeds"][0] else None)
+            if on_device != diff["docs"]:
+                raise AssertionError(f"chaos differential {name} seed {seed}: "
+                                     f"{diff['docs'] - on_device} docs fell back")
+    for seed in cfg["frames_seeds"]:
+        episode(f"differential_frames_seed{seed}", lambda: run_differential_frames(
+            seed, diff["docs"], diff["ops"], device=device), "session")
+    total = time.perf_counter() - t_phase
+    log(f"chaos: {len(seconds)} paths passed every oracle on the card in {total:.1f} s "
+        f"(per path: {json.dumps({k: round(v, 3) for k, v in seconds.items()})})")
+    for layout, c in captures.items():
+        if "args" not in c:
+            raise AssertionError(f"chaos: no {layout} kernel call was captured")
+    return dict(paths=reports, seconds=total), paths, captures
 
 
 def main_path_insert_args(batch, workloads):
@@ -2777,12 +2998,17 @@ def run_all(device, jobs, ckpt_root) -> int:
     wide_workloads = jobs["serve_wide"].get(timeout=900)
     _, serve_paths["fused_2048"], fused_ragged = run_fused_wide(device, wide_workloads,
                                                                 captures_fused)
-    _, serve_paths["fleet_2048"] = run_fleet(device, wide_workloads, capture_fleet)
+    _, serve_paths["fleet_2048"] = run_fleet(device, wide_workloads, capture_fleet,
+                                             ckpt_root / "fleet_flight")
     del wide_workloads
     gc.collect()
     torch.cuda.empty_cache()
     log(f"fused and fleet done at {time.perf_counter() - t_start:.1f} s "
         f"(phase 5f {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    _, chaos_paths, captures_chaos = run_chaos_phase(device, ckpt_root / "traces")
+    log(f"chaos done at {time.perf_counter() - t_start:.1f} s "
+        f"(phase 5g {time.perf_counter() - t0:.1f} s)")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
@@ -2809,6 +3035,8 @@ def run_all(device, jobs, ckpt_root) -> int:
         rows.append(check_insert(f"fused_paged_round_g{i}", args))
     rows.append(check_insert("fleet_failover_round", capture_fleet["args"],
                              loop_slots=capture_fleet["loop_slots"]))
+    rows.append(check_insert("chaos_round", captures_chaos["padded"]["args"],
+                             loop_slots=captures_chaos["padded"]["loop_slots"]))
     del capture, capture_frames, capture_paged, capture_bridge, capture_serve, capture_fleet
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
@@ -2827,7 +3055,8 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_rows += check_ragged("streaming_ragged_round", capture_ragged.pop("args"))
     ragged_rows += check_ragged("restore_ragged_round", capture_restore.pop("args"))
     ragged_rows += check_ragged("fused_ragged_round", captures_fused["ragged"].pop("args"))
-    del captures_fused
+    ragged_rows += check_ragged("differential_ragged_round", captures_chaos["ragged"].pop("args"))
+    del captures_fused, captures_chaos
     ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
         device, BATCH_8K["slots"],
         synth_streams(BATCH_8K["docs"], inserts_per_doc=BATCH_8K["inserts"], seed=1)[:3]))
@@ -2869,12 +3098,14 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths.update({f"restore_crash_seed{seed}": d["rga_insert"] for seed, d in crash.items()})
     rga_paths["guarded_merge"] = guarded_launches
     rga_paths.update(serve_paths)
+    rga_paths.update(chaos_paths["rga_insert"])
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})
     ragged_paths.update({f"restore_{r['session']}": r["launches"]["ragged_insert"]
                          for r in restores if r["layout"] == "ragged"})
     ragged_paths["fused_2048"] = fused_ragged
+    ragged_paths.update(chaos_paths["ragged_insert"])
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

@@ -16,7 +16,12 @@
 * :mod:`.timeseries` — the round-counted history plane, with the fused
   serving tier's occupancy channel;
 * :mod:`.convergence` — per-peer replication-lag watermarks and
-  divergence probes over the multihost frontier exchanges.
+  divergence probes over the multihost frontier exchanges;
+* :mod:`.incidents` — the incident plane: typed, round-counted incidents
+  correlated across the other planes' snapshots, their wire summary, and
+  the merge of per-host flight dumps into one timeline;
+* :mod:`.events` — the structured event log and ``profile_trace``, a
+  ``torch.profiler`` capture of a block.
 
 Every plane is host-side: none synchronizes the card.  The device planes
 (a cost and memory profiler, a build sentinel, the perf ledger) are still
@@ -33,6 +38,7 @@ from .convergence import (
     clock_delta_ops,
     clocks_equal,
 )
+from .events import EventLog, profile_trace
 from .histograms import (
     GLOBAL_HISTOGRAMS,
     Histogram,
@@ -40,6 +46,7 @@ from .histograms import (
     LATENCY_BUCKETS_S,
     SIZE_BUCKETS,
 )
+from .incidents import TAXONOMY, Incident, IncidentMonitor, merge_flight_dumps
 from .latency import (
     GLOBAL_LATENCY,
     LatencyPlane,
@@ -72,6 +79,7 @@ __all__ = [
     "Counters",
     "DIVERGENCE",
     "DivergenceIncident",
+    "EventLog",
     "FlightRecorder",
     "GLOBAL_COUNTERS",
     "GLOBAL_HISTOGRAMS",
@@ -80,6 +88,8 @@ __all__ = [
     "GLOBAL_TRACER",
     "Histogram",
     "HistogramRegistry",
+    "Incident",
+    "IncidentMonitor",
     "LAG",
     "LATENCY_BUCKETS_S",
     "LatencyPlane",
@@ -87,6 +97,7 @@ __all__ = [
     "PeerLag",
     "SIZE_BUCKETS",
     "STAGES",
+    "TAXONOMY",
     "Span",
     "TimeSeriesPlane",
     "TraceContext",
@@ -98,8 +109,10 @@ __all__ = [
     "check_sum_consistency",
     "current_span",
     "health_snapshot",
+    "merge_flight_dumps",
     "merge_traces",
     "occupancy_distribution",
+    "profile_trace",
     "replay_segments",
     "stage_timer",
 ]

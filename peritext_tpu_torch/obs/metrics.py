@@ -5,6 +5,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+from collections import defaultdict
 from typing import Any, Dict, Iterator, Optional
 
 
@@ -17,20 +18,22 @@ class Counters:
     group of a round) and ``streaming.ragged_applies`` (ragged: one per
     non-empty doc class of a round's plan).  A lock guards every read and
     update: an editor's change queue flushes on a timer thread, and a
-    guarded round runs on the supervisor's watchdog thread.  A counter fed
-    integers stays an integer."""
+    guarded round runs on the supervisor's watchdog thread.  Every value is
+    a float, as in the reference, so a snapshot serializes to the same JSON
+    (``1.0``, not ``1``); compare it with ints, and ``int()`` it before a
+    ``%d`` or a ``range``."""
 
     def __init__(self) -> None:
-        self._values: Dict[str, float] = {}
+        self._values: Dict[str, float] = defaultdict(float)
         self._lock = threading.Lock()
 
-    def add(self, name: str, value: float = 1) -> None:
+    def add(self, name: str, value: float = 1.0) -> None:
         with self._lock:
-            self._values[name] = self._values.get(name, 0) + value
+            self._values[name] += value
 
     def get(self, name: str) -> float:
         with self._lock:
-            return self._values.get(name, 0)
+            return self._values.get(name, 0.0)
 
     @contextlib.contextmanager
     def timed(self, name: str) -> Iterator[None]:

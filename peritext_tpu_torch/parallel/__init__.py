@@ -5,7 +5,7 @@ lag-driven gossip (:mod:`.gossip`), round-counted heartbeat leases
 (:mod:`.lease`) and deterministic doc placement (:mod:`.router`)."""
 
 from .anti_entropy import ChangeStore, apply_changes, change_digest, get_missing_changes, sync
-from .causal import causal_schedule, causal_sort
+from .causal import causal_schedule, causal_sort, causal_waves
 from .gossip import GossipPeer, GossipScheduler
 from .lease import DEAD, LIVE, SUSPECT, HeartbeatLedger, Lease
 from .multihost import (
@@ -41,6 +41,7 @@ __all__ = [
     "apply_changes",
     "causal_schedule",
     "causal_sort",
+    "causal_waves",
     "change_digest",
     "get_missing_changes",
     "merge_changes",

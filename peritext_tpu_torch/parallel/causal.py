@@ -2,7 +2,8 @@
 
 The device kernel applies a *linear*, padded op stream per document; it must
 never see a change whose dependencies haven't been applied.  This module
-linearizes an arbitrary set of changes into a deterministic admissible order.
+linearizes an arbitrary set of changes into a deterministic admissible order
+(and, for streaming, into causal waves).
 Determinism matters only for reproducibility: any admissible order converges,
 because op application is commutative across causally-concurrent changes.
 
@@ -89,3 +90,32 @@ def causal_sort(
         missing = sorted((c.actor, c.seq) for c in stuck)[:5]
         raise PeritextError(f"Causal gap: cannot schedule changes {missing}")
     return ordered
+
+
+def causal_waves(
+    changes: Iterable[Change], base_clock: Optional[Clock] = None
+) -> List[List[Change]]:
+    """Group changes into waves: wave k contains changes admissible once waves
+    < k are applied.  Within a wave all changes are causally concurrent (up to
+    per-actor seq chains), which is the unit a streaming pipeline can overlap."""
+    clock: Clock = dict(base_clock or {})
+    seen: set = set()
+    remaining: List[Change] = []
+    for ch in changes:
+        key = (ch.actor, ch.seq)
+        if key in seen or ch.seq <= clock.get(ch.actor, 0):
+            continue  # duplicate or already incorporated
+        seen.add(key)
+        remaining.append(ch)
+    waves: List[List[Change]] = []
+    while remaining:
+        wave = [ch for ch in remaining if _admissible(ch, clock)]
+        if not wave:
+            raise PeritextError("Causal gap: no admissible changes remain")
+        wave.sort(key=lambda c: (c.actor, c.seq))
+        for ch in wave:
+            clock[ch.actor] = ch.seq
+        applied = {(c.actor, c.seq) for c in wave}
+        remaining = [c for c in remaining if (c.actor, c.seq) not in applied]
+        waves.append(wave)
+    return waves

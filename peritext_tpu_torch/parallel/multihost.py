@@ -205,17 +205,20 @@ _META_SPAN = "\x00span"
 #: validation accepts-and-ignores them like every other sentinel.
 _META_DIGEST = "\x00digest"
 _META_PORT = "\x00port"
-#: incident observability: the sender's compact incident summary (the
-#: reference's ``IncidentMonitor.wire_summary``).  The port has no incident
-#: plane yet (ROADMAP.md queue 1 item 10), so it never sends one and strips
-#: a peer's like every other sentinel.
+#: incident observability: the sender's compact incident summary
+#: (``IncidentMonitor.wire_summary``: open count packed above a 32-bit
+#: digest of the observation-derived incident view), so two frontends can
+#: tell whether they AGREE on what is broken.  An int, so old peers'
+#: {str: int} frontier validation accepts-and-ignores it like every other
+#: sentinel.
 _META_INCIDENTS = "\x00incidents"
 _META_KEYS = {_META_CAPS: "caps", _META_TRACE: "trace", _META_SPAN: "span",
               _META_DIGEST: "digest", _META_PORT: "port",
               _META_INCIDENTS: "incidents"}
 
 
-def _frontier_meta(tracer, span, digest=None, port=None) -> dict:
+def _frontier_meta(tracer, span, digest=None, port=None,
+                   incidents=None) -> dict:
     """The metadata this endpoint attaches to an outbound frontier: always
     its wire caps; the current span's trace context when tracing is live,
     so the peer's handler span can join OUR trace; the store digest at the
@@ -231,6 +234,8 @@ def _frontier_meta(tracer, span, digest=None, port=None) -> dict:
         meta[_META_DIGEST] = int(digest)
     if port is not None:
         meta[_META_PORT] = int(port)
+    if incidents is not None:
+        meta[_META_INCIDENTS] = int(incidents)
     return meta
 
 
@@ -406,11 +411,14 @@ class ReplicaServer:
         ``monitor`` (default: a fresh
         :class:`~..obs.convergence.ConvergenceMonitor`) ingests every
         frontier this server exchanges, inbound and outbound, maintaining
-        per-peer lag watermarks and divergence probes.  The reference's
-        telemetry mounts (``metrics_port=``, ``serve=``, ``fleet=``,
-        ``incidents=``: its metrics server, device profiler and incident
-        monitor) are not ported: passing any of them raises
-        ``NotImplementedError``.
+        per-peer lag watermarks and divergence probes; ``incidents`` (an
+        :class:`~..obs.incidents.IncidentMonitor`) rides every frontier
+        this endpoint sends as the ``"\x00incidents"`` summary and records
+        every peer's summary it hears (``observe_peer_summary``, on the
+        handler thread for inbound exchanges).  The reference's metrics
+        mounts (``metrics_port=``, ``serve=``, ``fleet=``: its metrics
+        server and device profiler) are not ported: passing any of them
+        raises ``NotImplementedError``.
 
         ``on_ship`` is the checkpoint-ship receiver
         ``(doc_key, frames, base) -> total frame count now held``: the
@@ -422,13 +430,18 @@ class ReplicaServer:
         from ..obs.convergence import ConvergenceMonitor
 
         mounts = {"metrics_port": metrics_port, "serve": serve,
-                  "fleet": fleet, "incidents": incidents}
+                  "fleet": fleet}
         asked = sorted(k for k, v in mounts.items() if v is not None)
         if asked:
             raise NotImplementedError(
-                f"ReplicaServer({', '.join(asked)}=...): the metrics server, "
-                "device profiler and incident monitor are not ported yet "
-                "(ROADMAP.md queue 1 item 10: 'Observability')")
+                f"ReplicaServer({', '.join(asked)}=...): the metrics server "
+                "and its device profiler are not ported yet (ROADMAP.md "
+                "queue 1 item 10c: the exporters; item 10b: the device planes)")
+        #: optional :class:`~..obs.incidents.IncidentMonitor`: when armed,
+        #: outbound frontiers carry its packed summary (the
+        #: ``"\x00incidents"`` sentinel) and inbound ones feed
+        #: ``observe_peer_summary`` — the fleet incident-agreement view
+        self.incidents = incidents
         self.store = store
         self.on_changes = on_changes
         self.on_frame = on_frame
@@ -496,7 +509,7 @@ class ReplicaServer:
             on_changes=self.on_changes, timeout=timeout, lock=self._lock,
             on_frame=self.on_frame, retry=retry, tracer=self.tracer,
             monitor=self.monitor, advertise_port=self.address[1],
-            peer_name=peer_name,
+            peer_name=peer_name, incidents=self.incidents,
         )
 
     def try_sync_with(
@@ -511,6 +524,7 @@ class ReplicaServer:
             on_frame=self.on_frame, retry=retry, tracer=self.tracer,
             recorder=self.recorder, monitor=self.monitor,
             advertise_port=self.address[1], peer_name=peer_name,
+            incidents=self.incidents,
         )
 
     def _handle_ship(self, conn: socket.socket, body: bytes) -> None:
@@ -590,6 +604,11 @@ class ReplicaServer:
                             local_digest=my_digest,
                             peer_digest=meta.get("digest"),
                         )
+                    if (peer_name is not None and self.incidents is not None
+                            and "incidents" in meta):
+                        self.incidents.observe_peer_summary(
+                            peer_name, meta["incidents"]
+                        )
                     # chunked: a large backlog splits into multiple frames so
                     # no single frame approaches the peer's decode dep budget
                     _send_changes(
@@ -600,6 +619,9 @@ class ReplicaServer:
                         conn, my_clock, meta=_frontier_meta(
                             self.tracer, sp, digest=my_digest,
                             port=self.address[1],
+                            incidents=(self.incidents.wire_summary()
+                                       if self.incidents is not None
+                                       else None),
                         )
                     )
                     # the frame-level ctx is redundant HERE: this handler
@@ -649,6 +671,7 @@ def _sync_once(
     monitor=None,
     advertise_port: Optional[int] = None,
     peer_name: Optional[str] = None,
+    incidents=None,
 ) -> Tuple[List[Change], int, List[bytes], Optional[TraceContext]]:
     """One attempt of the bidirectional exchange (see :func:`sync_with`).
     The store mutates only AFTER the socket closes cleanly, so a failed
@@ -676,9 +699,15 @@ def _sync_once(
             # our replica port when we serve one (peer attribution)
             _send_frontier(sock, my_clock, meta=_frontier_meta(
                 tracer, sp, digest=my_digest, port=advertise_port,
+                incidents=(incidents.wire_summary()
+                           if incidents is not None else None),
             ))
             inbound, frames, in_ctx = _recv_changes(sock, want_frames=want_frames)
             peer_clock, meta = _parse_frontier(_expect(sock, MSG_FRONTIER))
+            if incidents is not None and "incidents" in meta:
+                incidents.observe_peer_summary(
+                    peer_name or f"{host}:{port}", meta["incidents"]
+                )
             if monitor is not None:
                 # telemetry only, observed against the PRE-merge snapshot:
                 # both frontiers are pre-exchange positions, so the
@@ -720,6 +749,7 @@ def sync_with(
     monitor=None,
     advertise_port: Optional[int] = None,
     peer_name: Optional[str] = None,
+    incidents=None,
 ) -> Tuple[int, int]:
     """One full bidirectional anti-entropy round against a peer.
 
@@ -753,7 +783,7 @@ def sync_with(
             fresh, pushed, frames, in_ctx = _sync_once(
                 store, host, port, deadline, lock, on_frame is not None,
                 tracer, monitor=monitor, advertise_port=advertise_port,
-                peer_name=peer_name,
+                peer_name=peer_name, incidents=incidents,
             )
         except _RETRYABLE as exc:
             last = exc
@@ -800,6 +830,7 @@ def try_sync_with(
     monitor=None,
     advertise_port: Optional[int] = None,
     peer_name: Optional[str] = None,
+    incidents=None,
 ) -> SyncOutcome:
     """Anti-entropy round that NEVER raises on transport failure: a peer
     that stays unreachable through the retry budget yields a ``behind``
@@ -837,7 +868,7 @@ def try_sync_with(
             store, host, port, on_changes=_fenced(on_changes),
             lock=lock, on_frame=_fenced(on_frame), retry=policy,
             tracer=tracer, monitor=monitor, advertise_port=advertise_port,
-            peer_name=peer_name,
+            peer_name=peer_name, incidents=incidents,
         )
     except _CallbackFailed as exc:
         raise exc.__cause__

@@ -195,6 +195,12 @@ class GuardedSession:
         session.tracer = self.tracer
         session.recorder = self.recorder
 
+    def adopt_session(self, session) -> None:
+        """Install an externally-restored session (crash-restore path) with
+        the telemetry attachment a factory-built session would get."""
+        self.session = session
+        self._attach_session(session)
+
     def close(self) -> None:
         """Detach this supervisor's flight-recorder sink from the tracer
         (matters when the tracer is shared and outlives the supervisor).

@@ -150,9 +150,11 @@ def test_import_leaves_jax_and_reference_out():
         "peritext_tpu_torch.serve.fleet, peritext_tpu_torch.parallel.multihost, "
         "peritext_tpu_torch.parallel.gossip, peritext_tpu_torch.parallel.lease, "
         "peritext_tpu_torch.parallel.router, peritext_tpu_torch.parallel.anti_entropy, "
-        "peritext_tpu_torch.obs.convergence\n"
+        "peritext_tpu_torch.obs.convergence, peritext_tpu_torch.obs.incidents, "
+        "peritext_tpu_torch.obs.events, peritext_tpu_torch.testing.accumulate, "
+        "peritext_tpu_torch.testing.fuzz, peritext_tpu_torch.testing.chaos\n"
         "sys.path.insert(0, 'tests')\n"
-        "import test_torch_fleet_cuda\n"
+        "import test_torch_fleet_cuda, test_torch_chaos_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"

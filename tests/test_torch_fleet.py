@@ -404,10 +404,17 @@ def test_multi_frame_backlog_crosses(workload_changes, monkeypatch, sender):
 
 
 def test_replica_server_refuses_unported_mounts():
-    for kw in ({"metrics_port": 0}, {"serve": object()}, {"fleet": object()},
-               {"incidents": object()}):
+    for kw in ({"metrics_port": 0}, {"serve": object()}, {"fleet": object()}):
         with pytest.raises(NotImplementedError, match="item 10"):
             mh.ReplicaServer(ChangeStore(), **kw)
+    from peritext_tpu_torch.obs import IncidentMonitor
+
+    monitor = IncidentMonitor(host="h")
+    server = mh.ReplicaServer(ChangeStore(), host="127.0.0.1", port=0, incidents=monitor)
+    try:
+        assert server.incidents is monitor
+    finally:
+        server.stop()
 
 
 # ---------------------------------------------------------------------------
