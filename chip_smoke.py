@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; no phase's error is passed over):
 
 1. card: the card's name and power limit (nvidia-smi);
 2. build: every CUDA source of the paths, one nvcc each, all at once, and
-   the package's native host library (g++), which must load;
+   the package's native host library (g++), which must load; a build
+   sentinel (``obs.RecompileSentinel``) armed here counts the whole run's
+   builds and loads, and at the end each library must have loaded exactly
+   once and built at most once;
 3. padded slice: ``DocBatch(device="cuda").merge`` with cursors on 1024
    fuzz docs x 256 ops (BASELINE config 3; slots 512, marks 128, comment
    ids 64), with the launch counts set to 0 just before and read just
@@ -55,6 +58,27 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    one.  Each session prints its ``health()`` and passes phase 5's checks;
    C_frames, C_frames_ragged and A_paged_frames are saved where they end
    (``save_session``);
+5h. device planes (:data:`PLANES`): A_frames three times disarmed and
+   three times with the device profiler armed without costs, interleaved
+   (the ratio of the medians of their rounds' seconds is printed, a
+   reading); an armed ``apply_batch_compact`` on a captured round of A
+   under ``device_time_ms``, which fails if a hook waits for the card;
+   then A_frames, A_paged_frames and C_frames_ragged with
+   ``GLOBAL_DEVPROF`` armed with costs, a ``RecompileSentinel`` and a
+   ``MetricsServer``, each equal to its earlier arm's digest: per site
+   the dispatches equal the commit counters (``streaming.block_applies``;
+   one ``apply_batch_paged_groups`` or ``apply_batch_ragged`` call per
+   round), the sites' launches (dispatches x each bucket's
+   ``kernel_launches``) equal the commit counters and the kernels' own
+   launch counts, the occupancy table's real ops the session's applied
+   ops, the page-pool section the session's ``pool_stats()``, the memory
+   watermarks are the allocator's (available, a peak above 0), every
+   bucket has device ms and bytes above 0, nothing is built or loaded
+   after the first round, and ``/metrics``, ``/devprof.json`` and
+   ``/health.json`` answer with the reference's golden key sets; the
+   bucket table is printed (device ms against ``kernel_bytes`` over HBM
+   bandwidth); one ``ledger_record`` of the sessions' rows with the
+   profiler's snapshot names this card (platform ``gpu``);
 5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
@@ -128,13 +152,16 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    ``['host-death']`` within ``2 * lease_rounds + 2`` monitor rounds,
    resolve it after the heal, flag the delay/shed anomaly no later, and
    the frontend's flight dumps merge into one timeline (detection rounds,
-   the monitor's digest);
+   the monitor's digest); after the heal the frontend is mounted on a
+   ``ReplicaServer(metrics_port=0, fleet=...)`` and one ``/fleet.json``
+   scrape must read its hosts, docs, failovers and rounds;
 5g. chaos and differential fuzz (:data:`CHAOS`), every session on
    ``cuda``: the port's ``testing/chaos.py`` episodes at the shapes the
    reference runs them (``run_chaos`` seeds 0-3 at its defaults, the
    mid-drain kill, the mark-heavy campaign, the divergence injection, the
    serving-tier overload, the reference bench's ``reconnect_storm``,
-   ``fleet_serve`` and ``fleet_heal`` rows), each passing its own oracles;
+   ``fleet_serve`` and ``fleet_heal`` rows, the last with host0's
+   ``/metrics`` lag scrape), each passing its own oracles;
    ``run_differential`` at ``make fuzz``'s shape on a padded and on a
    ragged ``DocBatch`` and ``run_differential_frames``, each against the
    scalar oracle; each path's launches counted from 0 over its run (a
@@ -307,7 +334,7 @@ FLEET = dict(hosts=3, rows=1536, lease_rounds=2, checkpoint_every=4, migrate=16,
 #: storm``: seed 3, 8 docs x 64 ops, a backlog of 4000 ops, 250 frames/s for
 #: 1.5 s), its ``fleet_serve`` row (``--mode fleet-serve``: seed 29, 3 hosts,
 #: 8 docs x 48 ops, TCP ship endpoints) and its ``fleet_heal`` row (4 hosts,
-#: seed 0, no ``/metrics`` scrape); ``run_differential`` at ``make fuzz``'s
+#: seed 0, with host0's ``/metrics`` lag scrape); ``run_differential`` at ``make fuzz``'s
 #: defaults (32 docs x 160 ops; slots 512, marks 128, comment ids 32) for
 #: seeds 0-3 on a padded and on a ragged ``DocBatch`` (pages of 64), and
 #: ``run_differential_frames`` at the same shape for seeds 0-1
@@ -320,6 +347,30 @@ CHAOS = dict(chaos_seeds=(0, 1, 2, 3), seed=0,
                                capacities=dict(slot_capacity=512, mark_capacity=128,
                                                comment_capacity=32)),
              frames_seeds=(0, 1))
+#: phase 5h, the device planes, on session A's and C's frames (:data:`STREAM`):
+#: ``overhead_pairs`` runs of A_frames disarmed and armed (costs off),
+#: interleaved; then A_frames, A_paged_frames and C_frames_ragged with costs
+#: captured, a build sentinel and a mounted metrics server; ``sync_reps``
+#: calls of an armed ``apply_batch_compact`` under :func:`device_time_ms`:
+#: one, since a call queues hundreds of small kernels (the delete, mark and
+#: map phases), and more calls queued behind the spin fill the stream's
+#: launch queue, so the host blocks as if a call had synchronized
+PLANES = dict(overhead_pairs=3, sync_reps=1,
+              sessions=(("A_frames", "padded", "apply_batch_compact"),
+                        ("A_paged_frames", "paged", "apply_batch_paged_groups"),
+                        ("C_frames_ragged", "ragged", "apply_batch_ragged")))
+#: the reference package's golden key sets of a devprof snapshot
+#: (tests/test_devprof.py), which the port's snapshot keeps
+GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
+                       "memory", "page_pool", "ragged", "mesh"}
+GOLDEN_SITE_KEYS = {"distinct_shapes", "dispatches", "buckets"}
+GOLDEN_BUCKET_KEYS = {"dispatches", "sig", "cost", "memory"}
+GOLDEN_MEMORY_KEYS = {"available", "samples", "bytes_in_use", "peak_bytes_in_use"}
+GOLDEN_DEVICE_GAUGES = ("peritext_device_distinct_shapes", "peritext_device_dispatches",
+                        "peritext_device_flops_total", "peritext_device_bytes_accessed_total",
+                        "peritext_device_peak_bytes", "peritext_device_rounds_total",
+                        "peritext_device_real_ops_total", "peritext_device_padded_ops_total",
+                        "peritext_device_padding_waste_ratio")
 #: the fuzz workloads' three replicas (every session's actor table)
 ACTORS = ("doc1", "doc2", "doc3")
 WORDS = ("the of and a to in is you that it he was for on are as with his they at be this "
@@ -464,13 +515,14 @@ def bound(nbytes: int, nops: int):
 def insert_bound(args, loop_slots):
     """(bound_ms, bound_by, bytes, ops) of one insert call on these inputs.
 
-    Bytes: every input read once and every output written once.
+    Bytes: every input read once and every output written once
+    (``ops/insert.insert_batch_bytes``, the device profiler's count).
     Operations: :func:`replay_ops`."""
-    from peritext_tpu_torch.ops.insert import effective_loop_slots
+    from peritext_tpu_torch.ops.insert import effective_loop_slots, insert_batch_bytes
 
     elem_id, char, num_slots, overflow, ins_ref, ins_op, ins_char = args
     d, s_cap = elem_id.shape
-    nbytes = 2 * (elem_id.numel() * 4 * 2 + d * 4 + d) + 3 * ins_op.numel() * 4
+    nbytes = insert_batch_bytes(d, s_cap, ins_op.shape[1])
     nops = replay_ops(elem_id, num_slots, ins_ref, ins_op, effective_loop_slots(s_cap, loop_slots))
     return (*bound(nbytes, nops), nbytes, nops)
 
@@ -481,18 +533,20 @@ def ragged_bound(args):
 
     Bytes: each doc's pages gathered and scattered (both planes), its
     streams read up to its own count, and per doc n and overflow in and
-    out, its page count, insert count and page-table row.  Operations:
-    :func:`replay_ops` per group of docs with one page count, each doc on
-    its own window (page_count * P slots) for its own steps."""
+    out, its page count, insert count and page-table row
+    (``ops/ragged_insert.ragged_insert_bytes``, the device profiler's
+    count).  Operations: :func:`replay_ops` per group of docs with one page
+    count, each doc on its own window (page_count * P slots) for its own
+    steps."""
     import torch
+
+    from peritext_tpu_torch.ops.ragged_insert import ragged_insert_bytes
 
     (pool_elem, _, _, _, _, page_count, page_table, num_slots, _, ins_counts,
      ins_ref, ins_op, _) = args
     p = pool_elem.shape[1]
-    b, gmax = page_table.shape
-    pages = int(page_count.sum())
-    nbytes = (2 * 2 * pages * p * 4 + 3 * int(ins_counts.sum()) * 4
-              + b * (2 * 4 + 2 * 1 + 4 + 4) + b * gmax * 4)
+    gmax = page_table.shape[1]
+    nbytes = ragged_insert_bytes(page_count.cpu().numpy(), ins_counts.cpu().numpy(), p, gmax)
     nops = 0
     for g in torch.unique(page_count).tolist():
         if g == 0:  # rows holding no pages (a session's padding rows) take no step
@@ -1173,6 +1227,223 @@ def run_stream_layouts(device, ctx, essay_job, ckpts):
     del s
     reports += run_longtail(device, essay_job)
     return capture_paged, capture_ragged, reports
+
+
+def _scrape(address, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{address[0]}:{address[1]}{path}", timeout=30) as resp:
+        return resp.read().decode()
+
+
+def _check_planes_session(name, layout, site, s, out, before, after, sentinel, server):
+    """Phase 5h's checks of one armed session: its site's dispatches and
+    launches against the commit counters and the kernels' launch counts,
+    its applied ops against the occupancy table's, its pool against the
+    page-pool section, the memory watermarks, every bucket costed, no
+    build or load after the first round, and the mounted server's
+    endpoints with the golden key sets."""
+    rec = after["sites"].get(site)
+    if rec is None or set(after["sites"]) - set(before["sites"]) - {site}:
+        raise AssertionError(f"planes {name}: sites {sorted(after['sites'])}, want {site}")
+    prior = before["sites"].get(site, {"dispatches": 0, "buckets": {}})
+    dispatches = rec["dispatches"] - prior["dispatches"]
+    launches = sum(b["dispatches"] * b["cost"]["kernel_launches"] for b in rec["buckets"].values()) \
+        - sum(b["dispatches"] * b["cost"]["kernel_launches"] for b in prior["buckets"].values())
+    counter, kernel = {"padded": ("block_applies", "rga_insert_launches"),
+                       "paged": ("group_applies", "rga_insert_launches"),
+                       "ragged": ("ragged_applies", "ragged_insert_launches")}[layout]
+    want_dispatches = out["block_applies"] if layout == "padded" else s.rounds
+    if dispatches != want_dispatches or launches != out[counter] or launches != out[kernel]:
+        raise AssertionError(f"planes {name}: {site} dispatched {dispatches} (want "
+                             f"{want_dispatches}) with {launches} launches; the session counted "
+                             f"{out[counter]} {counter} and {out[kernel]} {kernel}")
+    real = after["occupancy_totals"]["real_ops"] - before["occupancy_totals"]["real_ops"]
+    if real != s._pad_real_ops or real <= 0:
+        raise AssertionError(f"planes {name}: occupancy real_ops {real}, the session applied "
+                             f"{s._pad_real_ops}")
+    if layout != "padded":
+        pool = dict(after["page_pool"])
+        pool.pop("peak_utilization")
+        if json.loads(json.dumps(pool)) != json.loads(json.dumps(s.store.pool_stats())):
+            raise AssertionError(f"planes {name}: page_pool {pool} != pool_stats() "
+                                 f"{s.store.pool_stats()}")
+    mem = after["memory"]
+    if not mem["available"] or not mem["peak_bytes_in_use"] or \
+            mem["samples"] <= before["memory"]["samples"]:
+        raise AssertionError(f"planes {name}: memory {mem}")
+    for key, bucket in rec["buckets"].items():
+        cost = bucket["cost"] or {}
+        if not cost.get("device_ms") or not cost.get("kernel_bytes") or \
+                set(bucket) != GOLDEN_BUCKET_KEYS:
+            raise AssertionError(f"planes {name}: bucket {key} uncosted: {bucket}")
+    if sentinel.since_mark():
+        raise AssertionError(f"planes {name}: built or loaded {sentinel.since_mark()} after "
+                             "the first round")
+    text = _scrape(server.address, "/metrics")
+    missing = [g for g in GOLDEN_DEVICE_GAUGES + ("peritext_recompiles_total",)
+               if f"# TYPE {g} " not in text]
+    if missing or f'peritext_device_dispatches{{site="{site}"}} {rec["dispatches"]}' not in text \
+            or 'torch="' not in text.splitlines()[1]:
+        raise AssertionError(f"planes {name}: /metrics lacks {missing} or its {site} gauges")
+    snap = json.loads(_scrape(server.address, "/devprof.json"))
+    health = json.loads(_scrape(server.address, "/health.json"))
+    if set(snap) != GOLDEN_DEVPROF_KEYS or set(snap["memory"]) != GOLDEN_MEMORY_KEYS or \
+            any(set(r) != GOLDEN_SITE_KEYS for r in snap["sites"].values()) or \
+            set(health) != {"counters", "histograms", "session", "recompiles", "devprof"} or \
+            set(health["devprof"]) != GOLDEN_DEVPROF_KEYS:
+        raise AssertionError(f"planes {name}: /devprof.json keys {sorted(snap)}, /health.json "
+                             f"keys {sorted(health)}")
+    return dispatches, launches, real
+
+
+def run_device_planes(device, ctx, whole):
+    """Phase 5h, the device planes (:data:`PLANES`): the profiler's
+    overhead on A_frames (ratio of the medians of the rounds' seconds,
+    armed without costs over disarmed, interleaved: a reading, not a
+    gate); A_frames, A_paged_frames and C_frames_ragged with costs
+    captured, each equal to its earlier arm's digest and checked by
+    :func:`_check_planes_session`, with its bucket table printed (device
+    ms against the bytes bound, ``kernel_bytes`` over HBM bandwidth); an
+    armed ``apply_batch_compact`` under :func:`device_time_ms`, which
+    fails if a hook synchronizes; and one ledger record of the phase's
+    rows with the profiler's snapshot, whose device is this card.
+    ``whole`` is the run's build sentinel.  Returns the report and each
+    armed session's launches."""
+    import torch
+
+    from peritext_tpu_torch.obs import GLOBAL_DEVPROF, MetricsServer, RecompileSentinel
+    from peritext_tpu_torch.obs.ledger import evaluate, ledger_record
+    from peritext_tpu_torch.ops import kernel as kernel_mod
+    from peritext_tpu_torch.parallel import streaming as streaming_mod
+
+    cfg = STREAM
+    t_phase = time.perf_counter()
+    arrivals = {"A_frames": (ctx["workloads"], ctx["wire"], ctx["wire_bytes"], ctx["a"]["digest"]),
+                "A_paged_frames": (ctx["workloads"], ctx["wire"], ctx["wire_bytes"],
+                                   ctx["a"]["digest"]),
+                "C_frames_ragged": (ctx["workloads_c"], ctx["wire_c"], ctx["wire_bytes_c"],
+                                    ctx["cf"]["digest"])}
+    captured = {}
+
+    def capture_compact(*args, **kw):
+        if "args" not in captured:
+            captured.update(args=[a.clone() if torch.is_tensor(a) else a for a in args[1:]],
+                            state=type(args[0])(*(x.clone() for x in args[0])), kw=kw)
+        return kernel_mod.apply_batch_compact(*args, **kw)
+
+    # the overhead pairs: the same session, disarmed and armed without costs
+    seconds = {"disarmed": [], "armed": []}
+    workloads, wire, wire_bytes, digest = arrivals["A_frames"]
+    streaming_mod.apply_batch_compact = capture_compact
+    try:
+        for i in range(PLANES["overhead_pairs"]):
+            for armed in ((False, True) if i % 2 == 0 else (True, False)):
+                GLOBAL_DEVPROF.reset()
+                if armed:
+                    GLOBAL_DEVPROF.enable(capture_costs=False)
+                try:
+                    _, out = run_stream_session(device, cfg, workloads, wire,
+                                                f"A_frames_{'armed' if armed else 'disarmed'}_{i}",
+                                                wire_bytes=wire_bytes)
+                finally:
+                    GLOBAL_DEVPROF.disable()
+                if out["digest"] != digest:
+                    raise AssertionError(f"planes: A_frames armed={armed} digest differs from A's")
+                st = out["stage_seconds"]
+                seconds["armed" if armed else "disarmed"].append(
+                    st["ingest"] + st["schedule"] + st["apply"])
+    finally:
+        streaming_mod.apply_batch_compact = kernel_mod.apply_batch_compact
+    ratio = float(np.median(seconds["armed"]) / np.median(seconds["disarmed"]))
+    log(f"planes overhead: A_frames rounds armed (costs off) {seconds['armed']} s, disarmed "
+        f"{seconds['disarmed']} s; ratio of medians {ratio:.4f}")
+
+    # no hook synchronizes: the armed compact call keeps the host ahead
+    GLOBAL_DEVPROF.reset()
+    GLOBAL_DEVPROF.enable(capture_costs=False)
+    try:
+        args, kw, state = captured["args"], captured["kw"], captured["state"]
+        call = lambda: kernel_mod.apply_batch_compact(state, *args, **kw)  # noqa: E731
+        armed_ms = device_time_ms(call, PLANES["sync_reps"])
+        calls = GLOBAL_DEVPROF.snapshot()["sites"]["apply_batch_compact"]["dispatches"]
+    finally:
+        GLOBAL_DEVPROF.disable()
+    disarmed_ms = device_time_ms(call, PLANES["sync_reps"])
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    log(f"planes sync: armed apply_batch_compact {armed_ms:.6f} ms device time with the host "
+        f"ahead over {calls} profiled calls (disarmed {disarmed_ms:.6f} ms); one call runs "
+        f"{kernels} device events (torch.profiler)")
+
+    # the armed sessions, costs captured, server mounted
+    GLOBAL_DEVPROF.reset()
+    GLOBAL_DEVPROF.enable(capture_costs=True)
+    sentinel = RecompileSentinel().start()
+    server = None
+    rows, table, launches = [], [], {}
+    try:
+        for name, layout, site in PLANES["sessions"]:
+            workloads, wire, wire_bytes, digest = arrivals[name]
+            before = GLOBAL_DEVPROF.snapshot()
+            t0 = time.perf_counter()
+            s, out = run_stream_session(
+                device, cfg, workloads, wire, f"{name}_armed", wire_bytes=wire_bytes,
+                after_round=lambda s, r: sentinel.mark() if r == 0 else None, layout=layout)
+            if out["digest"] != digest:
+                raise AssertionError(f"planes {name}: the armed session's digest differs")
+            after = GLOBAL_DEVPROF.snapshot()
+            server = MetricsServer(devprof=GLOBAL_DEVPROF, sentinel=sentinel, session=s)
+            server.start()
+            dispatches, n_launch, real = _check_planes_session(
+                name, layout, site, s, out, before, after, sentinel, server)
+            server.stop()
+            server = None
+            launches[name] = n_launch
+            for key, b in sorted(after["sites"][site]["buckets"].items()):
+                if key in before["sites"].get(site, {}).get("buckets", {}):
+                    continue
+                cost = b["cost"]
+                table.append(dict(session=name, site=site, bucket=key,
+                                  dispatches=b["dispatches"], launches=cost["kernel_launches"],
+                                  device_ms=cost["device_ms"], kernel_bytes=cost["kernel_bytes"],
+                                  bytes_bound_ms=cost["kernel_bytes"] / HBM_BYTES_PER_S * 1e3,
+                                  peak_bytes=b["memory"]["peak_bytes"]))
+            rows.append(dict(row=name, metric="session_ops_per_s", value=out["ops_per_second"],
+                             unit="ops/s", docs=len(workloads), ops_per_doc=cfg["ops"],
+                             rounds=cfg["rounds"]))
+            log(f"planes {name}: {site} {dispatches} calls, {n_launch} launches = "
+                f"{out['rga_insert_launches'] + out['ragged_insert_launches']} kernel launches; "
+                f"occupancy real ops {real}; memory peak {after['memory']['peak_bytes_in_use']} "
+                f"bytes; endpoints ok; {time.perf_counter() - t0:.2f} s")
+            del s
+        snap = GLOBAL_DEVPROF.snapshot()
+    finally:
+        if server is not None:
+            server.stop()
+        sentinel.stop()
+        GLOBAL_DEVPROF.disable()
+        GLOBAL_DEVPROF.reset()
+    for row in table:
+        log("planes bucket", json.dumps(row))
+    record = ledger_record(rows, config="chip_smoke.planes", devprof=snap)
+    if record["device"]["platform"] != "gpu" or \
+            record["device"]["kind"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"planes: ledger device {record['device']}")
+    verdicts = evaluate([record])
+    report = dict(overhead_ratio=ratio, overhead_seconds=seconds, sync_armed_ms=armed_ms,
+                  sync_disarmed_ms=disarmed_ms, call_device_events=kernels, buckets=len(table),
+                  launches=launches,
+                  ledger=dict(device=record["device"], sha=record["sha"], rows=record["rows"],
+                              statuses=[v["status"] for v in verdicts["rows"]]),
+                  sentinel=dict(counts=sentinel.counts, whole_run=dict(whole.counts)),
+                  seconds=time.perf_counter() - t_phase)
+    log("planes", json.dumps(report))
+    return report, launches
 
 
 def round_need(workloads):
@@ -2480,6 +2751,8 @@ def run_fleet(device, workloads, capture, flight_dir):
         merge_flight_dumps,
     )
     from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.parallel.anti_entropy import ChangeStore
+    from peritext_tpu_torch.parallel.multihost import ReplicaServer
     from peritext_tpu_torch.serve import (
         ADMIT,
         SHED,
@@ -2687,6 +2960,19 @@ def run_fleet(device, workloads, capture, flight_dir):
             if host.mux.read(host.session_of(keys[d])) != \
                     _oracle_doc(workloads[d]).get_text_with_formatting(["text"]):
                 raise AssertionError(f"fleet_2048: {keys[d]} differs from the oracle")
+        # the frontend's metrics mount: one /fleet.json scrape after the heal
+        replica = ReplicaServer(ChangeStore(), metrics_port=0, fleet=fe)
+        replica.start()
+        try:
+            t_scrape = time.perf_counter()
+            body = json.loads(_scrape(replica.metrics_address, "/fleet.json"))
+            scrape = dict(seconds=time.perf_counter() - t_scrape, hosts=len(body["hosts"]),
+                          docs=body["router"]["docs"], failovers=body["failovers"])
+        finally:
+            replica.stop()
+        if scrape["failovers"] != fe.failovers or scrape["docs"] != len(keys) or \
+                set(body["hosts"]) != set(fe.hosts) or body["rounds"] != fe.rounds:
+            raise AssertionError(f"fleet_2048: /fleet.json reads {scrape}, rounds {body['rounds']}")
         ships = {c.split(".", 1)[1]: int(GLOBAL_COUNTERS.get(c) - c0[c]) for c in counters}
         report = dict(
             docs=len(keys), frames=n_frames, hosts=cfg["hosts"], victim=victim,
@@ -2697,7 +2983,8 @@ def run_fleet(device, workloads, capture, flight_dir):
             migration_rollbacks=fe.migration_rollbacks, rebalance_moves=len(rebalanced),
             resubmitted=retried, verdicts=stats.to_json(), acked_survived=len(sample),
             ships=ships, checkpoint_ships=fe.checkpoint_ships, rounds=fe.rounds,
-            incidents=incidents, launches=delta, check_seconds=time.perf_counter() - t1,
+            incidents=incidents, fleet_json=scrape, launches=delta,
+            check_seconds=time.perf_counter() - t1,
             seconds=time.perf_counter() - t_phase)
     finally:
         fe.stop()
@@ -2805,7 +3092,7 @@ def run_chaos_phase(device, trace_dir):
     episode("host_kill_failover", lambda: chaos.run_host_kill_failover(
         failover.pop("seed"), device=device, **failover), "session")
     episode("fleet_heal", lambda: chaos.run_fleet_chaos(
-        cfg["fleet_heal"]["seed"], hosts=cfg["fleet_heal"]["hosts"], metrics=False), "none")
+        cfg["fleet_heal"]["seed"], hosts=cfg["fleet_heal"]["hosts"], metrics=True), "none")
     diff = cfg["differential"]
     padded = DocBatch(device=device, **diff["capacities"])
     ragged = DocBatch(device=device, layout="ragged", **diff["capacities"])
@@ -2933,10 +3220,14 @@ def run_all(device, jobs, ckpt_root) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
+    from peritext_tpu_torch.obs import RecompileSentinel
     from peritext_tpu_torch.utils.nvcc import build_libraries
 
     from peritext_tpu_torch import native
 
+    # the whole run's build sentinel: every library built at most once and
+    # loaded exactly once, whatever the doc mix
+    whole = RecompileSentinel().start()
     t0 = time.perf_counter()
     libs = build_libraries(["insert", "ragged_insert"])
     log(f"build: {time.perf_counter() - t0:.2f} s")
@@ -2960,12 +3251,16 @@ def run_all(device, jobs, ckpt_root) -> int:
     capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx, jobs["essay"],
                                                                        ckpts)
     stream_reports += layout_reports
+    log(f"streaming layouts done at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    _, planes_launches = run_device_planes(device, ctx, whole)
+    log(f"device planes done at {time.perf_counter() - t_start:.1f} s "
+        f"(phase 5h {time.perf_counter() - t0:.1f} s)")
     sup = dict(workloads=ctx["workloads"], wire=ctx["wire"], digest=ctx["a"]["digest"],
                spans=ctx["a"]["spans"])
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"streaming layouts done at {time.perf_counter() - t_start:.1f} s")
 
     capture_bridge = {}
     bridge_paths = {"bridge_pm_fixtures": run_pm_fixtures()["rga_insert"]}
@@ -3099,6 +3394,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths["guarded_merge"] = guarded_launches
     rga_paths.update(serve_paths)
     rga_paths.update(chaos_paths["rga_insert"])
+    rga_paths.update({f"planes_{n}": k for n, k in planes_launches.items() if n != "C_frames_ragged"})
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})
@@ -3106,6 +3402,7 @@ def run_all(device, jobs, ckpt_root) -> int:
                          for r in restores if r["layout"] == "ragged"})
     ragged_paths["fused_2048"] = fused_ragged
     ragged_paths.update(chaos_paths["ragged_insert"])
+    ragged_paths["planes_C_frames_ragged"] = planes_launches["C_frames_ragged"]
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),
@@ -3115,6 +3412,14 @@ def run_all(device, jobs, ckpt_root) -> int:
                     pooled_launches["ragged"]["ragged_insert"], ragged_rows),
              launches_by_path=ragged_paths),
     ]
+    whole.stop()
+    log(f"build sentinel, whole run: builds {json.dumps(whole.builds)}, loads "
+        f"{json.dumps(whole.loads)}")
+    libraries = {"insert", "ragged_insert", "native"}
+    if whole.loads != dict.fromkeys(libraries, 1) or set(whole.builds) - libraries or \
+            any(n != 1 for n in whole.builds.values()):
+        raise AssertionError(f"build sentinel: builds {whole.builds}, loads {whole.loads}: each "
+                             "library must load once and build at most once")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

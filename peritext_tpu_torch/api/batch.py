@@ -44,7 +44,7 @@ import torch
 
 from ..core.doc import Doc
 from ..core.types import Change, FormatSpan
-from ..obs import GLOBAL_COUNTERS, MergeStats, stage_timer
+from ..obs import GLOBAL_COUNTERS, GLOBAL_DEVPROF, MergeStats, occupancy_key, stage_timer
 from ..ops.decode import decode_block_spans, decode_doc_root
 from ..ops.encode import EncodedBatch, _DocStreams, encode_doc_streams, encode_workloads, pad_doc_streams
 from ..ops.kernel import apply_batch, encoded_arrays_of
@@ -177,10 +177,18 @@ class DocBatch:
             state = self.apply_encoded(encoded)
         with stage_timer(stats, "resolve_seconds", self.device):
             group = self._resolve_group(np.arange(encoded.num_docs), encoded, state)
-        capacity = encoded.num_docs * sum(_stream_widths(encoded))
+        widths = _stream_widths(encoded)
+        capacity = encoded.num_docs * sum(widths)
         stats.padding_efficiency = (
             float(encoded.num_ops.sum()) / capacity if capacity else 0.0
         )
+        if GLOBAL_DEVPROF.enabled:
+            # one-shot batch merges land in the same occupancy table as
+            # streaming rounds, keyed by their padded stream widths
+            GLOBAL_DEVPROF.observe_round(
+                occupancy_key(encoded.num_docs, *widths), int(encoded.num_ops.sum()), capacity,
+                origin="batch.merge")
+            GLOBAL_DEVPROF.sample_memory(self.device)
         return [group]
 
     # -- pooled layouts (store/) ---------------------------------------------
@@ -251,8 +259,13 @@ class DocBatch:
                 store.apply_rows(docs, g, group_stream_arrays(enc, None, b, self.device),
                                  pad_rows_to=b)
                 # what the dispatched group paid: b padded rows
-                capacity += b * sum(_stream_widths(enc))
+                widths = _stream_widths(enc)
+                capacity += b * sum(widths)
                 real_ops += int(enc.num_ops.sum())
+                if GLOBAL_DEVPROF.enabled:
+                    GLOBAL_DEVPROF.observe_round(
+                        occupancy_key(b, *widths), int(enc.num_ops.sum()), b * sum(widths),
+                        origin="batch.merge.paged")
         with stage_timer(stats, "resolve_seconds", self.device):
             groups = [
                 self._resolve_group(docs, enc,
@@ -293,12 +306,21 @@ class DocBatch:
         with stage_timer(stats, "apply_seconds", self.device):
             store, plan = self._ragged_store(enc)
             self.last_store = store
+            ins_counts = stream_counts(enc)[0]
             apply_batch_ragged(
                 store.pool_elem, store.pool_char, store.aux, *plan_arrays(plan, self.device),
                 group_stream_arrays(enc, None, enc.num_docs, self.device),
-                torch.from_numpy(stream_counts(enc)[0]).to(self.device),
-                page_count_host=plan.page_count,
+                torch.from_numpy(ins_counts).to(self.device),
+                page_count_host=plan.page_count, ins_counts_host=ins_counts,
             )
+            if GLOBAL_DEVPROF.enabled:
+                # ragged pays real ops only: capacity IS the real work
+                real = int(enc.num_ops.sum())
+                GLOBAL_DEVPROF.observe_round(
+                    occupancy_key(enc.num_docs, *_stream_widths(enc)), real, max(real, 1),
+                    origin="batch.merge.ragged")
+                GLOBAL_DEVPROF.observe_ragged(docs_walked=plan.docs_walked,
+                                              pages_walked=plan.pages_walked, real_ops=real)
         with stage_timer(stats, "resolve_seconds", self.device):
             # one dense block at the batch's true widest page count
             state = store.materialize_rows(plan.row_idx, max(1, int(plan.page_count.max(initial=0))))
@@ -471,10 +493,15 @@ def _stream_widths(enc: EncodedBatch):
 
 
 def _pool_extras(stats: MergeStats, layout_key: str, store: PagedDocStore) -> None:
+    """A pooled merge's pool figures in ``stats.extras`` (and, profiled,
+    the device profiler's page-pool section and a memory sample)."""
     pool = store.pool_stats()
     stats.extras[layout_key] = 1.0
     stats.extras["page_pool_utilization"] = pool["pool_utilization"]
     stats.extras["page_internal_frag_ratio"] = pool["internal_frag_ratio"]
+    if GLOBAL_DEVPROF.enabled:
+        GLOBAL_DEVPROF.observe_page_pool(pool)
+        GLOBAL_DEVPROF.sample_memory(store.device)
 
 
 def _oracle_doc(workload: Workload) -> Doc:

@@ -10,13 +10,16 @@ pure-Python fallbacks: every entry point has one, and both give the same
 arrays.  This is host code; the card is not involved.
 
 ``calls`` counts the native calls made per entry point, so a run can show
-that the library, and not a fallback, served it.
+that the library, and not a fallback, served it.  The build and the load
+each log one record on the ``peritext_tpu_torch.kernels`` logger, which
+``obs.RecompileSentinel`` counts.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import subprocess
 import threading
@@ -31,6 +34,8 @@ _FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: build and load records, as utils/nvcc.py logs them (obs/sentinel.py)
+_log = logging.getLogger("peritext_tpu_torch.kernels")
 _tried = False
 
 #: native calls per entry point (``causal_schedule``, ``parse_frames``,
@@ -60,6 +65,7 @@ def _compile() -> Optional[Path]:
     # rename installs the hash-keyed artifact.
     tmp = out.with_name(f".{out.stem}.{os.getpid()}.tmp")
     cmd = ["g++", *_FLAGS, str(_SRC), "-o", str(tmp)]
+    _log.info("Building native with g++ into %s", out.name)
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, out)
@@ -84,6 +90,7 @@ def load() -> Optional[ctypes.CDLL]:
         path = _compile()
         if path is None:
             return None
+        _log.info("Loading native from %s", path.name)
         try:
             lib = ctypes.CDLL(str(path))
         except OSError:

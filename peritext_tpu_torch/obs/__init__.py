@@ -21,11 +21,29 @@
   correlated across the other planes' snapshots, their wire summary, and
   the merge of per-host flight dumps into one timeline;
 * :mod:`.events` — the structured event log and ``profile_trace``, a
-  ``torch.profiler`` capture of a block.
+  ``torch.profiler`` capture of a block;
+* :mod:`.devprof` — the device planes' profiler (:data:`GLOBAL_DEVPROF`,
+  off by default): per launch site (``apply_batch``,
+  ``apply_batch_paged``, ``apply_batch_paged_groups``,
+  ``apply_batch_compact``, ``apply_batch_ragged``) a table of shape and
+  launch-plan buckets with each bucket's first call costed (device ms by
+  CUDA events, the bytes its insert launches must move, the launches),
+  per padded-shape bucket the occupancy, the page pool and the ragged
+  walk, and the CUDA allocator's memory watermarks;
+* :mod:`.sentinel` — :class:`RecompileSentinel`, which counts kernel
+  library builds and loads per library;
+* :mod:`.ledger` — the append-only JSONL perf ledger (rows + devprof
+  snapshots keyed by git sha, device fingerprint and config) and its
+  rolling-reference gate (:func:`~.ledger.evaluate`), which
+  :func:`~.latency.attribute` explains stage by stage;
+* :mod:`.exporters` — the Prometheus text exposition
+  (:func:`prometheus_text`) and :class:`MetricsServer`, the HTTP endpoint
+  ``ReplicaServer(metrics_port=)`` mounts (``/metrics``, ``/health.json``,
+  ``/devprof.json``, ``/serve.json``, ``/fleet.json`` and the other
+  planes' JSON routes).
 
-Every plane is host-side: none synchronizes the card.  The device planes
-(a cost and memory profiler, a build sentinel, the perf ledger) are still
-to port.
+The host planes never synchronize the card; the profiler's hooks neither
+(its CUDA events are read in ``snapshot()``, the read point).
 """
 
 from .convergence import (
@@ -37,6 +55,12 @@ from .convergence import (
     PeerLag,
     clock_delta_ops,
     clocks_equal,
+)
+from .devprof import (
+    DeviceProfiler,
+    GLOBAL_DEVPROF,
+    note_launch,
+    occupancy_key,
 )
 from .events import EventLog, profile_trace
 from .histograms import (
@@ -51,10 +75,12 @@ from .latency import (
     GLOBAL_LATENCY,
     LatencyPlane,
     STAGES,
+    attribute,
     check_sum_consistency,
 )
 from .metrics import Counters, GLOBAL_COUNTERS, health_snapshot
 from .recorder import FlightRecorder
+from .sentinel import RecompileSentinel
 from .spans import (
     GLOBAL_TRACER,
     Span,
@@ -72,15 +98,18 @@ from .timeseries import (
     occupancy_distribution,
     replay_segments,
 )
+from .exporters import MetricsServer, prometheus_text
 
 __all__ = [
     "CONVERGED",
     "ConvergenceMonitor",
     "Counters",
+    "DeviceProfiler",
     "DIVERGENCE",
     "DivergenceIncident",
     "EventLog",
     "FlightRecorder",
+    "GLOBAL_DEVPROF",
     "GLOBAL_COUNTERS",
     "GLOBAL_HISTOGRAMS",
     "GLOBAL_HISTORY",
@@ -94,7 +123,9 @@ __all__ = [
     "LATENCY_BUCKETS_S",
     "LatencyPlane",
     "MergeStats",
+    "MetricsServer",
     "PeerLag",
+    "RecompileSentinel",
     "SIZE_BUCKETS",
     "STAGES",
     "TAXONOMY",
@@ -104,6 +135,7 @@ __all__ = [
     "Tracer",
     "ambient_parent",
     "anomaly_kind",
+    "attribute",
     "clock_delta_ops",
     "clocks_equal",
     "check_sum_consistency",
@@ -111,8 +143,11 @@ __all__ = [
     "health_snapshot",
     "merge_flight_dumps",
     "merge_traces",
+    "note_launch",
+    "occupancy_key",
     "occupancy_distribution",
     "profile_trace",
+    "prometheus_text",
     "replay_segments",
     "stage_timer",
 ]

@@ -43,9 +43,10 @@ agrees with their own.
 
 Off by default: nothing arms a monitor implicitly, arming one builds and
 launches no kernel (pure-Python bookkeeping), and feeding it costs a few
-dict walks per round.  ``observe_sentinel`` and ``observe_perf`` take any
-object or dict of the documented shape: the device planes that produce them
-are still to port.
+dict walks per round.  ``observe_sentinel`` takes a
+:class:`~.sentinel.RecompileSentinel` (or any object or dict with a
+``total``) and ``observe_perf`` a :func:`~.ledger.evaluate` report (or
+any mapping of that shape).
 """
 
 from __future__ import annotations

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 from .histograms import Histogram
 
@@ -333,3 +333,163 @@ class LatencyPlane:
 #: default process-wide plane — off until ``GLOBAL_LATENCY.enable()``
 #: (every serve-tier hook checks ``enabled``)
 GLOBAL_LATENCY = LatencyPlane()
+
+
+# -- attribution ---------------------------------------------------------------
+
+
+def _devprof_shape(dp: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """Collapse a devprof snapshot to the three deltas attribution cites:
+    total distinct shape buckets, total dispatches, padding waste."""
+    if not isinstance(dp, dict):
+        return None
+    sites = dp.get("sites") or {}
+    occ = dp.get("occupancy_totals") or {}
+    return {
+        "distinct_shapes": sum(
+            int(r.get("distinct_shapes", 0)) for r in sites.values()
+        ),
+        "dispatches": sum(
+            int(r.get("dispatches", 0)) for r in sites.values()
+        ),
+        "padding_waste": occ.get("padding_waste"),
+    }
+
+
+def attribute(
+    records: Sequence[Dict[str, Any]],
+    *,
+    row: Optional[str] = None,
+    window: Optional[int] = None,
+    match: str = "device",
+    tolerance: Optional[float] = None,
+) -> Dict[str, Any]:
+    """The attribution engine: judge the ledger's last record with the
+    perf gate (:func:`~.ledger.evaluate`), then explain WHAT moved.
+
+    Picks the failing row (or ``row`` explicitly), diffs its per-stage
+    ``latency`` decomposition against the per-stage MEDIAN over the prior
+    matching records, attaches the devprof shape/occupancy deltas, and
+    names the dominant moved stage: the largest positive per-stage delta,
+    ties broken by :data:`STAGES` order (earliest wins) — same inputs,
+    same verdict, always.
+
+    Verdicts: ``clean`` (gate passes), ``regression-attributed`` (a stage
+    moved up), ``regression-unattributed`` (a regression whose
+    decomposition shows no stage moving — look outside the latency
+    plane), ``no-decomposition`` (candidate or reference rows carry no
+    ``latency``).
+    """
+    from . import ledger as _ledger
+
+    window = window if window is not None else _ledger.DEFAULT_WINDOW
+    report = _ledger.evaluate(
+        records, tolerance=tolerance, window=window, match=match,
+    )
+    verdicts = report["rows"]
+    target = None
+    if row is not None:
+        target = next((v for v in verdicts if v["row"] == row), None)
+        if target is None:
+            raise ValueError(f"row {row!r} not in the candidate record")
+    else:
+        bad = [v for v in verdicts
+               if v["status"] in ("regressed", "failed", "missing")]
+        # prefer a failing row that CAN be decomposed; deterministic:
+        # verdict order is the candidate record's row order
+        target = next((v for v in bad if v.get("latency")), None) \
+            or (bad[0] if bad else None)
+    out: Dict[str, Any] = {
+        "regressed": bool(report["regressed"]),
+        "candidate": report["candidate"],
+        "reference_records": report["reference_records"],
+        "rows": verdicts,
+    }
+    if target is None:
+        out.update(verdict="clean", row=None)
+        return out
+    out.update(
+        row=target["row"], status=target["status"], unit=target["unit"],
+        value=target["value"], ref=target["ref"],
+        delta=target.get("delta"), delta_pct=target.get("delta_pct"),
+    )
+
+    candidate = records[-1]
+    cand_config = candidate.get("config")
+    cand_dev = candidate.get("device")
+    crow = next(
+        (r for r in candidate.get("rows", []) if r.get("row") == target["row"]),
+        None,
+    )
+    cand_lat = (crow or {}).get("latency")
+    cand_stages = (
+        cand_lat.get("stages_ms") if isinstance(cand_lat, dict) else None
+    )
+    ident = (
+        _ledger._row_identity(cand_config, crow) if crow is not None else None
+    )
+    level = _ledger._match_level((crow or {}).get("unit") or "", match)
+    priors = [r for r in records[:-1]
+              if _ledger._device_matches(r.get("device"), cand_dev, level)]
+    ref_lats = [
+        pr["latency"]
+        for rec in priors
+        for pr in rec.get("rows", [])
+        if _ledger._row_identity(rec.get("config"), pr) == ident
+        and isinstance(pr.get("latency"), dict)
+        and isinstance(pr["latency"].get("stages_ms"), dict)
+    ][-window:]
+    ref_stages: Dict[str, float] = {}
+    for stage in STAGES:
+        vals = [
+            float(rl["stages_ms"][stage]) for rl in ref_lats
+            if isinstance(rl["stages_ms"].get(stage), (int, float))
+        ]
+        if vals:
+            ref_stages[stage] = round(_ledger._median(vals), 4)
+    out["reference_latency_records"] = len(ref_lats)
+    out["candidate_stages_ms"] = cand_stages
+    out["reference_stages_ms"] = ref_stages or None
+
+    # devprof evidence: candidate snapshot vs the newest prior that has one
+    cand_dp = _devprof_shape(candidate.get("devprof"))
+    ref_dp = next(
+        (_devprof_shape(r.get("devprof")) for r in reversed(priors)
+         if _devprof_shape(r.get("devprof")) is not None),
+        None,
+    )
+    if cand_dp is not None and ref_dp is not None:
+        delta_dp = {}
+        for key in ("distinct_shapes", "dispatches", "padding_waste"):
+            a, b = cand_dp.get(key), ref_dp.get(key)
+            delta_dp[key] = (
+                round(a - b, 6) if isinstance(a, (int, float))
+                and isinstance(b, (int, float)) else None
+            )
+        out["devprof"] = {
+            "candidate": cand_dp, "reference": ref_dp, "delta": delta_dp,
+        }
+    else:
+        out["devprof"] = None
+
+    if not cand_stages or not ref_stages:
+        out.update(verdict="no-decomposition", dominant_stage=None,
+                   stage_deltas_ms=None)
+        return out
+    deltas = {
+        s: round(float(cand_stages[s]) - ref_stages[s], 4)
+        for s in STAGES if s in cand_stages and s in ref_stages
+    }
+    dominant = None
+    best = 0.0
+    for s in STAGES:  # taxonomy order: strict > keeps the EARLIEST on ties
+        d = deltas.get(s)
+        if d is not None and d > best:
+            best, dominant = d, s
+    out["stage_deltas_ms"] = deltas
+    out["dominant_stage"] = dominant
+    out["verdict"] = (
+        "regression-attributed" if dominant is not None
+        else "regression-unattributed"
+    )
+    return out

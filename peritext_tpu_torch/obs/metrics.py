@@ -59,7 +59,7 @@ GLOBAL_COUNTERS = Counters()
 #: counter/histogram namespaces that make up the fault-domain health surface
 _HEALTH_PREFIXES = ("streaming.", "transport.", "supervisor.", "merge.",
                     "jit.", "convergence.", "serve.", "fleet.", "plan.",
-                    "incident.")
+                    "incident.", "kernel.")
 
 
 def health_snapshot(
@@ -86,10 +86,13 @@ def health_snapshot(
     ``health()``), ``recorder`` (a :class:`~.recorder.FlightRecorder`),
     ``serve`` (a :class:`~..serve.SessionMux`), ``latency`` (a
     :class:`~.latency.LatencyPlane`), ``history`` (a
-    :class:`~.timeseries.TimeSeriesPlane` or a dict).  The other keywords
-    take any object with the same ``snapshot()`` (``sentinel`` its
-    ``counts`` and ``total``) or, for ``plan`` and ``mesh``, a dict: the
-    planes they name are still to port.  Everything in the snapshot is
+    :class:`~.timeseries.TimeSeriesPlane` or a dict), ``devprof`` (a
+    :class:`~.devprof.DeviceProfiler`), ``sentinel`` (a
+    :class:`~.sentinel.RecompileSentinel`: its per-library ``counts`` and
+    ``total`` under ``recompiles``; its ``kernel.*`` counters land under
+    ``counters``).  The other keywords take any object with the same
+    ``snapshot()`` or, for ``plan`` and ``mesh``, a dict (the planner and
+    the device mesh are still to port).  Everything in the snapshot is
     JSON-serializable."""
     from .histograms import GLOBAL_HISTOGRAMS
 

@@ -143,6 +143,15 @@ def insert_teams(num_docs: int, s_loop: int, smem_budget: int, sms: int) -> List
     return plan_teams(np.full(num_docs, s_loop, np.int64), smem_budget, sms)
 
 
+def insert_batch_bytes(num_docs: int, s_cap: int, k: int) -> int:
+    """Bytes one :func:`insert_batch` call must move on (D, S) state planes
+    and (D, K) streams: the two state planes, ``num_slots`` and
+    ``overflow`` read once and written once, and the three streams read
+    once.  A host function of shapes alone: the bound column of the card
+    smoke and the device profiler's ``kernel_bytes`` share it."""
+    return 2 * (num_docs * s_cap * 4 * 2 + num_docs * 4 + num_docs) + 3 * num_docs * k * 4
+
+
 def _check(elem_id, char, num_slots, overflow, ins_ref, ins_op, ins_char) -> None:
     if elem_id.dim() != 2:
         raise ValueError(f"elem_id must be (D, S), got {tuple(elem_id.shape)}")

@@ -19,6 +19,13 @@ per-doc function; here the doc axis is a batch dimension written out):
 A reference element that cannot be found, or a capacity overflow, sets the
 doc's ``overflow`` flag; the API layer falls back to the scalar oracle for
 flagged docs.
+
+The public entry points (:func:`apply_batch`, :func:`apply_batch_paged`,
+:func:`apply_batch_paged_groups`, :func:`apply_batch_compact`) are the
+device profiler's launch sites (obs/devprof.py): with
+``GLOBAL_DEVPROF.enabled`` each call lands in a bucket keyed by its tensor
+shapes, its statics and its insert launch plan (:func:`_insert_plan`,
+host arithmetic only).  Disabled, the cost is one attribute check.
 """
 
 from __future__ import annotations
@@ -28,9 +35,29 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from ..obs.devprof import GLOBAL_DEVPROF, note_launch, plan_static
 from .encode import MARK_COLS, EncodedBatch
-from .insert import insert_batch
+from .insert import (
+    SMEM_BUDGET,
+    effective_loop_slots,
+    insert_batch,
+    insert_batch_bytes,
+    insert_teams,
+    num_sms,
+)
 from .packed import MAP_STREAM_COLS, PackedDocs
+
+
+def _insert_plan(num_docs: int, s_cap: int, k: int, loop_slots: Optional[int],
+                 device: torch.device):
+    """``(teams, kernel_bytes)`` of one insert phase on (D, S) state and
+    (D, K) streams: the launch plan :func:`~.insert.insert_batch` follows
+    on a card (none on the CPU, where the plain version runs) and the bytes
+    it must move (:func:`~.insert.insert_batch_bytes`)."""
+    teams = (insert_teams(num_docs, effective_loop_slots(s_cap, loop_slots), SMEM_BUDGET,
+                          num_sms(device))
+             if device.type == "cuda" else [])
+    return teams, insert_batch_bytes(num_docs, s_cap, k)
 
 
 def _append_rows(tables: Dict[str, torch.Tensor], count, rows: Dict[str, torch.Tensor],
@@ -138,7 +165,7 @@ def _apply_maps(state: PackedDocs, maps: Dict[str, torch.Tensor], map_count) -> 
 
 def apply_batch(state: PackedDocs, encoded_arrays, *,
                 insert_loop_slots: Optional[int] = None) -> PackedDocs:
-    """Batched apply of every phase.
+    """Batched apply of every phase (the ``apply_batch`` launch site).
 
     ``encoded_arrays`` is the tuple (ins_ref, ins_op, ins_char, del_target,
     marks_dict, mark_count[, maps_dict, map_count]) with leading doc axes,
@@ -149,6 +176,21 @@ def apply_batch(state: PackedDocs, encoded_arrays, *,
 
     The insert phase launches the CUDA kernel when the state lies on the
     card and runs its plain torch version when it lies on the CPU."""
+    if GLOBAL_DEVPROF.enabled:
+        device = state.elem_id.device
+        teams, nbytes = _insert_plan(*state.elem_id.shape, encoded_arrays[1].shape[1],
+                                     insert_loop_slots, device)
+        return note_launch(
+            "apply_batch", (state, encoded_arrays),
+            (("insert_loop_slots", insert_loop_slots), ("plan", plan_static(teams))),
+            lambda: _apply_batch(state, encoded_arrays, insert_loop_slots),
+            device=device, kernel_launches=len(teams), kernel_bytes=nbytes,
+        )
+    return _apply_batch(state, encoded_arrays, insert_loop_slots)
+
+
+def _apply_batch(state: PackedDocs, encoded_arrays,
+                 insert_loop_slots: Optional[int]) -> PackedDocs:
     if len(encoded_arrays) == 6:
         ins_ref, ins_op, ins_char, del_target, marks, mark_count = encoded_arrays
         maps, map_count = None, None
@@ -205,9 +247,32 @@ def apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arr
     page), and ``encoded_arrays`` the streams with (B, ...) doc axes.
     Updates the pool tensors and the ``aux`` tensors (PAGED_AUX_FIELDS
     order) in place: the store owns them, and a copy of the whole pool per
-    group would cost its size in memory traffic."""
-    state = apply_batch(paged_state_of(pool_elem, pool_char, aux, row_idx, page_rows),
-                        encoded_arrays)
+    group would cost its size in memory traffic.  The
+    ``apply_batch_paged`` launch site."""
+    if GLOBAL_DEVPROF.enabled:
+        teams, nbytes = _paged_plan(pool_elem, page_rows, encoded_arrays)
+        note_launch(
+            "apply_batch_paged", (pool_elem, pool_char, aux, row_idx, page_rows, encoded_arrays),
+            (("plan", plan_static(teams)),),
+            lambda: _apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows,
+                                       encoded_arrays),
+            device=pool_elem.device, kernel_launches=len(teams), kernel_bytes=nbytes,
+            written=(pool_elem, pool_char, aux),
+        )
+        return
+    _apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arrays)
+
+
+def _paged_plan(pool_elem, page_rows, encoded_arrays):
+    """:func:`_insert_plan` of one page group: (B, G*P) state."""
+    b, g = page_rows.shape
+    return _insert_plan(b, g * pool_elem.shape[1], encoded_arrays[1].shape[1], None,
+                        pool_elem.device)
+
+
+def _apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arrays) -> None:
+    state = _apply_batch(paged_state_of(pool_elem, pool_char, aux, row_idx, page_rows),
+                         encoded_arrays, None)
     b, g = page_rows.shape
     p = pool_elem.shape[1]
     pages = page_rows.reshape(-1).long()
@@ -230,7 +295,24 @@ def apply_batch_paged_groups(pool_elem, pool_char, aux, group_inputs) -> None:
     ``(row_idx, page_rows, encoded_arrays)`` of ``group_inputs`` is one
     :func:`apply_batch_paged` (one insert launch), with the group's own
     window, writing the pool and aux tensors in place before the next
-    group reads them."""
+    group reads them.  The ``apply_batch_paged_groups`` launch site: the
+    groups' launches are this call's."""
+    group_inputs = tuple(group_inputs)
+    if GLOBAL_DEVPROF.enabled:
+        plans = [_paged_plan(pool_elem, page_rows, arrays) for _, page_rows, arrays in group_inputs]
+        teams = [t for group_teams, _ in plans for t in group_teams]
+        note_launch(
+            "apply_batch_paged_groups", (pool_elem, pool_char, aux, group_inputs),
+            (("plan", plan_static(teams)),),
+            lambda: _apply_groups(pool_elem, pool_char, aux, group_inputs),
+            device=pool_elem.device, kernel_launches=len(teams),
+            kernel_bytes=sum(nbytes for _, nbytes in plans), written=(pool_elem, pool_char, aux),
+        )
+        return
+    _apply_groups(pool_elem, pool_char, aux, group_inputs)
+
+
+def _apply_groups(pool_elem, pool_char, aux, group_inputs) -> None:
     for row_idx, page_rows, encoded_arrays in group_inputs:
         apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arrays)
 
@@ -268,7 +350,26 @@ def apply_batch_compact(state: PackedDocs, stream_counts, ins_flat, del_flat, ma
     ``ins_flat`` the (ref, op, char) flat streams, ``del_flat`` one,
     ``mark_flat`` / ``map_flat`` dicts by column; ``widths`` the padded
     widths (ki, kd, km[, kp]).  Flat streams may carry zero padding at the
-    END (values past sum(counts) are never gathered into a live slot)."""
+    END (values past sum(counts) are never gathered into a live slot).
+    The ``apply_batch_compact`` launch site."""
+    if GLOBAL_DEVPROF.enabled:
+        device = state.elem_id.device
+        teams, nbytes = _insert_plan(*state.elem_id.shape, widths[0], insert_loop_slots, device)
+        return note_launch(
+            "apply_batch_compact",
+            (state, stream_counts, ins_flat, del_flat, mark_flat, map_flat),
+            (("widths", tuple(widths)), ("insert_loop_slots", insert_loop_slots),
+             ("plan", plan_static(teams))),
+            lambda: _apply_batch_compact(state, stream_counts, ins_flat, del_flat, mark_flat,
+                                         map_flat, widths, insert_loop_slots),
+            device=device, kernel_launches=len(teams), kernel_bytes=nbytes,
+        )
+    return _apply_batch_compact(state, stream_counts, ins_flat, del_flat, mark_flat, map_flat,
+                                widths, insert_loop_slots)
+
+
+def _apply_batch_compact(state, stream_counts, ins_flat, del_flat, mark_flat, map_flat,
+                         widths, insert_loop_slots) -> PackedDocs:
     n_ins, n_del, n_mark = stream_counts[0], stream_counts[1], stream_counts[2]
     ki, kd, km = widths[0], widths[1], widths[2]
     arrays = (
@@ -285,7 +386,7 @@ def apply_batch_compact(state: PackedDocs, stream_counts, ins_flat, del_flat, ma
             {col: _pad_from_flat(map_flat[col], n_map, widths[3]) for col in map_flat},
             n_map.to(torch.int32),
         )
-    return apply_batch(state, arrays, insert_loop_slots=insert_loop_slots)
+    return _apply_batch(state, arrays, insert_loop_slots)
 
 
 def encoded_arrays_of(encoded: EncodedBatch, device: Union[str, torch.device]):

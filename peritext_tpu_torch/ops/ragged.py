@@ -22,6 +22,10 @@ Phases:
 The result equals the padded apply's phase by phase: the insert math is
 the padded step with positions relabelled through ``pos_base``, and
 phases 2-3 are the padded code.
+
+:func:`apply_batch_ragged` is the device profiler's ``apply_batch_ragged``
+launch site (obs/devprof.py), keyed by its shapes and the ragged insert's
+launch plan, which the plan's host page counts give.
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..obs.devprof import GLOBAL_DEVPROF, note_launch, plan_static
+from .insert import SMEM_BUDGET, num_sms
 from .kernel import PAGED_AUX_FIELDS, _apply_maps, _post_insert
 from .packed import PackedDocs
-from .ragged_insert import ragged_insert
+from .ragged_insert import ragged_insert, ragged_insert_bytes, ragged_teams
 
 _NUM_SLOTS = PAGED_AUX_FIELDS.index("num_slots")
 _OVERFLOW = PAGED_AUX_FIELDS.index("overflow")
@@ -66,7 +72,8 @@ def _ragged_exists(pool_elem, owner, del_target) -> torch.Tensor:
 
 def apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev_page,
                        page_count, page_table, encoded_arrays, ins_counts, *,
-                       page_count_host: Optional[np.ndarray] = None) -> None:
+                       page_count_host: Optional[np.ndarray] = None,
+                       ins_counts_host: Optional[np.ndarray] = None) -> None:
     """Apply one round's streams directly against the pool's pages.
 
     ``aux`` is the tuple of dense (D, ...) tensors in PAGED_AUX_FIELDS
@@ -76,8 +83,45 @@ def apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev
     ``encoded_arrays`` the ``apply_batch`` stream tuple with (B, ...) doc
     axes; ``ins_counts`` (B,) int32 the true per-doc insert counts;
     ``page_count_host`` the plan's host page counts, which size the insert
-    kernel's launches without a read from the card.
+    kernel's launches without a read from the card, and ``ins_counts_host``
+    the insert counts as host numpy: a profiled call takes its launch plan
+    and bytes from them (without them, those are left unknown).
     Updates the pool and aux tensors in place."""
+    args = (pool_elem, pool_char, aux, row_idx, owner, pos_base, prev_page, page_count,
+            page_table, encoded_arrays, ins_counts)
+    if not GLOBAL_DEVPROF.enabled:
+        _apply_batch_ragged(*args, page_count_host)
+        return
+    device = pool_elem.device
+    teams = nbytes = None
+    if page_count_host is not None:
+        teams, nbytes = _ragged_plan(page_count_host, ins_counts_host, pool_elem.shape[1],
+                                     page_table.shape[1], device)
+    note_launch(
+        "apply_batch_ragged", args,
+        (("plan", None if teams is None else plan_static(teams)),),
+        lambda: _apply_batch_ragged(*args, page_count_host),
+        device=device, kernel_launches=None if teams is None else len(teams),
+        kernel_bytes=nbytes, written=(pool_elem, pool_char, aux),
+    )
+
+
+def _ragged_plan(page_count_host: np.ndarray, ins_counts_host: Optional[np.ndarray],
+                 page_size: int, gmax: int, device: torch.device):
+    """``(teams, kernel_bytes)`` of one ragged insert phase: the launch plan
+    :func:`~.ragged_insert.ragged_insert` follows on a card (none on the
+    CPU) and the bytes it must move (None without the host insert
+    counts)."""
+    teams = (ragged_teams(page_count_host, page_size, gmax, SMEM_BUDGET, num_sms(device))
+             if device.type == "cuda" else [])
+    nbytes = (None if ins_counts_host is None
+              else ragged_insert_bytes(page_count_host, ins_counts_host, page_size, gmax))
+    return teams, nbytes
+
+
+def _apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev_page,
+                        page_count, page_table, encoded_arrays, ins_counts,
+                        page_count_host) -> None:
     if len(encoded_arrays) == 6:
         ins_ref, ins_op, ins_char, del_target, marks, mark_count = encoded_arrays
         maps, map_count = None, None

@@ -128,6 +128,23 @@ def ragged_insert_reference(pool_elem, pool_char, owner, pos_base, prev_page,
     return n[:-1], ov[:-1]
 
 
+def ragged_insert_bytes(page_count_host: np.ndarray, ins_counts_host: np.ndarray,
+                        page_size: int, gmax: int) -> int:
+    """Bytes one :func:`ragged_insert` call must move, from the plan's host
+    page counts and the host insert counts: each doc's pages gathered and
+    scattered (both planes), its streams read up to its own count, and per
+    doc ``num_slots`` and ``overflow`` in and out, its page count, insert
+    count and page-table row (``gmax`` entries).  A host function: the
+    bound column of the card smoke and the device profiler's
+    ``kernel_bytes`` share it."""
+    require_host(page_count_host, "page_count_host")
+    require_host(ins_counts_host, "ins_counts_host")
+    b = len(page_count_host)
+    pages = int(page_count_host.sum(dtype=np.int64))
+    return (2 * 2 * pages * page_size * 4 + 3 * int(ins_counts_host.sum(dtype=np.int64)) * 4
+            + b * (2 * 4 + 2 * 1 + 4 + 4) + b * gmax * 4)
+
+
 def ragged_windows(page_count_host: np.ndarray, page_size: int, gmax: int) -> np.ndarray:
     """(B,) int64 window of each doc in slots: its true pages, clamped to the
     table width, times the page size."""

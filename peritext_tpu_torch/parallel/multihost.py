@@ -415,10 +415,16 @@ class ReplicaServer:
         :class:`~..obs.incidents.IncidentMonitor`) rides every frontier
         this endpoint sends as the ``"\x00incidents"`` summary and records
         every peer's summary it hears (``observe_peer_summary``, on the
-        handler thread for inbound exchanges).  The reference's metrics
-        mounts (``metrics_port=``, ``serve=``, ``fleet=``: its metrics
-        server and device profiler) are not ported: passing any of them
-        raises ``NotImplementedError``.
+        handler thread for inbound exchanges); ``metrics_port`` (0 =
+        ephemeral) mounts an :class:`~..obs.MetricsServer` exposing
+        ``/metrics`` (Prometheus, with ``peritext_convergence_*`` and the
+        device profiler's ``peritext_device_*`` gauges), ``/health.json``,
+        ``/convergence.json``, ``/devprof.json`` and ``/trace.json`` — its
+        bound address is :attr:`metrics_address` after :meth:`start`;
+        ``serve`` (a :class:`~..serve.SessionMux`) additionally mounts
+        ``/serve.json`` and the ``peritext_serve_*`` gauges, ``fleet`` (a
+        :class:`~..serve.fleet.FleetFrontend`) ``/fleet.json`` and the
+        ``peritext_fleet_*`` gauges, on the same server.
 
         ``on_ship`` is the checkpoint-ship receiver
         ``(doc_key, frames, base) -> total frame count now held``: the
@@ -429,14 +435,6 @@ class ReplicaServer:
         does not accept migrations."""
         from ..obs.convergence import ConvergenceMonitor
 
-        mounts = {"metrics_port": metrics_port, "serve": serve,
-                  "fleet": fleet}
-        asked = sorted(k for k, v in mounts.items() if v is not None)
-        if asked:
-            raise NotImplementedError(
-                f"ReplicaServer({', '.join(asked)}=...): the metrics server "
-                "and its device profiler are not ported yet (ROADMAP.md "
-                "queue 1 item 10c: the exporters; item 10b: the device planes)")
         #: optional :class:`~..obs.incidents.IncidentMonitor`: when armed,
         #: outbound frontiers carry its packed summary (the
         #: ``"\x00incidents"`` sentinel) and inbound ones feed
@@ -460,10 +458,35 @@ class ReplicaServer:
         )
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self.metrics = None
+        self.metrics_address: Optional[Tuple[str, int]] = None
+        if metrics_port is not None:
+            from ..obs import GLOBAL_DEVPROF, MetricsServer
+
+            try:
+                self.metrics = MetricsServer(
+                    host=host, port=metrics_port,
+                    tracer=self.tracer, recorder=self.recorder,
+                    convergence=self.monitor,
+                    # the process profiler is mounted even while disabled:
+                    # /devprof.json answers (enabled: false) and the gauges
+                    # appear the moment an operator arms GLOBAL_DEVPROF
+                    devprof=GLOBAL_DEVPROF,
+                    serve=serve,
+                    fleet=fleet,
+                )
+            except OSError:
+                # metrics port unavailable: release the bound replica socket
+                # too, or a caller's retry finds it held by this dead instance
+                self._sock.close()
+                raise
+            self.metrics_address = self.metrics.address
 
     def start(self) -> Tuple[str, int]:
         self._thread = threading.Thread(target=self._accept_loop, daemon=True)
         self._thread.start()
+        if self.metrics is not None:
+            self.metrics_address = self.metrics.start()
         return self.address
 
     def stop(self) -> None:
@@ -483,6 +506,8 @@ class ReplicaServer:
             pass
         if self._thread is not None:
             self._thread.join(timeout=5)
+        if self.metrics is not None:
+            self.metrics.stop()
 
     # internals
 

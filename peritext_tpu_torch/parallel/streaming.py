@@ -64,11 +64,13 @@ from ..core.errors import DecodeError
 from ..core.types import Change, Clock, FormatSpan
 from ..obs import (
     GLOBAL_COUNTERS,
+    GLOBAL_DEVPROF,
     GLOBAL_HISTOGRAMS,
     GLOBAL_TRACER,
     SIZE_BUCKETS,
     MergeStats,
     TraceContext,
+    occupancy_key,
 )
 from ..ops.decode import CompactBlock, decode_doc_spans
 from ..ops.encode import MAP_STREAM_COLS, MARK_COLS, DocEncoder, _DocStreams
@@ -814,16 +816,29 @@ class StreamingMerge:
         self._sweep_decode_quarantine()
         return scheduled
 
-    def _emit_round_stats(self, batch, scheduled: int, schedule_s: float, apply_s: float) -> None:
+    def _emit_round_stats(self, batch, scheduled: int, schedule_s: float, apply_s: float,
+                          origin: str = "streaming.round") -> None:
         """Per-commit MergeStats: ``encode_seconds`` is the schedule span,
         ``apply_seconds`` the host dispatch wall of the commit (device work
-        is asynchronous; reads are the sync points)."""
+        is asynchronous; reads are the sync points).  Profiled, a padded
+        session's rounds land in the device profiler's occupancy table
+        under ``origin`` (the reference's labels: ``streaming.fused`` for a
+        drain of a one-block session, else ``streaming.round``; the pooled
+        layouts observe theirs at commit), and the commit ends with a
+        memory sample."""
         touched: set = set()
         real = capacity = 0
         for enc, widths in batch:
             touched.update(int(r) for r in np.nonzero(enc.num_ops)[0])
-            real += int(enc.num_ops.sum())
-            capacity += self._round_capacity(enc, widths)
+            round_real = int(enc.num_ops.sum())
+            round_cap = self._round_capacity(enc, widths)
+            real += round_real
+            capacity += round_cap
+            if GLOBAL_DEVPROF.enabled and self._layout == "padded":
+                GLOBAL_DEVPROF.observe_round(occupancy_key(self._padded_docs, *widths),
+                                             round_real, round_cap, origin=origin)
+        if GLOBAL_DEVPROF.enabled:
+            GLOBAL_DEVPROF.sample_memory(self.device)
         extras = {"rounds": len(batch), "scheduled_changes": scheduled}
         if self._layout != "padded":
             extras[f"layout_{self._layout}"] = 1.0
@@ -1199,7 +1214,8 @@ class StreamingMerge:
                 self._commit_rounds(batch)
             if fused and self._COUNTS_FUSED_DISPATCHES:
                 GLOBAL_COUNTERS.add("streaming.fused_dispatches")
-            self._emit_round_stats(batch, scheduled_total, ssp.duration, asp.duration)
+            self._emit_round_stats(batch, scheduled_total, ssp.duration, asp.duration,
+                                   origin="streaming.fused" if fused else "streaming.round")
             rounds += len(batch)
         if rounds and fused and self.prefetch_digest:
             self._digest_resolution(0)

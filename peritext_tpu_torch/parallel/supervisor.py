@@ -49,6 +49,7 @@ from ..core.errors import DeviceRoundError
 from ..obs import (
     FlightRecorder,
     GLOBAL_COUNTERS,
+    GLOBAL_DEVPROF,
     GLOBAL_HISTOGRAMS,
     Histogram,
     Tracer,
@@ -335,6 +336,9 @@ class GuardedSession:
             return 0
         self._rounds_total += 1
         GLOBAL_HISTOGRAMS.observe("supervisor.round_seconds", sp.duration)
+        if GLOBAL_DEVPROF.enabled:
+            # guarded-round boundary: a memory watermark after the round
+            GLOBAL_DEVPROF.sample_memory(self.session.device)
         if self._rounds_total > self.deadline_warmup:
             # warmup exemption: the first round(s) must not seed the rolling
             # percentile the deadline derives from

@@ -34,7 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..obs import GLOBAL_COUNTERS
+from ..obs import GLOBAL_COUNTERS, GLOBAL_DEVPROF, occupancy_key
 from ..ops.insert import SMEM_BUDGET
 from ..ops.kernel import apply_batch_paged_groups
 from ..ops.packed import PackedDocs
@@ -119,8 +119,12 @@ class PagedStreamingMerge(StreamingMerge):
         """Commit scheduled rounds in causal order: per round, the touched
         rows get their pages (host), group by page bucket, and each group
         applies at its own width, one insert launch each.  Each group's page
-        table is taken when it is planned."""
+        table is taken when it is planned.  Profiled, each group lands in
+        the occupancy table (the reference's label: ``streaming.paged.fused``
+        with ``fused_pipeline``, else ``streaming.paged``) and the batch
+        ends with a page-pool snapshot."""
         store = self._store
+        origin = "streaming.paged.fused" if self.fused_pipeline else "streaming.paged"
         for enc, widths in batch:
             self._cum_ins += enc.ins_count
             rows = np.nonzero(enc.num_ops)[0]
@@ -135,12 +139,18 @@ class PagedStreamingMerge(StreamingMerge):
                                    torch.from_numpy(table).to(self.device),
                                    group_stream_arrays(enc, g_rows, b, self.device)))
                     cap += b * sum(widths)
+                    if GLOBAL_DEVPROF.enabled:
+                        GLOBAL_DEVPROF.observe_round(
+                            occupancy_key(b, *widths), int(enc.num_ops[g_rows].sum()),
+                            b * sum(widths), origin=origin)
                 apply_batch_paged_groups(store.pool_elem, store.pool_char, store.aux, inputs)
                 GLOBAL_COUNTERS.add("streaming.group_applies", len(inputs))
                 self._digest_row_valid[rows] = False
             self._commit_caps[id(enc)] = cap
             self.rounds += 1
             GLOBAL_COUNTERS.add("streaming.rounds")
+        if GLOBAL_DEVPROF.enabled:
+            GLOBAL_DEVPROF.observe_page_pool(store.pool_stats())
 
     def _round_capacity(self, enc, widths) -> int:
         """What the launched groups paid (row bucket x widths, per group),
@@ -264,11 +274,12 @@ class RaggedStreamingMerge(PagedStreamingMerge):
             store.ensure_rows(rows, self._cum_ins[rows])
         plan, planes = self._ragged_planes()
         row_idx, owner, pos_base, prev_page, page_count, page_table = planes
-        ins_counts = torch.from_numpy(np.ascontiguousarray(enc.ins_count, np.int32)).to(self.device)
+        ins_host = np.ascontiguousarray(enc.ins_count, np.int32)
         apply_batch_ragged(
             store.pool_elem, store.pool_char, store.aux, row_idx, owner, pos_base, prev_page,
             page_count, page_table, group_stream_arrays(enc, None, self._padded_docs, self.device),
-            ins_counts, page_count_host=plan.page_count,
+            torch.from_numpy(ins_host).to(self.device), page_count_host=plan.page_count,
+            ins_counts_host=ins_host,
         )
         # the doc classes of the launch plan (their split does not depend
         # on the card's SM count)
@@ -276,7 +287,13 @@ class RaggedStreamingMerge(PagedStreamingMerge):
                                SMEM_BUDGET, 1)
         GLOBAL_COUNTERS.add("streaming.ragged_applies", len(classes))
         # no bucket rows, no padded steps: the capacity paid is the real work
-        self._commit_caps[id(enc)] = int(enc.num_ops.sum())
+        real = int(enc.num_ops.sum())
+        self._commit_caps[id(enc)] = real
+        if GLOBAL_DEVPROF.enabled:
+            GLOBAL_DEVPROF.observe_round(occupancy_key(self._padded_docs, *widths), real,
+                                         max(real, 1), origin="streaming.ragged")
+            GLOBAL_DEVPROF.observe_ragged(docs_walked=plan.docs_walked,
+                                          pages_walked=plan.pages_walked, real_ops=real)
         if len(rows):
             self._digest_row_valid[rows] = False
         self.rounds += 1
@@ -286,3 +303,5 @@ class RaggedStreamingMerge(PagedStreamingMerge):
         for enc, widths in batch:
             self._cum_ins += enc.ins_count
             self._commit_round_ragged(enc, widths)
+        if GLOBAL_DEVPROF.enabled:
+            GLOBAL_DEVPROF.observe_page_pool(self._store.pool_stats())

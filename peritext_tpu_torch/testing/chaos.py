@@ -534,24 +534,22 @@ def run_fleet_chaos(
       (most-behind peer first);
     * the fleet drained to IDENTICAL fleet-wide store digests and clocks.
 
-    Raises on any violation; returns the evidence report.  The ``/metrics``
-    scrape needs the metrics server, which is not ported yet: ``metrics=True``
-    raises ``NotImplementedError``."""
+    Raises on any violation; returns the evidence report."""
     from ..parallel.anti_entropy import ChangeStore
     from ..parallel.gossip import GossipScheduler
     from ..parallel.multihost import ReplicaServer, RetryPolicy
 
-    if metrics:
-        raise NotImplementedError(
-            "run_fleet_chaos(metrics=True): the /metrics scrape needs the metrics "
-            "server, not ported yet (ROADMAP.md queue 1 item 10c: the exporters)")
     rng = random.Random(seed ^ 0xF1EE7)
     assert hosts >= 3, "a fleet episode needs at least 3 hosts"
     report = FleetReport(seed=seed, hosts=hosts)
     policy = RetryPolicy(attempts=1, timeout=0.5)
 
     stores = [ChangeStore() for _ in range(hosts)]
-    servers = [ReplicaServer(stores[i], timeout=2.0) for i in range(hosts)]
+    servers = [
+        ReplicaServer(stores[i], timeout=2.0,
+                      metrics_port=0 if (metrics and i == 0) else None)
+        for i in range(hosts)
+    ]
     for s in servers:
         s.start()
     names = [f"{s.address[0]}:{s.address[1]}" for s in servers]
@@ -637,6 +635,22 @@ def run_fleet_chaos(
         assert len(set(report.observed_lag.values())) == hosts - 1, (
             "per-peer lags must be distinct for the priority oracle"
         )
+
+        # the lag gauges are LIVE during the episode
+        if metrics:
+            import urllib.request
+
+            mh, mp = servers[0].metrics_address
+            text = urllib.request.urlopen(
+                f"http://{mh}:{mp}/metrics", timeout=5
+            ).read().decode()
+            gauge_lines = [
+                ln for ln in text.splitlines()
+                if ln.startswith("peritext_convergence_lag_ops{")
+            ]
+            assert gauge_lines and any(
+                float(ln.rsplit(" ", 1)[1]) > 0 for ln in gauge_lines
+            ), "lag gauge absent or all-zero during the partition"
 
         # -- phase C: heal — most-behind-first drain -----------------------
         for gate in gates.values():

@@ -6,13 +6,17 @@ interface that :func:`load_library` opens with ``ctypes``.  The hash covers
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header builds anew and an unchanged one is reused.  Nothing is
 built when a module is imported: the first call of a kernel wrapper builds
-(the tests import every module on machines with no CUDA toolkit).
+(the tests import every module on machines with no CUDA toolkit).  Each
+``nvcc`` run and each library load logs one record on the
+``peritext_tpu_torch.kernels`` logger, which ``obs.RecompileSentinel``
+counts.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -38,6 +42,8 @@ class KernelBuildError(RuntimeError):
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: build and load records (obs/sentinel.py counts them)
+_log = logging.getLogger("peritext_tpu_torch.kernels")
 _launch_lock = threading.Lock()
 
 
@@ -75,6 +81,7 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        _log.info("Building %s with nvcc into %s", name, out.name)
         jobs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
@@ -99,6 +106,7 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             path = build_libraries([name])[name]
+            _log.info("Loading %s from %s", name, path.name)
             try:
                 lib = ctypes.CDLL(str(path))
             except OSError as exc:

@@ -152,9 +152,12 @@ def test_import_leaves_jax_and_reference_out():
         "peritext_tpu_torch.parallel.router, peritext_tpu_torch.parallel.anti_entropy, "
         "peritext_tpu_torch.obs.convergence, peritext_tpu_torch.obs.incidents, "
         "peritext_tpu_torch.obs.events, peritext_tpu_torch.testing.accumulate, "
-        "peritext_tpu_torch.testing.fuzz, peritext_tpu_torch.testing.chaos\n"
+        "peritext_tpu_torch.testing.fuzz, peritext_tpu_torch.testing.chaos, "
+        "peritext_tpu_torch.obs.devprof, peritext_tpu_torch.obs.sentinel, "
+        "peritext_tpu_torch.obs.ledger, peritext_tpu_torch.obs.exporters, "
+        "peritext_tpu_torch.observability\n"
         "sys.path.insert(0, 'tests')\n"
-        "import test_torch_fleet_cuda, test_torch_chaos_cuda\n"
+        "import test_torch_fleet_cuda, test_torch_chaos_cuda, test_torch_devprof_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
         "print(bad)\n"

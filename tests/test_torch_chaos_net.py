@@ -10,8 +10,8 @@ wall time is compared.
 * ``run_serve_chaos``: overload behind an asymmetric partition;
 * ``run_host_kill_failover``: a serving host killed mid-traffic, with its
   flight dumps;
-* ``run_fleet_chaos`` (``metrics=False``; ``metrics=True`` needs the
-  metrics server, not ported, and raises) and ``run_divergence_injection``;
+* ``run_fleet_chaos`` (``metrics=False``, and ``metrics=True`` with its
+  ``/metrics`` scrape) and ``run_divergence_injection``;
 * ``run_reconnect_storm`` at its smoke size (port only: open-loop traffic
   on the wall clock);
 * port and reference ``ReplicaServer(incidents=)`` exchanging frontiers:
@@ -93,8 +93,12 @@ def test_fleet_chaos_equals_the_reference():
 
 
 def test_fleet_chaos_metrics_scrape_is_not_ported():
-    with pytest.raises(NotImplementedError, match="10c"):
-        chaos.run_fleet_chaos(0, hosts=3, metrics=True)
+    """The ``/metrics`` scrape is ported now (the test keeps its name):
+    ``metrics=True`` runs the episode with host0's lag gauges scraped
+    during the partition."""
+    report = chaos.run_fleet_chaos(0, hosts=3, metrics=True)
+    assert report.converged and report.divergence_incidents == 0
+    assert max(report.observed_lag.values()) > 0
 
 
 def test_divergence_injection_equals_the_reference(tmp_path):

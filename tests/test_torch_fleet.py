@@ -404,9 +404,23 @@ def test_multi_frame_backlog_crosses(workload_changes, monkeypatch, sender):
 
 
 def test_replica_server_refuses_unported_mounts():
-    for kw in ({"metrics_port": 0}, {"serve": object()}, {"fleet": object()}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            mh.ReplicaServer(ChangeStore(), **kw)
+    """The metrics mounts are ported now (the test keeps its name): each
+    mounts a metrics server on an ephemeral port; ``serve=``/``fleet=``
+    without ``metrics_port`` mount nothing, as in the reference."""
+    for kw in ({"metrics_port": 0}, {"metrics_port": 0, "serve": object()},
+               {"metrics_port": 0, "fleet": object()}):
+        server = mh.ReplicaServer(ChangeStore(), **kw)
+        try:
+            routes = server.metrics._httpd._routes
+            assert {"/metrics", "/devprof.json", "/convergence.json"} <= set(routes)
+            assert ("/serve.json" in routes) == ("serve" in kw)
+            assert ("/fleet.json" in routes) == ("fleet" in kw)
+        finally:
+            server.stop()
+    for kw in ({"serve": object()}, {"fleet": object()}):
+        server = mh.ReplicaServer(ChangeStore(), **kw)
+        assert server.metrics is None and server.metrics_address is None
+        server.stop()
     from peritext_tpu_torch.obs import IncidentMonitor
 
     monitor = IncidentMonitor(host="h")
