@@ -78,12 +78,30 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    ``/health.json`` answer with the reference's golden key sets; the
    bucket table is printed (device ms against ``kernel_bytes`` over HBM
    bandwidth); one ``ledger_record`` of the sessions' rows with the
-   profiler's snapshot names this card (platform ``gpu``);
+   profiler's snapshot names this card (platform ``gpu``); each row
+   carries the session's stage decomposition (``latency.stages_ms``);
+5i. planner and CLI (:data:`PLANNER`), over 5h's snapshot and ledger
+   record: ``plan.propose`` twice (identical JSON), and ``python -m
+   peritext_tpu_torch.obs plan --json`` in a subprocess, whose exit code
+   must be the proposal's ``beats_current()`` and whose proposal must be
+   the in-process one (a garbage snapshot exits 2); the observed and
+   proposed statics, the modeled terms and ``budget_bytes`` are printed;
+   then A's frames replayed at the proposal's stream widths and slot
+   capacity on a padded and a ragged session (the proposal's page size),
+   each equal to A in every doc's spans and patches and in the digest
+   (corrected for the pad term of the slot capacity), the docs sent to the
+   oracle printed; a ``MetricsServer`` with ``GLOBAL_DEVPROF`` and the
+   proposal over the ragged replay, whose ``obs status --json`` exits with
+   its worst row and has one row per JSON route; ``obs perf --gate`` on
+   the card record twice exits 0, and with one row made slower than the
+   band (TestPerfGate's 60% drop, each stage 2.5x) ``perf --gate`` and
+   ``obs why`` exit 1, ``why`` naming the stage that grew most; within
+   20 s;
 5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
    such editors each, equal to their ``expected_doc``; a fuzzed session of
-   1500 transactions through ``bridge/commands.py`` on three of them and a
+   1000 transactions through ``bridge/commands.py`` on three of them and a
    scalar editor, the oracle (:data:`BRIDGE`), every view equal to the
    oracle's and to its own CRDT render, no doc demoted or overflowed, with
    dispatch and remote-apply latency; and two editors with
@@ -261,7 +279,7 @@ STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capa
 
 #: the bridge phase's fuzzed editing session: three ``"tpu"`` editors and
 #: one scalar editor (the oracle, which only receives) on one document
-#: seeded with 40 words; 1500 transactions (typing runs of 1-3 characters
+#: seeded with 40 words; 1000 transactions (typing runs of 1-3 characters
 #: 62%, deletes of 1-2 characters 22%, bold and italic toggles, links from
 #: 8 urls and comments over 24 ids, spans of 2-40 characters, 16%), each
 #: through ``bridge/commands.py``, on a random one of the three; every
@@ -269,12 +287,13 @@ STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capa
 #: widths with 4096 slots and 512 mark rows (what 3000 transactions of this
 #: mix need: about 3800 characters inserted, 480 mark ops) and 2048
 #: tombstone rows (about 1000 characters deleted; the reference's default
-#: of 128 would overflow).  Cut from 3000 transactions for the time limit:
-#: every read decodes the whole document, so the session's cost grows
-#: faster than its length (256-315 s at 3000 on an H100 machine).
+#: of 128 would overflow).  Cut from 3000 transactions for the time limit
+#: (to 1500, then to 1000 to make room for phase 5i): every read decodes
+#: the whole document, so the session's cost grows faster than its length
+#: (256-315 s at 3000 on an H100 machine).
 #: ``capture_at`` is the transaction whose insert call is held against the
 #: plain version
-BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=1500, sync_every=20, seed=3,
+BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=1000, sync_every=20, seed=3,
               initial_words=40, comment_ids=24, urls=8, capture_at=750,
               backend_config=dict(slot_capacity=4096, mark_capacity=512, tomb_capacity=2048))
 #: durability: the sessions checkpointed where they end and restored in
@@ -359,6 +378,11 @@ PLANES = dict(overhead_pairs=3, sync_reps=1,
               sessions=(("A_frames", "padded", "apply_batch_compact"),
                         ("A_paged_frames", "paged", "apply_batch_paged_groups"),
                         ("C_frames_ragged", "ragged", "apply_batch_ragged")))
+#: phase 5i, the planner and the ``obs`` CLI over 5h's snapshot and record:
+#: the phase's time limit, and the factor that makes a row of the card
+#: record regress (the reference's TestPerfGate drops 1000 ops/s to 400;
+#: ops/s regress below half the reference)
+PLANNER = dict(seconds=20.0, regress=0.4)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -1307,9 +1331,10 @@ def run_device_planes(device, ctx, whole):
     ms against the bytes bound, ``kernel_bytes`` over HBM bandwidth); an
     armed ``apply_batch_compact`` under :func:`device_time_ms`, which
     fails if a hook synchronizes; and one ledger record of the phase's
-    rows with the profiler's snapshot, whose device is this card.
-    ``whole`` is the run's build sentinel.  Returns the report and each
-    armed session's launches."""
+    rows with the profiler's snapshot, whose device is this card; each row
+    carries its session's stage decomposition (:func:`_session_latency`).
+    ``whole`` is the run's build sentinel.  Returns the report, each armed
+    session's launches, the snapshot and the record."""
     import torch
 
     from peritext_tpu_torch.obs import GLOBAL_DEVPROF, MetricsServer, RecompileSentinel
@@ -1415,7 +1440,7 @@ def run_device_planes(device, ctx, whole):
                                   peak_bytes=b["memory"]["peak_bytes"]))
             rows.append(dict(row=name, metric="session_ops_per_s", value=out["ops_per_second"],
                              unit="ops/s", docs=len(workloads), ops_per_doc=cfg["ops"],
-                             rounds=cfg["rounds"]))
+                             rounds=cfg["rounds"], latency=_session_latency(out)))
             log(f"planes {name}: {site} {dispatches} calls, {n_launch} launches = "
                 f"{out['rga_insert_launches'] + out['ragged_insert_launches']} kernel launches; "
                 f"occupancy real ops {real}; memory peak {after['memory']['peak_bytes_in_use']} "
@@ -1443,7 +1468,202 @@ def run_device_planes(device, ctx, whole):
                   sentinel=dict(counts=sentinel.counts, whole_run=dict(whole.counts)),
                   seconds=time.perf_counter() - t_phase)
     log("planes", json.dumps(report))
-    return report, launches
+    return report, launches, snap, record
+
+
+def _session_latency(out):
+    """A session report's stages in the latency plane's taxonomy, as a
+    ledger row's ``latency``: ``stage`` its ingest, ``dispatch`` the drains
+    less their applies, ``commit`` the applies, ``visibility`` the first
+    read (``read_all``); ``total_ms`` all but visibility, as the plane
+    sums it."""
+    st = out["stage_seconds"]
+    stages = {"stage": st["ingest"] * 1e3, "dispatch": st["schedule"] * 1e3,
+              "commit": st["apply"] * 1e3, "visibility": st["read_all"] * 1e3}
+    return {"stages_ms": stages,
+            "total_ms": sum(v for s, v in stages.items() if s != "visibility")}
+
+
+def _pad_corrected(digest, spans, from_slots, to_slots):
+    """``digest`` of docs held at ``from_slots`` slots, moved to
+    ``to_slots``: each doc's pad term (``doc_digest_host`` of no
+    characters) counts its empty slots, slots less visible characters and
+    none below 0, the only part of the digest that depends on the slot
+    capacity."""
+    from peritext_tpu_torch.parallel.mesh import doc_digest_host
+
+    for doc in spans:
+        visible = sum(len(span["text"]) for span in doc)
+        digest += (doc_digest_host([], [], max(to_slots - visible, 0))
+                   - doc_digest_host([], [], max(from_slots - visible, 0)))
+    return digest & 0xFFFFFFFF
+
+
+def _overflowed_docs(s):
+    """The docs whose state the device read path cannot serve (the
+    resolutions' overflow rows), which read through the scalar oracle."""
+    docs = []
+    for bi in range(s._n_blocks()):
+        lo, _ = s._block_bounds(bi)
+        rows = np.nonzero(s._resolution(bi).overflow)[0] + lo
+        docs += [int(s._doc_at[r]) for r in rows if s._doc_at[r] >= 0]
+    return sorted(docs)
+
+
+def _obs_cli(argv):
+    """``python -m peritext_tpu_torch.obs`` in this process: its exit code,
+    stdout and stderr."""
+    import contextlib
+    import io
+
+    from peritext_tpu_torch.obs.__main__ import main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = main([str(a) for a in argv])
+    return code, out.getvalue(), err.getvalue()
+
+
+def run_planner(device, ctx, snap, record, root):
+    """Phase 5i, the planner and the ``obs`` CLI (:data:`PLANNER`) over
+    5h's devprof snapshot ``snap`` and ledger ``record``, with files under
+    ``root`` (module doc).  Returns the report, the replays' launches by
+    layout, and the captured round of each replay (K1's padded inputs and
+    their ``loop_slots``, K3's inputs)."""
+    from peritext_tpu_torch.obs import GLOBAL_DEVPROF, MetricsServer
+    from peritext_tpu_torch.obs.latency import STAGES
+    from peritext_tpu_torch.obs.ledger import append_record
+    from peritext_tpu_torch.plan import CostModel, propose
+
+    # the heap holds every earlier phase's workloads: a full collection of
+    # it takes seconds (5.4-8.4 s on an H100 machine's host, once inside a
+    # replay's reads), so it runs here, counted apart from the phase
+    t0 = time.perf_counter()
+    gc.collect()
+    log(f"planner: full collection before the phase {time.perf_counter() - t0:.2f} s")
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    snap_path, ledger_path = root / "devprof.json", root / "ledger.jsonl"
+    snap_path.write_text(json.dumps(snap))
+    append_record(ledger_path, record)
+
+    # propose: in process twice, then the real entry point
+    proposal = propose(snap, [record])
+    body = proposal.to_json()
+    again = propose(json.loads(snap_path.read_text()), [record]).to_json()
+    if json.dumps(again, sort_keys=True) != json.dumps(body, sort_keys=True):
+        raise AssertionError("planner: two proposals from one snapshot differ")
+    stale = proposal.beats_current()
+    proc = subprocess.run(
+        [sys.executable, "-m", "peritext_tpu_torch.obs", "plan", str(snap_path), "--ledger",
+         str(ledger_path), "--json"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    cli = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    if proc.returncode != int(stale) or cli.get("beats_current") != stale or \
+            {k: cli.get(k) for k in body} != json.loads(json.dumps(body)):
+        raise AssertionError(f"planner: obs plan exited {proc.returncode} (beats_current "
+                             f"{stale}) with {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    garbage = root / "garbage.json"
+    garbage.write_text("{not json")
+    code, _, _ = _obs_cli(["plan", garbage])
+    if code != 2:
+        raise AssertionError(f"planner: obs plan on a garbage file exited {code}, want 2")
+    modeled = body["modeled"]
+    log(f"planner: observed statics {json.dumps(body['current'])}")
+    log(f"planner: proposed statics {json.dumps(body['proposal'])}; beats current {stale} "
+        f"(obs plan exited {proc.returncode})")
+    log(f"planner: modeled {json.dumps(modeled)}; budget_bytes {modeled['budget_bytes']}")
+
+    # replay A's frames at the proposed statics, on K1 and on K3
+    a = ctx["a"]
+    cfg = dict(STREAM, slot_capacity=proposal.slot_capacity,
+               round_caps=(proposal.insert_width, proposal.delete_width, proposal.mark_width,
+                           proposal.map_width),
+               page_size=min(proposal.page_size, proposal.slot_capacity))
+    want_digest = _pad_corrected(a["digest"], a["spans"], STREAM["slot_capacity"],
+                                 cfg["slot_capacity"])
+    captures = {"padded": {}, "ragged": {}}
+    launches, replays = {}, {}
+    GLOBAL_DEVPROF.reset()
+    GLOBAL_DEVPROF.enable(capture_costs=False)
+    server = None
+    try:
+        for layout in ("padded", "ragged"):
+            name = f"plan_replay_{layout}"
+            s, out = run_stream_session(device, cfg, ctx["workloads"], ctx["wire"], name,
+                                        capture=captures[layout], wire_bytes=ctx["wire_bytes"],
+                                        layout=layout)
+            for key in ("spans", "patches"):
+                if out[key] != a[key]:
+                    raise AssertionError(f"planner {name}: {key} differ from A_default")
+            if out["digest"] != want_digest:
+                raise AssertionError(f"planner {name}: digest {out['digest']}, A's at "
+                                     f"{cfg['slot_capacity']} slots {want_digest}")
+            kernel = "ragged_insert_launches" if layout == "ragged" else "rga_insert_launches"
+            launches[layout] = out[kernel]
+            overflowed = _overflowed_docs(s)
+            replays[layout] = dict(launches=out[kernel], demoted=out["fallback"],
+                                   overflowed=overflowed, wall_seconds=out["wall_seconds"])
+            log(f"planner {name}: equals A on all {len(out['spans'])} docs (spans, patches, "
+                f"digest at {cfg['slot_capacity']} slots); {len(out['fallback'])} docs demoted "
+                f"{out['fallback']}, {len(overflowed)} overflowed {overflowed}")
+        replay_snap = GLOBAL_DEVPROF.snapshot()
+        log(f"planner: the replays observed as {json.dumps(CostModel(replay_snap).observed_config())}")
+
+        # the operator surface: the proposal mounted beside the profiler
+        server = MetricsServer(devprof=GLOBAL_DEVPROF, plan=proposal, session=s)
+        host, port = server.start()
+        status_code, text, _ = _obs_cli(["status", f"http://{host}:{port}", "--json"])
+        status = json.loads(text)
+        routes = {path[1:-len(".json")] for path in server._httpd._routes if path.endswith(".json")}
+    finally:
+        if server is not None:
+            server.stop()
+        GLOBAL_DEVPROF.disable()
+        GLOBAL_DEVPROF.reset()
+    rows = {r["plane"]: r for r in status["planes"]}
+    if status_code != max(r["exit"] for r in rows.values()) or status_code != status["exit"] or \
+            set(rows) != routes or rows["plan"]["exit"] != int(stale) or \
+            " ops site(s)" not in rows["devprof"]["summary"]:
+        raise AssertionError(f"planner: obs status exited {status_code} with rows {rows} "
+                             f"(routes {sorted(routes)})")
+    log(f"planner: obs status exited {status_code}: " + "; ".join(
+        f"{p} {r['status']} ({r['summary']})" for p, r in sorted(rows.items())))
+
+    # the perf gate and its attribution on the card record
+    gate = root / "gate.jsonl"
+    for _ in range(2):
+        append_record(gate, record)
+    code, _, _ = _obs_cli(["perf", gate, "--gate"])
+    if code != 0:
+        raise AssertionError(f"planner: obs perf --gate on the card record twice exited {code}")
+    bad = json.loads(json.dumps(record))
+    row = bad["rows"][0]
+    row["value"] *= PLANNER["regress"]
+    row["latency"]["stages_ms"] = {k: v / PLANNER["regress"]
+                                   for k, v in row["latency"]["stages_ms"].items()}
+    append_record(gate, bad)
+    perf_code, _, _ = _obs_cli(["perf", gate, "--gate"])
+    why_code, _, why_err = _obs_cli(["why", gate])
+    why_json = json.loads(_obs_cli(["why", gate, "--json"])[1])
+    stages = record["rows"][0]["latency"]["stages_ms"]
+    moved = max(STAGES, key=lambda s: (stages.get(s, 0.0), -STAGES.index(s)))
+    if perf_code != 1 or why_code != 1 or why_json["dominant_stage"] != moved or \
+            f"dominant moved stage is '{moved}'" not in why_err:
+        raise AssertionError(f"planner: perf --gate exited {perf_code}, why {why_code} "
+                             f"({why_json.get('dominant_stage')}, want {moved}): {why_err}")
+    log(f"planner: perf --gate 0 on the card record twice, 1 with {row['row']} at "
+        f"{PLANNER['regress']}x; why exited 1 naming '{moved}' "
+        f"(+{why_json['stage_deltas_ms'][moved]:.3f} ms)")
+    seconds = time.perf_counter() - t_phase
+    report = dict(proposal=body["proposal"], current=body["current"], modeled=modeled,
+                  beats_current=stale, replays=replays, status_exit=status_code,
+                  why_stage=moved, seconds=seconds)
+    log("planner", json.dumps(report))
+    log(f"planner: phase 5i {seconds:.2f} s")
+    if seconds > PLANNER["seconds"]:
+        raise AssertionError(f"planner: phase 5i took {seconds:.2f} s, over "
+                             f"{PLANNER['seconds']} s")
+    return report, launches, captures
 
 
 def round_need(workloads):
@@ -3253,9 +3473,13 @@ def run_all(device, jobs, ckpt_root) -> int:
     stream_reports += layout_reports
     log(f"streaming layouts done at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()
-    _, planes_launches = run_device_planes(device, ctx, whole)
+    _, planes_launches, planes_snap, planes_record = run_device_planes(device, ctx, whole)
     log(f"device planes done at {time.perf_counter() - t_start:.1f} s "
         f"(phase 5h {time.perf_counter() - t0:.1f} s)")
+    _, plan_launches, captures_plan = run_planner(device, ctx, planes_snap, planes_record,
+                                                  ckpt_root / "planner")
+    del planes_snap
+    log(f"planner done at {time.perf_counter() - t_start:.1f} s")
     sup = dict(workloads=ctx["workloads"], wire=ctx["wire"], digest=ctx["a"]["digest"],
                spans=ctx["a"]["spans"])
     del ctx
@@ -3332,6 +3556,10 @@ def run_all(device, jobs, ckpt_root) -> int:
                              loop_slots=capture_fleet["loop_slots"]))
     rows.append(check_insert("chaos_round", captures_chaos["padded"]["args"],
                              loop_slots=captures_chaos["padded"]["loop_slots"]))
+    if "args" not in captures_plan["padded"] or "args" not in captures_plan["ragged"]:
+        raise AssertionError("planner: no round of a replay was captured")
+    rows.append(check_insert("plan_replay_round", captures_plan["padded"].pop("args"),
+                             loop_slots=captures_plan["padded"]["loop_slots"]))
     del capture, capture_frames, capture_paged, capture_bridge, capture_serve, capture_fleet
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
@@ -3351,7 +3579,8 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_rows += check_ragged("restore_ragged_round", capture_restore.pop("args"))
     ragged_rows += check_ragged("fused_ragged_round", captures_fused["ragged"].pop("args"))
     ragged_rows += check_ragged("differential_ragged_round", captures_chaos["ragged"].pop("args"))
-    del captures_fused, captures_chaos
+    ragged_rows += check_ragged("plan_replay_ragged_round", captures_plan["ragged"].pop("args"))
+    del captures_fused, captures_chaos, captures_plan
     ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
         device, BATCH_8K["slots"],
         synth_streams(BATCH_8K["docs"], inserts_per_doc=BATCH_8K["inserts"], seed=1)[:3]))
@@ -3395,6 +3624,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths.update(serve_paths)
     rga_paths.update(chaos_paths["rga_insert"])
     rga_paths.update({f"planes_{n}": k for n, k in planes_launches.items() if n != "C_frames_ragged"})
+    rga_paths["plan_replay"] = plan_launches["padded"]
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})
@@ -3403,6 +3633,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_paths["fused_2048"] = fused_ragged
     ragged_paths.update(chaos_paths["ragged_insert"])
     ragged_paths["planes_C_frames_ragged"] = planes_launches["C_frames_ragged"]
+    ragged_paths["plan_replay"] = plan_launches["ragged"]
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

@@ -40,7 +40,11 @@
   (:func:`prometheus_text`) and :class:`MetricsServer`, the HTTP endpoint
   ``ReplicaServer(metrics_port=)`` mounts (``/metrics``, ``/health.json``,
   ``/devprof.json``, ``/serve.json``, ``/fleet.json`` and the other
-  planes' JSON routes).
+  planes' JSON routes);
+* :mod:`.__main__` — ``python -m peritext_tpu_torch.obs``, the operator
+  CLI over those files and routes (``summary``, ``merge``, ``fleet``,
+  ``serve``, ``perf``, ``why``, ``plan``, ``incidents``, ``status``,
+  ``top``, ``history``, ``flight``; exit 0, 1 or 2).
 
 The host planes never synchronize the card; the profiler's hooks neither
 (its CUDA events are read in ``snapshot()``, the read point).

@@ -136,8 +136,8 @@ def prometheus_text(
     counters with sheds labelled by reason.  A serve snapshot's
     ``fusion`` section lands as ``peritext_plan_fusion_*`` gauges (group
     membership, dispatch amortization, window occupancy); a planner
-    verdict passed as ``plan`` (anything with ``to_json()``, or a dict: the
-    planner itself is still to port) lands as ``peritext_plan_*`` gauges (modeled
+    verdict passed as ``plan`` (a :class:`~..plan.tuner.PlanProposal`, or
+    its ``to_json()`` dict) lands as ``peritext_plan_*`` gauges (modeled
     scores, savings fraction, the proposed statics); a
     :class:`~.latency.LatencyPlane` lands as ``peritext_latency_*``
     families — one histogram per stage watermark plus the end-to-end

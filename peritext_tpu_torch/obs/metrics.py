@@ -91,9 +91,9 @@ def health_snapshot(
     :class:`~.sentinel.RecompileSentinel`: its per-library ``counts`` and
     ``total`` under ``recompiles``; its ``kernel.*`` counters land under
     ``counters``).  The other keywords take any object with the same
-    ``snapshot()`` or, for ``plan`` and ``mesh``, a dict (the planner and
-    the device mesh are still to port).  Everything in the snapshot is
-    JSON-serializable."""
+    ``snapshot()``; ``plan`` takes a :class:`~..plan.tuner.PlanProposal`
+    (its ``to_json()``) or a dict, and ``mesh`` a dict (the device mesh is
+    still to port).  Everything in the snapshot is JSON-serializable."""
     from .histograms import GLOBAL_HISTOGRAMS
 
     counters = counters or GLOBAL_COUNTERS
