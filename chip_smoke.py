@@ -97,6 +97,23 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    band (TestPerfGate's 60% drop, each stage 2.5x) ``perf --gate`` and
    ``obs why`` exit 1, ``why`` naming the stage that grew most; within
    20 s;
+5j. the device mesh (:data:`MESH`): ``make_mesh(4)`` over ``cuda:0..3``
+   where four cards exist, else a virtual mesh of 4 shards on ``cuda:0``
+   (asked for explicitly; the phase prints which): (a) ``DocBatch(mesh=)``
+   on config 3, equal to phase 3's merge in spans, roots, cursors and the
+   fallback set, with one K1 launch per shard; (b) A's frames over the
+   mesh in the padded, paged and ragged layouts, each equal to A on every
+   doc and passing phase 5's checks, its launches equal to its commit
+   counter (K1 once per touched shard of a padded round and once per
+   (round, shard, page group) of a paged one, K3 once per (round, touched
+   shard, non-empty doc class)), its session ops/s printed beside
+   A_frames'; (d) a reshard of the paged mesh session: digest and reads
+   unchanged, no character changed, the pages moved between shards
+   counted (``store.ici_page_moves``); (c) C's frames at full width over
+   the mesh (10,240 docs, 4 shards of 2,560 rows), equal to C_frames, with
+   each card's peak memory; (e) ``run_crash_restore`` seed 12 with the
+   mesh, restored meshless; the kernel inputs of one round of a shard
+   (padded: K1; ragged: K3) are captured for phase 6; within 90 s;
 5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
@@ -198,7 +215,8 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    fused paged lane's round there, one failover re-drain round of a
    fleet host and the first round of chaos seed 0; for the ragged one also
    the first round of the ragged restore, the fused ragged lane's round in
-   the sparse window and the first call of the ragged differential)
+   the sparse window and the first call of the ragged differential; and
+   each the captured round of a mesh shard of phase 5j)
    and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
@@ -383,6 +401,10 @@ PLANES = dict(overhead_pairs=3, sync_reps=1,
 #: record regress (the reference's TestPerfGate drops 1000 ops/s to 400;
 #: ops/s regress below half the reference)
 PLANNER = dict(seconds=20.0, regress=0.4)
+#: phase 5j, the device mesh: 4 shards (``cuda:0..3`` where four cards
+#: exist, else 4 virtual shards on ``cuda:0``), the crash campaign's seed,
+#: and the phase's time limit
+MESH = dict(shards=4, crash_seed=12, seconds=90.0)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -934,8 +956,10 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
     wire frames and one ``ingest_frames`` call takes the round), then
     ``drain()`` (synchronized, so its apply time covers the kernels it
     queued); then ``digest()``, ``read_all()`` and ``read_patches_all()``.
-    ``arm`` may name a ``layout`` (padded, paged, ragged) and the
-    ``fused_pipeline``/``static_rounds`` switches.  Both kernels' launch
+    ``arm`` may name a ``layout`` (padded, paged, ragged), the
+    ``fused_pipeline``/``static_rounds`` switches and a ``mesh`` (each
+    synchronize then covers every card of the mesh, and the report adds
+    each card's peak memory).  Both kernels' launch
     counts are set to 0 just before and read just after: the layout's
     kernel must have launched exactly as often as its commits counted
     (:data:`APPLY_COUNTER`), the other never.  A frame session must have
@@ -952,6 +976,13 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
     from peritext_tpu_torch.parallel.streaming import StreamingMerge
 
     layout = arm.get("layout", "padded")
+    mesh = arm.get("mesh")
+    cards = list(dict.fromkeys(mesh.devices)) if mesh is not None else [torch.device("cuda")]
+
+    def sync():
+        for card in cards:
+            torch.cuda.synchronize(card)
+
     ki, kd, km, kp = cfg["round_caps"]
     pooled = {} if layout == "padded" else dict(page_size=cfg.get("page_size", 64))
     s = StreamingMerge(
@@ -960,14 +991,16 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
         tomb_capacity=cfg["tomb_capacity"], round_insert_capacity=ki,
         round_delete_capacity=kd, round_mark_capacity=km, round_map_capacity=kp,
         comment_capacity=cfg["comment_capacity"], read_chunk=cfg.get("read_chunk", 8192),
-        static_rounds=arm.get("static_rounds", False), layout=layout, device=device, **pooled,
+        static_rounds=arm.get("static_rounds", False), layout=layout, device=device,
+        mesh=mesh, **pooled,
     )
     s.fused_pipeline = arm.get("fused_pipeline", True)
     undo = _arm_capture(capture, layout) if capture is not None else None
     stages = dict.fromkeys(("ingest", "schedule", "apply", "digest", "read_all",
                             "read_patches_all"), 0.0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    sync()
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
     frames = wire_bytes is not None
     counters = {c: GLOBAL_COUNTERS.get(c) for c in SESSION_COUNTERS + tuple(APPLY_COUNTER.values())}
     native_calls = dict(native.calls)
@@ -992,7 +1025,7 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
                 capture["armed"] = True
             s.drain()
             t_sync = time.perf_counter()
-            torch.cuda.synchronize()
+            sync()
             t2 = time.perf_counter()
             # apply: the commits' spans and the wait for the card; schedule:
             # the rest of the drain, with its passes that admit nothing
@@ -1046,7 +1079,13 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
                   block_applies=counts["block_applies"], group_applies=counts["group_applies"],
                   ragged_applies=counts["ragged_applies"],
                   fallback_docs=len(fallback), overflow_docs=s.overflow_count(),
-                  peak_memory_bytes=torch.cuda.max_memory_allocated(), health=s.health(), **extra)
+                  peak_memory_bytes=torch.cuda.max_memory_allocated(cards[0]), health=s.health(),
+                  **extra)
+    if mesh is not None:
+        report.update(mesh_shards=mesh.size, mesh_devices=[str(d) for d in mesh.devices],
+                      mesh_stats=s._mesh_stats(),
+                      peak_memory_bytes_by_card={str(c): torch.cuda.max_memory_allocated(c)
+                                                 for c in cards})
     log("streaming", json.dumps(report))
     kernel = "ragged_insert" if layout == "ragged" else "rga_insert"
     other = "rga_insert" if layout == "ragged" else "ragged_insert"
@@ -1178,6 +1217,7 @@ def run_streaming(device, ckpts):
     checkpoint_session(ckpts, "C_frames", s_cf, cf)
     del s_cf
     ctx = dict(workloads=workloads, arrival=arrival, wire=wire, wire_bytes=wire_bytes,
+               frames_ops_per_second=f["ops_per_second"],
                sample=sample, oracle_a=oracle_a, a=a, workloads_c=workloads_c, wire_c=wire_c,
                wire_bytes_c=wire_bytes_c, sample_c=sample_c, oracle_c=oracle_c, cf=cf)
     return capture, capture_frames, reports + [b, c, cf], ctx
@@ -1664,6 +1704,132 @@ def run_planner(device, ctx, snap, record, root):
         raise AssertionError(f"planner: phase 5i took {seconds:.2f} s, over "
                              f"{PLANNER['seconds']} s")
     return report, launches, captures
+
+
+def phase_mesh():
+    """The mesh of phase 5j: ``make_mesh(4)`` over ``cuda:0..3`` when four
+    cards exist, else (asked for explicitly) 4 virtual shards on
+    ``cuda:0``; and which of the two it is."""
+    import torch
+
+    from peritext_tpu_torch.parallel.mesh import make_mesh
+
+    n = MESH["shards"]
+    if torch.cuda.device_count() >= n:
+        return make_mesh(n), "real"
+    return make_mesh(devices=[torch.device("cuda", 0)] * n), "virtual"
+
+
+def run_mesh(device, ctx, slice_run):
+    """Phase 5j, the device mesh on the card (module doc): returns the K1
+    launch counts of its paths, the K3 ones, and the kernel inputs of one
+    captured mesh round of a shard (padded: K1; ragged: K3)."""
+    import torch
+
+    from peritext_tpu_torch.api.batch import DocBatch
+    from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+    from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.testing.fuzz import run_crash_restore
+
+    t_phase = time.perf_counter()
+    mesh, kind = phase_mesh()
+    cards = list(dict.fromkeys(mesh.devices))
+    log(f"mesh: a {kind} mesh of {mesh.size} shards over {[str(d) for d in mesh.devices]}")
+    rga, ragged, captures = {}, {}, {"padded": {}, "ragged": {}}
+
+    # (a) DocBatch(mesh=) on config 3, against the meshless merge of phase 3
+    workloads, cursors, clean = slice_run
+    cfg = SLICE
+    batch = DocBatch(slot_capacity=cfg["slot_capacity"], mark_capacity=cfg["mark_capacity"],
+                     comment_capacity=cfg["comment_capacity"], mesh=mesh)
+    t0 = time.perf_counter()
+    insert_batch.launches = 0
+    report = batch.merge(workloads, cursors)
+    for card in cards:
+        torch.cuda.synchronize(card)
+    rga["mesh_docbatch"] = insert_batch.launches
+    for key in ("spans", "roots", "cursor_positions", "fallback_docs"):
+        if getattr(report, key) != getattr(clean, key):
+            raise AssertionError(f"mesh: DocBatch(mesh=) {key} differ from the meshless merge")
+    if rga["mesh_docbatch"] != mesh.size:
+        raise AssertionError(f"mesh: DocBatch(mesh=) launched K1 {rga['mesh_docbatch']} times "
+                             f"for {mesh.size} shards")
+    log(f"mesh: DocBatch(mesh=) on config 3 equals the meshless merge (spans, roots, cursors, "
+        f"fallback set), {rga['mesh_docbatch']} K1 launches, {time.perf_counter() - t0:.3f} s; "
+        f"stats {json.dumps(report.stats.to_json())}")
+
+    # (b) A_frames over the mesh in each layout, against phase 5's twin
+    cfg = STREAM
+    sessions = {}
+    for layout in ("padded", "paged", "ragged"):
+        name = f"A_frames_mesh_{layout}"
+        s, out = run_stream_session(device, cfg, ctx["workloads"], ctx["wire"], name,
+                                    capture=captures.get(layout), wire_bytes=ctx["wire_bytes"],
+                                    layout=layout, mesh=mesh)
+        compare_arms(name, out, ctx["a"], "A_default")
+        check_stream_session(name, s, out, ctx["workloads"], cfg, ctx["sample"], ctx["oracle_a"])
+        if layout == "ragged":
+            ragged[name] = out["ragged_insert_launches"]
+        else:
+            rga[name] = out["rga_insert_launches"]
+        log(f"mesh: {name} equals A on all {cfg['docs']} docs; {out['ops_per_second']:.1f} "
+            f"session ops/s against meshless A_frames' {ctx['frames_ops_per_second']:.1f} "
+            f"(ratio {out['ops_per_second'] / ctx['frames_ops_per_second']:.4f})")
+        sessions[layout] = s
+
+    # (d) a paged reshard under the mesh: pages move between shards
+    s = sessions.pop("paged")
+    digest, spans = s.digest(), s.read_all()
+    moves, counted = s.store.ici_page_moves, GLOBAL_COUNTERS.get("store.ici_page_moves")
+    t0 = time.perf_counter()
+    out = s.reshard()
+    seconds = time.perf_counter() - t0
+    moved = s.store.ici_page_moves - moves
+    if s.digest() != digest or s.digest(refresh=True) != digest or s.read_all() != spans:
+        raise AssertionError("mesh: the paged reshard changed a read or the digest")
+    if any(s.read_patches_all()):
+        raise AssertionError("mesh: the paged reshard changed a doc's characters")
+    if not out["moved"] or not moved or \
+            GLOBAL_COUNTERS.get("store.ici_page_moves") - counted != moved:
+        raise AssertionError(f"mesh: reshard moved {out['moved']} docs and {moved} pages "
+                             "between shards, and the counter must count them")
+    log(f"mesh: paged reshard in {seconds:.3f} s moved {out['moved']} docs and {moved} pages "
+        f"between shards; digest and reads unchanged; shard stats {json.dumps(s._mesh_stats())}")
+    del sessions, s
+
+    # (c) C_frames at full width over the mesh, against phase 5's C_frames
+    s_c, c = run_stream_session(device, cfg, ctx["workloads_c"], ctx["wire_c"], "C_frames_mesh",
+                                wire_bytes=ctx["wire_bytes_c"], mesh=mesh)
+    compare_arms("C_frames_mesh", c, ctx["cf"], "C_frames")
+    check_stream_session("C_frames_mesh", s_c, c, ctx["workloads_c"], cfg, ctx["sample_c"],
+                         ctx["oracle_c"])
+    rga["C_frames_mesh"] = c["rga_insert_launches"]
+    log(f"mesh: C_frames_mesh ({c['padded_docs']} rows, {mesh.size} shards of "
+        f"{c['padded_docs'] // mesh.size}) equals C_frames; peak memory by card "
+        f"{json.dumps(c['peak_memory_bytes_by_card'])}")
+    del s_c
+
+    # (e) the crash campaign with the mesh, restoring meshless
+    start = _phase_counts()
+    t0 = time.perf_counter()
+    redelivered = run_crash_restore(MESH["crash_seed"], num_docs=CRASH["docs"],
+                                    ops_per_doc=CRASH["ops"], mesh=mesh, device=device)
+    delta = _phase_delta(start)
+    _check_padded_launches("mesh crash restore", delta)
+    rga[f"mesh_crash_seed{MESH['crash_seed']}"] = delta["rga_insert"]
+    log(f"mesh: run_crash_restore seed {MESH['crash_seed']} ({CRASH['docs']} docs x "
+        f"{CRASH['ops']} ops) with the mesh, restored meshless, passed in "
+        f"{time.perf_counter() - t0:.3f} s, {redelivered} frames redelivered; launches "
+        f"{json.dumps(delta)}")
+    for layout, cap in captures.items():
+        if "args" not in cap:
+            raise AssertionError(f"mesh: no {layout} round of a shard was captured")
+    seconds = time.perf_counter() - t_phase
+    log(f"mesh: phase 5j took {seconds:.1f} s; K1 launches {json.dumps(rga)}, K3 launches "
+        f"{json.dumps(ragged)}")
+    if seconds > MESH["seconds"]:
+        raise AssertionError(f"mesh: phase 5j took {seconds:.1f} s, over {MESH['seconds']} s")
+    return rga, ragged, captures
 
 
 def round_need(workloads):
@@ -3480,6 +3646,9 @@ def run_all(device, jobs, ckpt_root) -> int:
                                                   ckpt_root / "planner")
     del planes_snap
     log(f"planner done at {time.perf_counter() - t_start:.1f} s")
+    mesh_paths, mesh_ragged_paths, captures_mesh = run_mesh(device, ctx,
+                                                            (workloads, cursors, slice_report))
+    log(f"mesh done at {time.perf_counter() - t_start:.1f} s")
     sup = dict(workloads=ctx["workloads"], wire=ctx["wire"], digest=ctx["a"]["digest"],
                spans=ctx["a"]["spans"])
     del ctx
@@ -3560,6 +3729,11 @@ def run_all(device, jobs, ckpt_root) -> int:
         raise AssertionError("planner: no round of a replay was captured")
     rows.append(check_insert("plan_replay_round", captures_plan["padded"].pop("args"),
                              loop_slots=captures_plan["padded"]["loop_slots"]))
+    mesh_args = captures_mesh["padded"].pop("args")
+    with torch.cuda.device(mesh_args[0].device):  # the shard's card
+        rows.append(check_insert("mesh_round", mesh_args,
+                                 loop_slots=captures_mesh["padded"]["loop_slots"]))
+    del mesh_args
     del capture, capture_frames, capture_paged, capture_bridge, capture_serve, capture_fleet
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
@@ -3580,6 +3754,10 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_rows += check_ragged("fused_ragged_round", captures_fused["ragged"].pop("args"))
     ragged_rows += check_ragged("differential_ragged_round", captures_chaos["ragged"].pop("args"))
     ragged_rows += check_ragged("plan_replay_ragged_round", captures_plan["ragged"].pop("args"))
+    mesh_args = captures_mesh["ragged"].pop("args")
+    with torch.cuda.device(mesh_args[0].device):  # the shard's card
+        ragged_rows += check_ragged("mesh_ragged_round", mesh_args)
+    del mesh_args
     del captures_fused, captures_chaos, captures_plan
     ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
         device, BATCH_8K["slots"],
@@ -3625,6 +3803,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths.update(chaos_paths["rga_insert"])
     rga_paths.update({f"planes_{n}": k for n, k in planes_launches.items() if n != "C_frames_ragged"})
     rga_paths["plan_replay"] = plan_launches["padded"]
+    rga_paths.update(mesh_paths)
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})
@@ -3634,6 +3813,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_paths.update(chaos_paths["ragged_insert"])
     ragged_paths["planes_C_frames_ragged"] = planes_launches["C_frames_ragged"]
     ragged_paths["plan_replay"] = plan_launches["ragged"]
+    ragged_paths.update(mesh_ragged_paths)
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

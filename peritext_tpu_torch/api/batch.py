@@ -25,6 +25,11 @@ Three storage layouts, with equal results:
 Semantically equivalent to constructing a fresh ``core.Doc`` per workload
 and replaying all changes.
 
+``mesh=`` (a parallel/mesh.Mesh; padded layout only, as in the
+reference) pads the doc axis to a multiple of the shard count and merges
+each shard's rows on its own device: one apply (one insert launch) and one
+resolve per shard.
+
 ``guard=True`` (opt-in) turns a failure of the device stages (apply and
 resolve) of a batch on the CPU into a whole-batch replay through the
 scalar oracle, recorded in the report, the ``merge.guarded_fallbacks``
@@ -35,6 +40,7 @@ with or without the guard, so no device fault is hidden behind the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Dict, List, NamedTuple, Optional, Sequence, Union
@@ -58,6 +64,7 @@ from ..ops.resolve import (
     resolve_cursors,
 )
 from ..parallel.causal import causal_sort
+from ..parallel.mesh import Mesh, pad_doc_axis
 from ..store.paged import DEFAULT_PAGE_SIZE, PagedDocStore, group_stream_arrays, plan_page_groups
 from ..store.ragged import ragged_plan
 from ..utils.device import resolve_device
@@ -108,7 +115,9 @@ class DocBatch:
     ragged layouts (default :data:`~peritext_tpu_torch.store.DEFAULT_PAGE_SIZE`),
     and must divide ``slot_capacity`` there.  ``device`` defaults to
     ``cuda``; with no card present, pass ``device="cpu"`` to run the plain
-    torch path.  ``guard`` (default off) degrades a CPU batch's merge whose
+    torch path.  ``mesh`` shards the padded layout's doc axis over a
+    parallel/mesh.Mesh (module doc); ``device`` then defaults to the first
+    shard's.  ``guard`` (default off) degrades a CPU batch's merge whose
     device stages fail to the scalar oracle; a card's faults always raise
     (module doc).
     """
@@ -128,6 +137,8 @@ class DocBatch:
     ) -> None:
         if layout not in ("padded", "paged", "ragged"):
             raise ValueError(f"unknown layout: {layout!r}")
+        if layout in ("paged", "ragged") and mesh is not None:
+            raise ValueError(f"layout={layout!r} does not support a mesh yet")
         self.layout = layout
         self.page_size = int(DEFAULT_PAGE_SIZE if page_size is None else page_size)
         if layout != "padded" and slot_capacity % self.page_size:
@@ -136,9 +147,13 @@ class DocBatch:
                 f"page_size {self.page_size} under layout={layout!r}"
             )
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md queue 1: 'Multi-GPU mesh')"
-            )
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+            if device is not None and torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's device type "
+                                 f"({mesh.device_type})")
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.guard = bool(guard)
         self.slot_capacity = slot_capacity
@@ -159,24 +174,72 @@ class DocBatch:
             mark_capacity=self.mark_capacity,
         )
 
-    def apply_encoded(self, encoded: EncodedBatch) -> PackedDocs:
-        """Run the batched apply on an encoded batch."""
-        arrays = encoded_arrays_of(encoded, self.device)
+    def apply_encoded(self, encoded: EncodedBatch):
+        """Run the batched apply on an encoded batch.  Under a mesh, returns
+        one PackedDocs per shard (its rows of the padded doc axis, on its
+        device), each applied by its own launch."""
+        if self.mesh is not None:
+            return [self._apply_on(enc, dev)
+                    for enc, dev in zip(self._shard_encoded(encoded), self.mesh.devices)]
+        return self._apply_on(encoded, self.device)
+
+    def _apply_on(self, encoded: EncodedBatch, device: torch.device) -> PackedDocs:
+        arrays = encoded_arrays_of(encoded, device)
         state = empty_docs(
             encoded.num_docs,
             self.slot_capacity,
             self.mark_capacity,
             tomb_capacity=arrays[3].shape[1],  # delete-stream width
             map_capacity=self.map_capacity,
-            device=self.device,
+            device=device,
         )
         return apply_batch(state, arrays)
 
+    def _shard_encoded(self, encoded: EncodedBatch) -> List[EncodedBatch]:
+        """The batch padded to a multiple of the mesh size (all-zero rows,
+        no-op streams) and split into one EncodedBatch per shard; each
+        shard's tables and fallback list hold its real docs, at local
+        indices."""
+        n, d = self.mesh.size, encoded.num_docs
+        r = -(-d // n)
+        pad = lambda a: pad_doc_axis(np.asarray(a), n)  # noqa: E731
+        arrays = dict(ins_ref=pad(encoded.ins_ref), ins_op=pad(encoded.ins_op),
+                      ins_char=pad(encoded.ins_char), del_target=pad(encoded.del_target),
+                      mark_count=pad(encoded.mark_count), map_count=pad(encoded.map_count),
+                      num_ops=pad(encoded.num_ops))
+        marks = {c: pad(a) for c, a in encoded.marks.items()}
+        maps = {c: pad(a) for c, a in encoded.map_ops.items()}
+        out = []
+        for s in range(n):
+            lo, hi = s * r, (s + 1) * r
+            out.append(dataclasses.replace(
+                encoded, **{k: a[lo:hi] for k, a in arrays.items()},
+                marks={c: a[lo:hi] for c, a in marks.items()},
+                map_ops={c: a[lo:hi] for c, a in maps.items()},
+                actor_tables=encoded.actor_tables[lo:hi], attr_tables=encoded.attr_tables[lo:hi],
+                map_tables=encoded.map_tables[lo:hi],
+                fallback_docs=[f - lo for f in encoded.fallback_docs if lo <= f < hi]))
+        return out
+
     def _device_padded(self, encoded: EncodedBatch, stats: MergeStats) -> List[_Group]:
-        with stage_timer(stats, "apply_seconds", self.device):
-            state = self.apply_encoded(encoded)
-        with stage_timer(stats, "resolve_seconds", self.device):
-            group = self._resolve_group(np.arange(encoded.num_docs), encoded, state)
+        """Apply and resolve the padded batch: one group, or under a mesh
+        one per shard, each on its shard's device."""
+        if self.mesh is None:
+            with stage_timer(stats, "apply_seconds", self.device):
+                state = self.apply_encoded(encoded)
+            with stage_timer(stats, "resolve_seconds", self.device):
+                groups = [self._resolve_group(np.arange(encoded.num_docs), encoded, state)]
+        else:
+            shards = self._shard_encoded(encoded)
+            with stage_timer(stats, "apply_seconds"):
+                states = [self._apply_on(enc, dev) for enc, dev in zip(shards, self.mesh.devices)]
+                self.mesh.synchronize()
+            r = shards[0].num_docs
+            with stage_timer(stats, "resolve_seconds"):
+                groups = [
+                    self._resolve_group(np.arange(s * r, min((s + 1) * r, encoded.num_docs)),
+                                        enc, state)
+                    for s, (enc, state) in enumerate(zip(shards, states))]
         widths = _stream_widths(encoded)
         capacity = encoded.num_docs * sum(widths)
         stats.padding_efficiency = (
@@ -189,7 +252,7 @@ class DocBatch:
                 occupancy_key(encoded.num_docs, *widths), int(encoded.num_ops.sum()), capacity,
                 origin="batch.merge")
             GLOBAL_DEVPROF.sample_memory(self.device)
-        return [group]
+        return groups
 
     # -- pooled layouts (store/) ---------------------------------------------
 
@@ -477,7 +540,8 @@ class DocBatch:
             cursor_elem = pack_cursor_rows(local, grp.state.elem_id.shape[0],
                                            lambda i: enc.actor_tables[i])
             positions = resolve_cursors(
-                grp.state, grp.resolved_dev.visible, torch.as_tensor(cursor_elem).to(self.device)
+                grp.state, grp.resolved_dev.visible,
+                torch.as_tensor(cursor_elem).to(grp.state.elem_id.device),
             ).cpu().numpy()
             for i, row in local.items():
                 out[int(grp.docs[i])] = [int(p) for p in positions[i, : len(row)]]

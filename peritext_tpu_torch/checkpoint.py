@@ -228,8 +228,10 @@ def restore_session(directory: str | Path, mesh=None, drain: bool = True,
     every doc's frame history in one bulk call (and draining, unless
     ``drain=False``), on
     ``device`` (default ``cuda``).  The ``StreamingMerge`` factory builds
-    the layout the config names (padded, paged or ragged).  ``mesh`` is
-    not ported and raises ``NotImplementedError``, as the session does."""
+    the layout the config names (padded, paged or ragged).  ``mesh`` (a
+    parallel/mesh.Mesh) restores onto a mesh, whatever mesh (or none) the
+    saved session ran on: the saved state is each doc's frame history, so
+    a mesh session restores meshless and the reverse, with equal digests."""
     from .parallel.streaming import StreamingMerge
 
     directory = Path(directory)

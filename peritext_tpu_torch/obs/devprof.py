@@ -306,8 +306,8 @@ class DeviceProfiler:
 
     def observe_mesh(self, stats: Dict[str, Any]) -> None:
         """Fold one mesh-shard snapshot in (latest kept whole, plus a peak
-        shard-imbalance watermark).  No session of this package reports
-        one yet: the device mesh is not ported."""
+        shard-imbalance watermark): a mesh session's ``_mesh_stats()``,
+        observed at the end of each of its commits."""
         with self._lock:
             self._mesh = dict(stats)
             ratio = float(stats.get("imbalance_ratio") or 0.0)

@@ -1,5 +1,16 @@
-"""Convergence digests of the document axis: the device functions and their
-host mirrors.
+"""The device mesh over the document axis, and the convergence digests:
+the device functions and their host mirrors.
+
+The merge workload is data-parallel over documents.  A :class:`Mesh` is an
+ordered tuple of torch devices, one per shard; shard ``s`` owns doc rows
+``[s * R, (s + 1) * R)`` of a doc axis padded to a multiple of the shard
+count (:func:`pad_doc_axis`, ``R = padded / size``), and every per-shard
+tensor lives on its shard's device (:func:`shard_docs`).  One process
+drives the whole mesh: kernels launch per shard on that shard's device,
+and what the reference's programs do with collectives is host-driven here
+(a digest is a host sum of the shards' uint32 partial sums; rows and pages
+move between shards as ``tensor.to(device)`` copies, peer copies between
+cards).
 
 Two sessions that converged hold equal digests.  The device functions hash
 every doc of a batch at once; the host mirrors hash one scalar-replay doc
@@ -14,19 +25,149 @@ and signed overflow is undefined in the CUDA kernels torch runs; so
 :func:`_mul32` multiplies by each constant in two 16-bit halves, keeping
 every partial product below 2**48.  Sums over slots and docs are int64
 sums of values below 2**32, masked at the end.
-
-The device mesh (``Mesh``, sharding) is not ported yet (ROADMAP.md queue 1
-item 11); only the digests live here.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..utils.interning import content_hash32
+from ..utils.platform import mesh_devices
+
+DOC_AXIS = "docs"
+
+
+class Mesh:
+    """A 1-D mesh over the doc axis: one torch device per shard, in shard
+    order (module doc).  Devices may repeat (virtual shards on one
+    device); a mesh that mixes device types raises.  Equal meshes hold
+    equal device tuples and axis names."""
+
+    def __init__(self, devices: Sequence[Union[str, torch.device]],
+                 axis_name: str = DOC_AXIS) -> None:
+        devs = tuple(torch.device(d) for d in devices)
+        if not devs:
+            raise ValueError("a mesh needs at least one device")
+        types = {d.type for d in devs}
+        if len(types) != 1:
+            raise ValueError(f"a mesh cannot mix device types: {sorted(types)}")
+        if devs[0].type not in ("cuda", "cpu"):
+            raise ValueError(f"a mesh runs on cuda or cpu devices, not {devs[0]}")
+        if devs[0].type == "cuda":
+            # a bare "cuda" names whichever card is current; a shard must
+            # stay on its card, so it is pinned to an index here
+            devs = tuple(d if d.index is not None else torch.device("cuda", 0) for d in devs)
+        self.devices: Tuple[torch.device, ...] = devs
+        self.axis_name = axis_name
+        self.axis_names = (axis_name,)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device_type(self) -> str:
+        return self.devices[0].type
+
+    def synchronize(self) -> None:
+        """Block until every card of the mesh has finished its queued work."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and (self.devices, self.axis_name) == (
+            other.devices, other.axis_name)
+
+    def __hash__(self) -> int:
+        return hash((self.devices, self.axis_name))
+
+    def __repr__(self) -> str:
+        return f"Mesh({[str(d) for d in self.devices]}, axis_name={self.axis_name!r})"
+
+
+def make_mesh(num_devices: Optional[int] = None, axis_name: str = DOC_AXIS, *,
+              device: Optional[Union[str, torch.device]] = None,
+              devices: Optional[Sequence[Union[str, torch.device]]] = None) -> Mesh:
+    """A 1-D mesh: over ``devices`` when given (repeats allowed), else over
+    ``num_devices`` shards from :func:`~..utils.platform.mesh_devices`
+    (the first cards by default, raising when too few exist; ``device=
+    "cpu"`` or ``"cuda:0"`` for virtual shards).  ``num_devices`` None
+    takes every card."""
+    if devices is not None:
+        if num_devices is not None and num_devices != len(devices):
+            raise ValueError(f"num_devices {num_devices} != {len(devices)} devices given")
+        return Mesh(devices, axis_name)
+    if num_devices is None:
+        if device is not None and torch.device(device).type == "cpu":
+            raise ValueError("a CPU mesh needs num_devices")
+        num_devices = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if num_devices == 0:
+            raise RuntimeError("need at least 1 CUDA device for a mesh, have 0; pass "
+                               "num_devices and device='cpu' for virtual shards")
+    return Mesh(mesh_devices(num_devices, device), axis_name)
+
+
+def doc_sharding(mesh: Mesh, num_rows: int) -> List[Tuple[int, int]]:
+    """The row range ``(lo, hi)`` each shard owns of a ``num_rows`` doc
+    axis (a multiple of the mesh size, :func:`pad_doc_axis`)."""
+    if num_rows % mesh.size:
+        raise ValueError(f"{num_rows} doc rows do not split into {mesh.size} equal shards")
+    r = num_rows // mesh.size
+    return [(s * r, (s + 1) * r) for s in range(mesh.size)]
+
+
+def pad_doc_axis(array, multiple: int):
+    """Pad the leading axis up to a multiple (shards need equal rows).
+    Padded rows are all-zero: PAD ops and empty docs, which the kernels
+    treat as no-ops.  Takes and returns a numpy array or a torch tensor."""
+    if int(multiple) < 1:
+        raise ValueError(f"pad multiple must be at least 1, got {multiple}")
+    d = array.shape[0]
+    target = -(-d // multiple) * multiple
+    if target == d:
+        return array
+    if isinstance(array, torch.Tensor):
+        pad = array.new_zeros((target - d,) + tuple(array.shape[1:]))
+        return torch.cat([array, pad])
+    return np.pad(array, [(0, target - d)] + [(0, 0)] * (array.ndim - 1))
+
+
+def _split_leaf(x, lo: int, hi: int, device: torch.device) -> torch.Tensor:
+    """Rows [lo, hi) of one leaf as a fresh tensor on ``device`` (never a
+    view of the source, even on the same device)."""
+    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
+    return t[lo:hi].to(device, copy=True)
+
+
+def shard_docs(tree, mesh: Mesh) -> list:
+    """Split every leaf's leading (doc) axis into the mesh's shards: returns
+    one tree per shard, its leaves torch tensors on the shard's device.
+    Leaves are tensors or numpy arrays; containers are named tuples,
+    tuples, lists and dicts (kept as such)."""
+    def rows(t):
+        if isinstance(t, dict):
+            return next((rows(v) for v in t.values()), None)
+        if isinstance(t, (tuple, list)):
+            return next((r for r in (rows(v) for v in t) if r is not None), None)
+        return int(t.shape[0])
+
+    total = rows(tree)
+    bounds = doc_sharding(mesh, total or 0)
+
+    def split(t, lo, hi, dev):
+        if isinstance(t, dict):
+            return {k: split(v, lo, hi, dev) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(split(v, lo, hi, dev) for v in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(split(v, lo, hi, dev) for v in t)
+        return _split_leaf(t, lo, hi, dev)
+
+    return [split(tree, lo, hi, dev) for (lo, hi), dev in zip(bounds, mesh.devices)]
 
 #: mask of one unsigned 32-bit word
 M32 = 0xFFFFFFFF

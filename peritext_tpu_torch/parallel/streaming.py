@@ -42,9 +42,13 @@ Design, as in the reference package's session:
   blocks behind the ``_row_of``/``_doc_at`` indirection; reads, ingest and
   digests do not see it.
 
-Ported here: every layout without a mesh, with object and frame ingest,
-``health()``, ``digest_async`` and ``reshard``.  The mesh is listed in
-ROADMAP.md (queue 1, item 11).
+* **Mesh** — ``mesh=`` (parallel/mesh.Mesh) shards the doc axis: it pads
+  to a multiple of the shard count, and each shard's rows are one block on
+  the shard's device.  A committed round launches the insert kernel once
+  per touched shard, on that shard's device; reads resolve and digests
+  hash per shard, and the digest sums the shards' uint32 partial sums on
+  the host.  :meth:`StreamingMerge.reshard` balances over the shards and
+  copies rows between their devices.
 """
 
 from __future__ import annotations
@@ -91,8 +95,10 @@ from ..utils.interning import Interner, OrderedActorTable
 from ..utils.shapes import next_pow2
 from .causal import causal_schedule
 from .codec import decode_frame, encode_frame, strip_trace_context
+from .mesh_fused import permute_shard_rows
 from .mesh import (
     M32,
+    Mesh,
     convergence_digest,
     doc_digest_host,
     per_doc_format_digest,
@@ -339,8 +345,9 @@ class StreamingMerge:
     plus ``device`` (default ``cuda``; raises without a card — pass
     ``device="cpu"`` for the plain torch path).  It is the factory of the
     layouts: ``layout="paged"`` or ``"ragged"`` builds the matching
-    subclass (store/session.py).  ``mesh=`` is not ported yet and raises
-    ``NotImplementedError``.
+    subclass (store/session.py).  ``mesh=`` (a parallel/mesh.Mesh) shards
+    the doc axis over the mesh's devices; ``device`` then defaults to the
+    first shard's and may only name the mesh's device type.
     """
 
     #: storage layout of this class (the page-pool subclasses override it)
@@ -393,12 +400,17 @@ class StreamingMerge:
         if layout not in ("padded", "paged", "ragged"):
             raise ValueError(f"unknown layout: {layout!r}")
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md queue 1 item 11: 'Multi-GPU mesh')")
-        self.device = resolve_device(device)
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+            if device is not None and torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's device type "
+                                 f"({mesh.device_type})")
+            self.device = resolve_device(mesh.devices[0])
+        else:
+            self.device = resolve_device(device)
         self.num_docs = num_docs
         self.actors = list(actors)
-        self.mesh = None
+        self.mesh = mesh
         self._slot_capacity = int(slot_capacity)
         self._mark_capacity = int(mark_capacity)
         self._tomb_capacity = int(tomb_capacity)
@@ -420,14 +432,18 @@ class StreamingMerge:
                            round_mark_capacity, round_map_capacity)
         self.comment_capacity = comment_capacity
         # sessions larger than a read block pad the doc axis to a block
-        # multiple; padded rows are permanently empty docs (all-zero streams
+        # multiple, mesh sessions to a shard multiple (each shard is one
+        # block); padded rows are permanently empty docs (all-zero streams
         # are no-ops), invisible in the public API
-        if num_docs > read_chunk:
+        if mesh is not None:
+            self._padded_docs = -(-num_docs // mesh.size) * mesh.size
+        elif num_docs > read_chunk:
             self._padded_docs = -(-num_docs // read_chunk) * read_chunk
         else:
             self._padded_docs = num_docs
         self._read_chunk_requested = read_chunk
-        self._read_chunk = max(1, min(read_chunk, max(num_docs, 1)))
+        self._read_chunk = (max(1, self._padded_docs // mesh.size) if mesh is not None
+                            else max(1, min(read_chunk, max(num_docs, 1))))
         self.docs = [_DocSession() for _ in range(num_docs)]
         self._quarantine: Dict[int, QuarantineRecord] = {}
         self.rounds = 0
@@ -496,11 +512,18 @@ class StreamingMerge:
         # slot window each round
         self._cum_ins = np.zeros(self._padded_docs, np.int64)
         # the page-pool layouts keep their element planes in the pool their
-        # subclass builds after this init: they have no (D, S) batch
-        self.state: Optional[PackedDocs] = empty_docs(
-            self._padded_docs, slot_capacity, mark_capacity, tomb_capacity,
-            map_capacity=map_capacity, device=self.device,
-        ) if self._layout == "padded" else None
+        # subclass builds after this init: they have no (D, S) batch.  A
+        # mesh session holds one (R, S) batch per shard, on its device
+        self.state: Optional[PackedDocs] = None
+        self._shard_state: Optional[List[PackedDocs]] = None
+        if self._layout == "padded" and mesh is None:
+            self.state = empty_docs(self._padded_docs, slot_capacity, mark_capacity,
+                                    tomb_capacity, map_capacity=map_capacity, device=self.device)
+        elif self._layout == "padded":
+            self._shard_state = [
+                empty_docs(self._read_chunk if self._padded_docs else 0, slot_capacity,
+                           mark_capacity, tomb_capacity, map_capacity=map_capacity, device=dev)
+                for dev in mesh.devices]
 
     # -- ingestion ---------------------------------------------------------
 
@@ -922,8 +945,9 @@ class StreamingMerge:
             return None, None, 0
         # adaptive widths: a power-of-two bucket per stream kind for trickle
         # rounds; block-chunked and static-round sessions keep the
-        # configured widths
-        if self._padded_docs <= self._read_chunk and not self.static_rounds:
+        # configured widths (a mesh is one logical block, as the
+        # reference's mesh session, whose one block is the padded batch)
+        if self._one_block() and not self.static_rounds:
             ki, kd, km, kp = self._round_widths(pool, obj_streams, ki, kd, km, kp)
 
         enc = _RoundBuffers(self._padded_docs, ki, kd, km, kp)
@@ -1098,9 +1122,15 @@ class StreamingMerge:
 
     def _fused_eligible(self) -> bool:
         """Whether a drain ends with the digest prefetch (when armed): the
-        compat switch is on and the session is one block.  Every round
-        commits the same way either way."""
-        return self.fused_pipeline and self._padded_docs <= self._read_chunk
+        compat switch is on and the session is one block, or a mesh (whose
+        blocks are its shards, as the reference's mesh sessions always
+        qualify).  Every round commits the same way either way."""
+        return self.fused_pipeline and self._one_block()
+
+    def _one_block(self) -> bool:
+        """A one-block session, or a mesh (whose blocks are shards of what
+        the reference's mesh session holds as one block)."""
+        return self.mesh is not None or self._padded_docs <= self._read_chunk
 
     def _loop_slots(self) -> Optional[int]:
         """The insert kernel's slot window for the round just admitted
@@ -1118,6 +1148,27 @@ class StreamingMerge:
             self._digest_row_valid[np.nonzero(enc.num_ops)[0]] = False
             self.rounds += 1
             GLOBAL_COUNTERS.add("streaming.rounds")
+        if self.mesh is not None and GLOBAL_DEVPROF.enabled:
+            GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())
+
+    def _mesh_stats(self) -> Dict:
+        """Per-shard load snapshot behind the ``peritext_mesh_*`` gauges:
+        shard count, per-shard cumulative admitted inserts (the padded
+        layout's live-slot proxy) and the max/mean imbalance ratio.  The
+        page-pool sessions report their pools' real per-shard occupancy."""
+        n = self.mesh.size
+        rows = self._padded_docs // n
+        per = np.asarray(self._cum_ins).reshape(n, rows).sum(axis=1)
+        mean = float(per.mean())
+        return {
+            "shards": n,
+            "rows_per_shard": rows,
+            "shard_load": [int(x) for x in per],
+            "shard_utilization": [round(float(x) / (rows * self._slot_capacity), 4)
+                                  for x in per],
+            "imbalance_ratio": round(float(per.max()) / mean, 4) if mean > 0 else 1.0,
+            "ici_page_moves": 0,
+        }
 
     @staticmethod
     def _flatten_round(enc: _RoundBuffers, widths, lo: int, hi: int):
@@ -1148,11 +1199,11 @@ class StreamingMerge:
         read block apply BLOCK-CHUNKED: each touched block's rows take their
         flat streams (every block padded to one shared power-of-two bucket
         per stream kind), apply on a view of the block, and are written back
-        into the session state in place; untouched blocks are not read.
-        Each touched block launches the insert kernel once
+        into the session state in place; untouched blocks are not read.  A
+        mesh session's blocks are its shards, each applied on its own
+        device.  Each touched block launches the insert kernel once
         (``streaming.block_applies`` counts them)."""
-        d = self._padded_docs
-        n_blocks = -(-d // self._read_chunk)
+        n_blocks = self._n_blocks()
         touched = [bi for bi in range(n_blocks)
                    if enc.num_ops[slice(*self._block_bounds(bi))].any()]
         if not touched:
@@ -1177,7 +1228,7 @@ class StreamingMerge:
             arrays["del"] = self._pad(dels, b_del)
             arrays.update({f"mark.{c}": self._pad(marks[c], b_mark) for c in MARK_COLS})
             arrays.update({f"map.{c}": self._pad(maps[c], b_map) for c in MAP_STREAM_COLS})
-            t = upload_int32(arrays, self.device)
+            t = upload_int32(arrays, self._block_device(bi))
             new = apply_batch_compact(
                 self._state_block(bi), tuple(t[f"n{j}"] for j in range(4)),
                 (t["ins0"], t["ins1"], t["ins2"]), t["del"],
@@ -1186,7 +1237,9 @@ class StreamingMerge:
                 widths=widths, insert_loop_slots=loop_slots,
             )
             GLOBAL_COUNTERS.add("streaming.block_applies")
-            if n_blocks == 1:
+            if self.mesh is not None:
+                self._shard_state[bi] = new
+            elif n_blocks == 1:
                 self.state = new
             else:
                 lo, hi = self._block_bounds(bi)
@@ -1212,13 +1265,14 @@ class StreamingMerge:
                 break
             with self.tracer.span("streaming.apply", rounds=len(batch)) as asp:
                 self._commit_rounds(batch)
-            if fused and self._COUNTS_FUSED_DISPATCHES:
+            if fused and (self._COUNTS_FUSED_DISPATCHES or self.mesh is not None):
                 GLOBAL_COUNTERS.add("streaming.fused_dispatches")
             self._emit_round_stats(batch, scheduled_total, ssp.duration, asp.duration,
                                    origin="streaming.fused" if fused else "streaming.round")
             rounds += len(batch)
         if rounds and fused and self.prefetch_digest:
-            self._digest_resolution(0)
+            for bi in range(self._n_blocks()):
+                self._digest_resolution(bi)
             GLOBAL_COUNTERS.add("streaming.digest_chained")
         self._sweep_decode_quarantine()
         return rounds
@@ -1276,10 +1330,19 @@ class StreamingMerge:
         return lo, min(lo + self._read_chunk, self._padded_docs)
 
     def _n_blocks(self) -> int:
+        if self.mesh is not None:
+            return self.mesh.size
         return -(-self._padded_docs // self._read_chunk)
 
+    def _block_device(self, block_index: int) -> torch.device:
+        """The device a block's state lives on: its shard's under a mesh."""
+        return self.mesh.devices[block_index] if self.mesh is not None else self.device
+
     def _state_block(self, block_index: int) -> PackedDocs:
-        """The session state's rows of one block (views, not copies)."""
+        """The session state's rows of one block (views, not copies; a mesh
+        session's block is its shard's own state)."""
+        if self._shard_state is not None:
+            return self._shard_state[block_index]
         lo, hi = self._block_bounds(block_index)
         if lo == 0 and hi == self._padded_docs:
             return self.state
@@ -1311,7 +1374,7 @@ class StreamingMerge:
         on_device = self._block_fallback_mask(block_index)
         with self.tracer.span("streaming.resolve", block=block_index):
             resolved, digest_dev = self._block_resolve_digest(
-                block_index, torch.from_numpy(on_device).to(self.device))
+                block_index, torch.from_numpy(on_device).to(self._block_device(block_index)))
         entry = _BlockResolution(resolved, digest_dev, on_device)
         if len(cache) >= 2:  # bound device memory at large scale
             cache.pop(next(iter(cache)))  # least-recently-used
@@ -1415,7 +1478,7 @@ class StreamingMerge:
             cursor_elem = pack_cursor_rows(local_map, hi - lo, lambda d: self._actor_table)
             positions = resolve_cursors(
                 self._state_block(bi), self._resolution(bi).device.visible,
-                torch.from_numpy(cursor_elem).to(self.device),
+                torch.from_numpy(cursor_elem).to(self._block_device(bi)),
             ).cpu().numpy()
             for d, cursors in block_map.items():
                 out[d] = [int(p) for p in positions[int(self._row_of[d]) - lo, : len(cursors)]]
@@ -1605,14 +1668,16 @@ class StreamingMerge:
             return cached[1]
         tables = self._hash_tables(hi - lo, sess_attr, sess_keys,
                                    {row - lo: e for row, e in enc.items()}, comments,
-                                   _width_bucket(len(enc)) if enc else 0)
+                                   _width_bucket(len(enc)) if enc else 0,
+                                   self._block_device(lo // self._read_chunk))
         self._digest_tables_cache[(lo, hi)] = (key, tables)
         return tables
 
-    def _digest_tables_rows(self, rows: np.ndarray, n_real: int):
+    def _digest_tables_rows(self, rows: np.ndarray, n_real: int, device: torch.device):
         """:meth:`_digest_tables` for a GATHERED row subset, by position in
-        ``rows``; only the first ``n_real`` positions are real (the rest is
-        power-of-two padding whose table entries stay zero)."""
+        ``rows``, on ``device``; only the first ``n_real`` positions are
+        real (the rest is power-of-two padding whose table entries stay
+        zero)."""
         enc, comments = {}, {}
         for i in range(n_real):
             d = int(self._doc_at[rows[i]])
@@ -1625,10 +1690,10 @@ class StreamingMerge:
                 enc[i] = self.docs[d].encoder
         return self._hash_tables(len(rows), self._frame_attrs.content_hashes(),
                                  self._map_keys.content_hashes(), enc, comments,
-                                 _width_bucket(len(enc)) if enc else 0)
+                                 _width_bucket(len(enc)) if enc else 0, device)
 
     def _hash_tables(self, n_rows: int, sess_attr, sess_keys, enc: Dict[int, DocEncoder],
-                     comments: Dict[int, Interner], n_obj: int):
+                     comments: Dict[int, Interner], n_obj: int, device: torch.device):
         a_w = _width_bucket(max([len(sess_attr)] + [len(e.attrs) for e in enc.values()]))
         k_w = _width_bucket(max([len(sess_keys)] + [len(e.keys) for e in enc.values()]))
         c_w = self.comment_capacity
@@ -1653,7 +1718,7 @@ class StreamingMerge:
         for row, table in comments.items():  # frame docs' per-doc comment ids
             ch = table.content_hashes()
             comment_hash[row, : min(c_w, len(ch))] = ch[: min(c_w, len(ch))]
-        t = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
         return (t(sess_attr_t), t(sess_key_t), t(comment_hash), t(row_map),
                 t(obj_attr), t(obj_key))
 
@@ -1666,19 +1731,35 @@ class StreamingMerge:
                 on_dev[self._row_of[d]] = True
         return on_dev
 
+    def _rows_digest_parts(self, rest: np.ndarray) -> list:
+        """``[(rows, per_doc, overflow), ...]``: the sub-batch hash programs
+        of dirty rows ``rest``, one per shard that holds some under a mesh
+        (each on its device), else one."""
+        if self.mesh is None:
+            return [(rest, *self._schedule_rows_digest(rest))]
+        shard = rest // self._read_chunk
+        return [(rest[shard == s], *self._schedule_rows_digest(rest[shard == s]))
+                for s in np.unique(shard)]
+
     def _schedule_rows_digest(self, rest: np.ndarray):
-        """The gathered sub-batch hash program for dirty rows ``rest``
-        (padded to a power of two); returns ``(per_doc, overflow)`` on the
-        card — the first ``len(rest)`` entries are the rows'."""
+        """The gathered sub-batch hash program for dirty rows ``rest`` (of
+        one shard under a mesh), padded to a power of two; returns
+        ``(per_doc, overflow)`` on the rows' device — the first
+        ``len(rest)`` entries are the rows'."""
         k = _width_bucket(len(rest))
         rows_idx = np.zeros(k, np.int64)
         rows_idx[: len(rest)] = rest
         mask = np.zeros(k, bool)
         mask[: len(rest)] = True
-        idx = torch.from_numpy(rows_idx).to(self.device)
-        sub = PackedDocs(*(x[idx] for x in self.state))
-        return _rows_digest(sub, self.comment_capacity, torch.from_numpy(mask).to(self.device),
-                            *self._digest_tables_rows(rows_idx, len(rest)))
+        bi = int(rest[0]) // self._read_chunk if self.mesh is not None else 0
+        dev = self._block_device(bi)
+        local = rows_idx.copy()
+        local[: len(rest)] -= self._block_bounds(bi)[0]
+        idx = torch.from_numpy(local).to(dev)
+        state = self._state_block(bi) if self.mesh is not None else self.state
+        sub = PackedDocs(*(x[idx] for x in state))
+        return _rows_digest(sub, self.comment_capacity, torch.from_numpy(mask).to(dev),
+                            *self._digest_tables_rows(rows_idx, len(rest), dev))
 
     def _refresh_digest_rows(self) -> np.ndarray:
         """Bring the carried per-row hash plane current for every on-device
@@ -1699,9 +1780,9 @@ class StreamingMerge:
                 need[lo:hi] = False
         rest = np.nonzero(need)[0]
         if len(rest):
-            per_doc, ov = self._schedule_rows_digest(rest)
-            self._digest_plane[rest] = per_doc.cpu().numpy()[: len(rest)].astype(np.uint32)
-            self._digest_ov[rest] = ov.cpu().numpy()[: len(rest)]
+            for rows, per_doc, ov in self._rows_digest_parts(rest):
+                self._digest_plane[rows] = per_doc.cpu().numpy()[: len(rows)].astype(np.uint32)
+                self._digest_ov[rows] = ov.cpu().numpy()[: len(rows)]
             self._digest_row_valid[rest] = True
         return on_dev
 
@@ -1741,7 +1822,7 @@ class StreamingMerge:
             for bi in range(self._n_blocks()):
                 lo, hi = self._block_bounds(bi)
                 digest, overflow = self._block_text_digest(
-                    bi, torch.from_numpy(on_device_all[lo:hi]).to(self.device))
+                    bi, torch.from_numpy(on_device_all[lo:hi]).to(self._block_device(bi)))
                 total = (total + int(digest)) & M32
                 ov = overflow.cpu().numpy()
                 replay_docs.extend(
@@ -1785,8 +1866,7 @@ class StreamingMerge:
                 need[lo:hi] = False
         rest = np.nonzero(need)[0]
         if len(rest):
-            per_doc, ov = self._schedule_rows_digest(rest)
-            parts.append((rest, per_doc, ov))
+            parts.extend(self._rows_digest_parts(rest))
         snapshot = (
             self._digest_plane.copy(), self._digest_ov.copy(), self._digest_row_valid.copy(),
             on_dev, self._doc_at.copy(), [i for i, s in enumerate(self.docs) if s.fallback],
@@ -1796,11 +1876,13 @@ class StreamingMerge:
     def doc_digest(self, doc_index: int) -> int:
         """ONE doc's full-state convergence hash — exactly the per-doc term
         :meth:`digest` sums, so ``sum(doc_digest(i)) mod 2**32 == digest()``;
-        comparable across sessions."""
+        comparable across sessions.  A doc whose carried hash is current
+        reads it without a refresh pass (which walks every doc)."""
         if not self.docs[doc_index].fallback:
-            on_device_all = self._refresh_digest_rows()
             row = int(self._row_of[doc_index])
-            if on_device_all[row] and not self._digest_ov[row]:
+            if not self._digest_row_valid[row]:
+                self._refresh_digest_rows()
+            if not self._digest_ov[row]:
                 return int(self._digest_plane[row])
         return self._host_digest(doc_index)
 
@@ -1880,8 +1962,9 @@ class StreamingMerge:
     # -- placement -------------------------------------------------------------
 
     def reshard(self, assignment: Optional[Sequence[int]] = None) -> dict:
-        """Balance doc placement across shards, here the read blocks (a
-        block bounds a read's and a digest's latency).
+        """Balance doc placement across shards: the mesh's shards, or
+        without a mesh the read blocks (a block bounds a read's and a
+        digest's latency).
 
         Docs are placed at first sight and never move otherwise, so skewed
         arrival leaves hot blocks.  This moves doc rows between blocks by
@@ -1969,16 +2052,25 @@ class StreamingMerge:
     def _reshard_sizes(self) -> np.ndarray:
         """(num_docs,) per-doc load for reshard's balancing: live device
         slots (the page-pool layouts balance pages)."""
-        return self.state.num_slots.cpu().numpy()[self._row_of[: self.num_docs]]
+        states = self._shard_state if self.mesh is not None else [self.state]
+        slots = np.concatenate([st.num_slots.cpu().numpy() for st in states])
+        return slots[self._row_of[: self.num_docs]]
 
     def _permute_rows(self, src: np.ndarray) -> None:
-        """New row r takes old row src[r]: one gather over the doc axis."""
+        """New row r takes old row src[r]: one gather over the doc axis, or
+        under a mesh one per destination shard from every source shard."""
+        if self.mesh is not None:
+            self._shard_state = permute_shard_rows(self._shard_state, src, self.mesh)
+            return
         idx = torch.from_numpy(src).to(self.device)
         self.state = PackedDocs(*(x[idx] for x in self.state))
 
     def sync_device(self) -> None:
-        """Block until all queued device work has completed."""
-        if self.device.type == "cuda":
+        """Block until all queued device work has completed (on every card
+        of a mesh)."""
+        if self.mesh is not None:
+            self.mesh.synchronize()
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
 

@@ -91,8 +91,9 @@ class GuardedSession:
     given one) and a :class:`~..obs.FlightRecorder` ring dumping JSONL
     under ``<checkpoint_root>/flight`` on quarantine and rollback; both are
     attached to the supervised session (and re-attached across restores)
-    so round/stage spans land in the ring.  ``mesh=`` is not ported and
-    raises ``NotImplementedError``, as the session does.
+    so round/stage spans land in the ring.  ``mesh=`` is the mesh the
+    factory's sessions run on (parallel/mesh.Mesh): a rollback restores
+    onto it.
     """
 
     def __init__(
@@ -115,9 +116,6 @@ class GuardedSession:
     ) -> None:
         from ..checkpoint import CheckpointManager
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md queue 1 item 11: 'Multi-GPU mesh')")
         self._factory = factory
         self.tracer = tracer if tracer is not None else Tracer()
         self.recorder = recorder if recorder is not None else FlightRecorder(

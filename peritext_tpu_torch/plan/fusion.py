@@ -92,8 +92,8 @@ class FusionGroup:
     ``shard_rows`` mid-shard (bases bump to the next shard boundary when
     the block would spill over), so one tenant's window drain touches
     whole shards or stays inside one (the placement a mesh-sharded lane
-    needs; the port's lanes run on one card, the alignment is kept so
-    the plans equal the reference's).
+    needs: a lane session built with ``mesh=`` shards its rows in blocks
+    of ``shard_rows``).
     """
 
     def __init__(self, tenants: Sequence[TenantSpec],

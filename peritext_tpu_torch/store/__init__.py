@@ -12,6 +12,8 @@ work scale with each doc's own size.
   plumbing over ``ops.kernel.apply_batch_paged``.
 * :mod:`.ragged`: :func:`ragged_plan`, the flat pool view that
   ``ops.ragged.apply_batch_ragged`` walks in place, and its cache.
+* :mod:`.sharded`: :class:`ShardedPagedDocStore`, the pool split into
+  one pool per mesh shard, each on its shard's device.
 * :mod:`.session`: :class:`PagedStreamingMerge` and
   :class:`RaggedStreamingMerge`, the streaming session over the pool
   (``StreamingMerge(layout="paged" | "ragged")``).

@@ -24,7 +24,15 @@ document state lives and what each round launches:
   digests are bit-equal to a padded session's, the oracle between the
   layouts.
 * **reshard()** — balances pages, the resource the pool spends: page
-  tables and aux rows move, pages do not.
+  tables and aux rows move, pages do not (under a mesh, the pages of docs
+  that change shard move between the shards' pools).
+* **Mesh** — under ``mesh=`` the pool is a store/sharded.
+  ShardedPagedDocStore: one pool and aux block per shard, on its device.
+  A paged round plans its page groups per shard and launches the insert
+  kernel once per (round, shard, group); a ragged round launches the
+  ragged insert kernel once per (round, touched shard, non-empty doc
+  class), over that shard's plan (cached per allocation epoch and shard
+  pool size).  Read blocks are the shards.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from ..obs import GLOBAL_COUNTERS, GLOBAL_DEVPROF, occupancy_key
 from ..ops.insert import SMEM_BUDGET
 from ..ops.kernel import apply_batch_paged_groups
 from ..ops.packed import PackedDocs
-from ..ops.ragged import apply_batch_ragged
+from ..ops.ragged import apply_batch_ragged, plan_arrays
 from ..ops.ragged_insert import ragged_teams
 from ..ops.resolve import resolve
 from ..parallel.mesh import M32, _PAD_SEED, _av_host, per_doc_text_digest
@@ -52,6 +60,7 @@ from ..parallel.streaming import (
 from ..utils.shapes import next_pow2
 from .paged import DEFAULT_PAGE_SIZE, PagedDocStore, group_stream_arrays, plan_page_groups
 from .ragged import PlanCache
+from .sharded import ShardedPagedDocStore
 
 #: one pad slot's term of the per-doc text hash (mesh.per_doc_text_digest
 #: adds it per non-visible slot; doc_digest_host multiplies it by the pad
@@ -69,7 +78,7 @@ def _pad_corrected(per_doc: torch.Tensor, mask: torch.Tensor, pad_slots: int) ->
 class PagedStreamingMerge(StreamingMerge):
     """StreamingMerge whose element planes live in a page pool (module
     doc).  ``static_rounds`` (the one-shape serving discipline) stays on the
-    padded layout; ``mesh=`` is not ported (ROADMAP.md queue 1 item 11)."""
+    padded layout; under ``mesh=`` the pool shards (module doc)."""
 
     _layout = "paged"
     _COUNTS_FUSED_DISPATCHES = False
@@ -90,12 +99,13 @@ class PagedStreamingMerge(StreamingMerge):
             raise ValueError(
                 f"slot_capacity {self._slot_capacity} must be a multiple of "
                 f"page_size {self.page_size} under layout={self._layout!r}")
-        self._store = PagedDocStore(
-            self._padded_docs, slot_capacity=self._slot_capacity,
-            mark_capacity=self._mark_capacity, tomb_capacity=self._tomb_capacity,
-            map_capacity=self._map_capacity, page_size=self.page_size,
-            initial_pages=pool_pages, max_pool_pages=max_pool_pages, device=self.device,
-        )
+        sizes = dict(slot_capacity=self._slot_capacity, mark_capacity=self._mark_capacity,
+                     tomb_capacity=self._tomb_capacity, map_capacity=self._map_capacity,
+                     page_size=self.page_size, initial_pages=pool_pages,
+                     max_pool_pages=max_pool_pages)
+        self._store = (
+            ShardedPagedDocStore(self._padded_docs, self.mesh, **sizes) if self.mesh is not None
+            else PagedDocStore(self._padded_docs, device=self.device, **sizes))
         #: materialized read blocks of one (round, placement, allocation)
         #: state, at most two
         self._mat_cache: tuple = (None, {})
@@ -113,16 +123,48 @@ class PagedStreamingMerge(StreamingMerge):
     def health(self) -> Dict:
         return dict(super().health(), layout=self._layout, page_pool=self._store.pool_stats())
 
+    def _mesh_stats(self) -> Dict:
+        """The pool's real per-shard occupancy and the count of pages moved
+        between shards."""
+        return dict(self._store.shard_stats())
+
+    def _shard_tensors(self, shard: Optional[int]):
+        """``(device, (pool_elem, pool_char, aux))`` of one shard's pool
+        (``shard`` None: the meshless pool)."""
+        store = self._store
+        if shard is None:
+            return self.device, (store.pool_elem, store.pool_char, store.aux)
+        return self.mesh.devices[shard], store.shard_tensors(shard)
+
+    def _page_groups(self, rows: np.ndarray):
+        """``[(bucket_pages, rows_bucket, [(shard, rows), ...]), ...]``: a
+        round's touched rows by power-of-two page bucket.  Under a mesh
+        each bucket is planned per shard, every shard at the bucket's
+        largest shard row count (shards short of rows pad with no-op rows,
+        as the reference's mesh commit does); meshless, shard is None."""
+        store = self._store
+        groups = plan_page_groups(rows, store.num_pages, store.max_doc_pages)
+        if self.mesh is None:
+            return [(g, next_pow2(len(g_rows)), [(None, g_rows)]) for g, g_rows in groups]
+        r = store.rows_per_shard
+        out = []
+        for g, g_rows in groups:
+            per_shard = [(k, g_rows[g_rows // r == k]) for k in range(store.n_shards)]
+            out.append((g, next_pow2(max(len(v) for _, v in per_shard)), per_shard))
+        return out
+
     # -- the device half of a round ------------------------------------------
 
     def _commit_rounds(self, batch) -> None:
         """Commit scheduled rounds in causal order: per round, the touched
-        rows get their pages (host), group by page bucket, and each group
-        applies at its own width, one insert launch each.  Each group's page
-        table is taken when it is planned.  Profiled, each group lands in
-        the occupancy table (the reference's label: ``streaming.paged.fused``
-        with ``fused_pipeline``, else ``streaming.paged``) and the batch
-        ends with a page-pool snapshot."""
+        rows get their pages (host), group by page bucket
+        (:meth:`_page_groups`, per shard under a mesh), and each group
+        applies at its own width, one insert launch each (per shard).  Each
+        group's page table is taken when it is planned.  Profiled, each
+        group lands in the occupancy table (the reference's label:
+        ``streaming.paged.fused`` with ``fused_pipeline``, else
+        ``streaming.paged``) and the batch ends with a page-pool snapshot
+        (and a mesh one)."""
         store = self._store
         origin = "streaming.paged.fused" if self.fused_pipeline else "streaming.paged"
         for enc, widths in batch:
@@ -131,26 +173,31 @@ class PagedStreamingMerge(StreamingMerge):
             cap = 0
             if len(rows):
                 store.ensure_rows(rows, self._cum_ins[rows])
-                inputs = []
-                for g, g_rows in plan_page_groups(rows, store.num_pages, store.max_doc_pages):
-                    b = next_pow2(len(g_rows))
-                    row_idx, table = store.group_plan(g_rows, g, pad_rows_to=b)
-                    inputs.append((torch.from_numpy(row_idx).to(self.device),
-                                   torch.from_numpy(table).to(self.device),
-                                   group_stream_arrays(enc, g_rows, b, self.device)))
-                    cap += b * sum(widths)
+                launches: Dict = {}
+                for g, b, per_shard in self._page_groups(rows):
+                    for shard, s_rows in per_shard:
+                        dev, _ = self._shard_tensors(shard)
+                        row_idx, table = store.group_plan(s_rows, g, pad_rows_to=b)
+                        launches.setdefault(shard, []).append((
+                            torch.from_numpy(row_idx).to(dev), torch.from_numpy(table).to(dev),
+                            group_stream_arrays(enc, s_rows, b, dev)))
+                    paid = b * len(per_shard) * sum(widths)
+                    cap += paid
                     if GLOBAL_DEVPROF.enabled:
-                        GLOBAL_DEVPROF.observe_round(
-                            occupancy_key(b, *widths), int(enc.num_ops[g_rows].sum()),
-                            b * sum(widths), origin=origin)
-                apply_batch_paged_groups(store.pool_elem, store.pool_char, store.aux, inputs)
-                GLOBAL_COUNTERS.add("streaming.group_applies", len(inputs))
+                        real = sum(int(enc.num_ops[v].sum()) for _, v in per_shard)
+                        GLOBAL_DEVPROF.observe_round(occupancy_key(b * len(per_shard), *widths),
+                                                     real, paid, origin=origin)
+                for shard, inputs in launches.items():
+                    apply_batch_paged_groups(*self._shard_tensors(shard)[1], inputs)
+                    GLOBAL_COUNTERS.add("streaming.group_applies", len(inputs))
                 self._digest_row_valid[rows] = False
             self._commit_caps[id(enc)] = cap
             self.rounds += 1
             GLOBAL_COUNTERS.add("streaming.rounds")
         if GLOBAL_DEVPROF.enabled:
             GLOBAL_DEVPROF.observe_page_pool(store.pool_stats())
+            if self.mesh is not None:
+                GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())
 
     def _round_capacity(self, enc, widths) -> int:
         """What the launched groups paid (row bucket x widths, per group),
@@ -211,9 +258,10 @@ class PagedStreamingMerge(StreamingMerge):
         mask[: len(rest)] = True
         g = self._store.width_for_rows(rest)
         sub = self._store.materialize_rows(rest, g, pad_rows_to=k)
-        mask_t = torch.from_numpy(mask).to(self.device)
+        dev = sub.elem_id.device
+        mask_t = torch.from_numpy(mask).to(dev)
         per_doc, ov = _rows_digest(sub, self.comment_capacity, mask_t,
-                                   *self._digest_tables_rows(rows_idx, len(rest)))
+                                   *self._digest_tables_rows(rows_idx, len(rest), dev))
         return _pad_corrected(per_doc, mask_t & ~ov, self._pad_slots(sub)), ov
 
     # -- placement: pages are the load -----------------------------------------
@@ -252,6 +300,9 @@ class RaggedStreamingMerge(PagedStreamingMerge):
             raise ValueError(f"RaggedStreamingMerge is layout='ragged', got {layout!r}")
         super().__init__(num_docs, actors, *args, layout="paged", **kwargs)
         self._plan_cache = PlanCache()
+        #: the mesh form: ((alloc_epoch, pages per shard), [(plan, planes)
+        #: per shard])
+        self._mesh_plans: tuple = (None, None)
 
     def _round_widths(self, pool, obj_streams, ki, kd, km, kp):
         """Round widths stay at the session caps, as the reference's ragged
@@ -265,35 +316,62 @@ class RaggedStreamingMerge(PagedStreamingMerge):
         allocator state changed (store/ragged.PlanCache)."""
         return self._plan_cache.get(self._store)
 
+    def _shard_planes(self):
+        """Under a mesh, ``[(plan, plan planes), ...]`` per shard, each
+        shard's on its device (ShardedPagedDocStore.ragged_shard_plan),
+        rebuilt only when the allocation epoch or the shard pool size
+        changed."""
+        store = self._store
+        key = (store.alloc_epoch, store.pages_per_shard)
+        if self._mesh_plans[0] != key:
+            plans = [store.ragged_shard_plan(s) for s in range(store.n_shards)]
+            self._mesh_plans = (key, [(plan, plan_arrays(plan, dev))
+                                      for plan, dev in zip(plans, self.mesh.devices)])
+        return self._mesh_plans[1]
+
+    def _launch_plans(self, rows: np.ndarray):
+        """``[(device, (pool_elem, pool_char, aux), row slice of the
+        launch, (plan, planes)), ...]``: the whole pool meshless, else each
+        shard that holds a row with ops."""
+        if self.mesh is None:
+            return [(*self._shard_tensors(None), slice(0, self._padded_docs),
+                     self._ragged_planes())]
+        planes = self._shard_planes()
+        r = self._store.rows_per_shard
+        return [(*self._shard_tensors(s), slice(s * r, (s + 1) * r), planes[s])
+                for s in np.unique(rows // r)]
+
     def _commit_round_ragged(self, enc, widths) -> None:
         """One round: one ragged apply over every row (one insert launch per
-        non-empty doc class of the plan)."""
+        non-empty doc class of the plan); under a mesh one per shard that
+        holds a row with ops, over that shard's rows."""
         store = self._store
         rows = np.nonzero(enc.num_ops)[0]
         if len(rows):
             store.ensure_rows(rows, self._cum_ins[rows])
-        plan, planes = self._ragged_planes()
-        row_idx, owner, pos_base, prev_page, page_count, page_table = planes
-        ins_host = np.ascontiguousarray(enc.ins_count, np.int32)
-        apply_batch_ragged(
-            store.pool_elem, store.pool_char, store.aux, row_idx, owner, pos_base, prev_page,
-            page_count, page_table, group_stream_arrays(enc, None, self._padded_docs, self.device),
-            torch.from_numpy(ins_host).to(self.device), page_count_host=plan.page_count,
-            ins_counts_host=ins_host,
-        )
-        # the doc classes of the launch plan (their split does not depend
-        # on the card's SM count)
-        classes = ragged_teams(plan.page_count, store.page_size, plan.page_table.shape[1],
-                               SMEM_BUDGET, 1)
-        GLOBAL_COUNTERS.add("streaming.ragged_applies", len(classes))
+        docs_walked = pages_walked = 0
+        for dev, tensors, l_rows, (plan, planes) in self._launch_plans(rows):
+            ins_host = np.ascontiguousarray(enc.ins_count[l_rows], np.int32)
+            apply_batch_ragged(
+                *tensors, *planes, group_stream_arrays(enc, l_rows, plan.num_rows, dev),
+                torch.from_numpy(ins_host).to(dev), page_count_host=plan.page_count,
+                ins_counts_host=ins_host,
+            )
+            # the doc classes of the launch plan (their split does not depend
+            # on the card's SM count)
+            classes = ragged_teams(plan.page_count, store.page_size, plan.page_table.shape[1],
+                                   SMEM_BUDGET, 1)
+            GLOBAL_COUNTERS.add("streaming.ragged_applies", len(classes))
+            docs_walked += plan.docs_walked
+            pages_walked += plan.pages_walked
         # no bucket rows, no padded steps: the capacity paid is the real work
         real = int(enc.num_ops.sum())
         self._commit_caps[id(enc)] = real
         if GLOBAL_DEVPROF.enabled:
             GLOBAL_DEVPROF.observe_round(occupancy_key(self._padded_docs, *widths), real,
                                          max(real, 1), origin="streaming.ragged")
-            GLOBAL_DEVPROF.observe_ragged(docs_walked=plan.docs_walked,
-                                          pages_walked=plan.pages_walked, real_ops=real)
+            GLOBAL_DEVPROF.observe_ragged(docs_walked=docs_walked,
+                                          pages_walked=pages_walked, real_ops=real)
         if len(rows):
             self._digest_row_valid[rows] = False
         self.rounds += 1
@@ -305,3 +383,5 @@ class RaggedStreamingMerge(PagedStreamingMerge):
             self._commit_round_ragged(enc, widths)
         if GLOBAL_DEVPROF.enabled:
             GLOBAL_DEVPROF.observe_page_pool(self._store.pool_stats())
+            if self.mesh is not None:
+                GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())

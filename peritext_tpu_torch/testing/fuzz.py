@@ -288,13 +288,14 @@ def sample_cursors(workloads, per_doc: int, seed: int) -> List[List[dict]]:
 
 def run_differential(
     seed: int, num_docs: int, ops_per_doc: int, batch=None, cursors_per_doc: int = 4,
-    device: Optional[Union[str, torch.device]] = None,
+    device: Optional[Union[str, torch.device]] = None, mesh=None,
 ) -> int:
     """Device-vs-oracle differential round: generate ``num_docs`` fuzz
     workloads, converge them through the batched device path AND the scalar
     oracle, and assert identical spans plus identical resolved cursors.
     ``batch`` is a :class:`~..api.batch.DocBatch` of any layout (default: a
-    padded one on ``device``, itself defaulting to ``cuda``).  Returns the
+    padded one on ``device``, itself defaulting to ``cuda``, over ``mesh``
+    when given).  Returns the
     number of device-resolved docs (0 would mean the batch config routed
     everything to fallback — a test-setup bug, so it raises)."""
     from ..api.batch import DocBatch, _oracle_doc
@@ -302,7 +303,7 @@ def run_differential(
 
     if batch is None:
         batch = DocBatch(slot_capacity=512, mark_capacity=128, comment_capacity=32,
-                         device=device)
+                         device=device, mesh=mesh)
     workloads = generate_workload(seed, num_docs=num_docs, ops_per_doc=ops_per_doc)
 
     rng = random.Random(seed ^ 0x5EED)
@@ -363,7 +364,8 @@ def run_differential(
 def _campaign_session(num_docs: int, ops_per_doc: int, mesh=None,
                       device: Optional[Union[str, torch.device]] = None):
     """The streaming-session configuration shared by every streaming fuzz
-    campaign (capacities scale with the workload's op count)."""
+    campaign (capacities scale with the workload's op count), over ``mesh``
+    when given."""
     from ..parallel.streaming import StreamingMerge
 
     return StreamingMerge(
@@ -389,8 +391,8 @@ def run_differential_frames(
     device rounds; a patch consumer accumulates each doc's incremental
     ``read_patches`` stream every round.  Final spans AND the accumulated
     patch streams must equal the scalar oracle.  The session runs on
-    ``device`` (default ``cuda``); ``mesh`` is not ported and raises.
-    Returns the number of docs that stayed on the frame fast path."""
+    ``device`` (default ``cuda``), over ``mesh`` when given.  Returns the
+    number of docs that stayed on the frame fast path."""
     from ..api.batch import _oracle_doc
     from ..core.comment import Comment, put_comment
     from ..parallel.causal import causal_sort
@@ -480,13 +482,14 @@ def run_crash_restore(
 
     Per seed: deliver each doc's changes as shuffled chunked frames with
     device rounds interleaved; checkpoint at a random mid-point; "crash"
-    (drop the session object); restore from the LATEST checkpoint, meshless;
+    (drop the session object); restore from the LATEST checkpoint — a mesh
+    session restores MESHLESS, exercising the digest's mesh invariance —
     then redeliver a random overlapping suffix of every doc's frames
     (duplicate-tolerant anti-entropy).  The restored session must reach the
     clean session's digest, spans and roots, all equal to the oracle.
-    Every session runs on ``device`` (default ``cuda``); ``mesh`` is not
-    ported and raises.  Returns the number of frames redelivered after
-    restore."""
+    Every session runs on ``device`` (default ``cuda``), the crashing one
+    over ``mesh`` when given.  Returns the number of frames redelivered
+    after restore."""
     import tempfile
 
     from ..api.batch import _oracle_doc
@@ -602,7 +605,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     )
     parser.add_argument(
         "--mesh", type=int, default=0, metavar="N",
-        help="shard the doc axis over N devices (not ported yet: raises)",
+        help="shard the doc axis over an N-shard mesh: N cards with --device cuda "
+             "(raises when fewer exist), N virtual shards with --device cpu",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -628,24 +632,30 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.crash_restore and (args.differential or args.differential_frames):
         parser.error("--crash-restore is its own campaign; combine with "
                      "--mesh/--docs/--ops-per-doc only")
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh: a device mesh is not ported yet (ROADMAP.md queue 1 item 11: "
-            "'Multi-GPU mesh')")
+        from ..parallel.mesh import make_mesh
+
+        try:
+            mesh = make_mesh(args.mesh, device=args.device)  # the engines pad the doc axis
+        except RuntimeError as exc:
+            raise SystemExit(f"--mesh {args.mesh}: {exc}") from exc
 
     batch = None
     if args.differential:
         from ..api.batch import DocBatch
 
         batch = DocBatch(
-            slot_capacity=512, mark_capacity=128, comment_capacity=32, device=args.device
+            slot_capacity=512, mark_capacity=128, comment_capacity=32, device=args.device,
+            mesh=mesh,
         )
 
     seed = args.seed
     while True:
         if args.crash_restore:
             redelivered = run_crash_restore(
-                seed, num_docs=args.docs, ops_per_doc=args.ops_per_doc, device=args.device
+                seed, num_docs=args.docs, ops_per_doc=args.ops_per_doc, mesh=mesh,
+                device=args.device,
             )
             print(
                 f"crash-restore seed={seed}: {args.docs} docs x "
@@ -654,7 +664,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             )
         elif args.differential_frames:
             fast = run_differential_frames(
-                seed, args.docs, args.ops_per_doc, device=args.device
+                seed, args.docs, args.ops_per_doc, mesh=mesh, device=args.device
             )
             print(
                 f"frames-differential seed={seed}: {args.docs} docs x "

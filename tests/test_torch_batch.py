@@ -23,6 +23,7 @@ from peritext_tpu.core.doc import Doc as JaxDoc
 from peritext_tpu.testing.fuzz import generate_markheavy_workload, generate_workload
 from peritext_tpu_torch.api.batch import DocBatch, oracle_merge
 from peritext_tpu_torch.core.types import Change
+from peritext_tpu_torch.parallel.mesh import make_mesh
 from peritext_tpu_torch.testing import fuzz as port_fuzz
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -124,12 +125,18 @@ def test_default_device_without_cuda_raises(monkeypatch):
         DocBatch(device="cuda")
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "Multi-GPU mesh"),
+@pytest.mark.parametrize("kwargs,error,item", [
+    (dict(mesh=object()), TypeError, "parallel.mesh.Mesh"),
+    (dict(layout="paged", mesh=make_mesh(2, device="cpu")), ValueError, "does not support a mesh"),
+    (dict(layout="ragged", mesh=make_mesh(2, device="cpu")), ValueError, "does not support a mesh"),
+    (dict(mesh=make_mesh(2, device="cpu"), device="cuda"), ValueError, "device type"),
 ])
-def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        DocBatch(device="cpu", **kwargs)
+def test_unported_options_raise(kwargs, error, item):
+    """The mesh is ported on the padded layout (tests/test_torch_mesh.py);
+    what it refuses, it refuses as the reference does."""
+    with pytest.raises(error, match=item):
+        DocBatch(**dict(dict(device="cpu"), **kwargs))
+    assert DocBatch(mesh=make_mesh(2, device="cpu")).mesh.size == 2
 
 
 def test_import_leaves_jax_and_reference_out():

@@ -31,6 +31,7 @@ from peritext_tpu_torch.core.types import Change
 from peritext_tpu_torch.obs import GLOBAL_COUNTERS
 from peritext_tpu_torch.ops.packed import to_numpy
 from peritext_tpu_torch.parallel.codec import encode_frame
+from peritext_tpu_torch.parallel.mesh import make_mesh
 from peritext_tpu_torch.parallel.streaming import StreamingMerge
 from peritext_tpu_torch.testing.fuzz import generate_workload, run_crash_restore, run_fuzz
 from peritext_tpu_torch.testing.traces import load_trace_queues, replay_queues
@@ -124,7 +125,10 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
         {"actors": ["a"], "config": {"num_docs": 1}}))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ckpt.restore_session(tmp_path / "s")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh names its own devices: a CPU mesh restores without a card
+    restored = ckpt.restore_session(tmp_path / "s", mesh=make_mesh(2, device="cpu"))
+    assert restored.mesh.size == 2 and restored.device == torch.device("cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         ckpt.restore_session(tmp_path / "s", mesh=object(), device="cpu")
 
 

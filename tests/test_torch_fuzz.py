@@ -153,8 +153,12 @@ def test_cli_exit_codes(capsys):
         with pytest.raises(SystemExit) as exc:
             fuzz.main(bad)
         assert exc.value.code == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fuzz.main(["--differential", "--mesh", "2", "--device", "cpu"])
+    assert fuzz.main(["--differential", "--mesh", "2", "--device", "cpu", "--docs", "4",
+                      "--ops-per-doc", "30"]) is None
+    assert "(4 on device) match the oracle" in capsys.readouterr().out
+    assert fuzz.main(["--crash-restore", "--mesh", "3", "--device", "cpu", "--docs", "3",
+                      "--ops-per-doc", "30"]) is None
+    assert "survived kill+restore+repair" in capsys.readouterr().out
 
 
 def test_cli_module_exit_codes():
@@ -164,5 +168,6 @@ def test_cli_module_exit_codes():
     ok = run("--iterations", "20")
     assert ok.returncode == 0 and "RuntimeWarning" not in ok.stderr, ok.stderr
     assert run("--faults", "--differential-frames").returncode == 2
+    # --mesh takes cards unless --device names the CPU, and there are none
     failed = run("--mesh", "2")
-    assert failed.returncode == 1 and "NotImplementedError" in failed.stderr
+    assert failed.returncode == 1 and "need 2 CUDA devices" in failed.stderr

@@ -26,6 +26,7 @@ from peritext_tpu.store import paged as jax_paged
 from peritext_tpu.testing.fuzz import generate_markheavy_workload, generate_workload
 from peritext_tpu_torch.api.batch import DocBatch
 from peritext_tpu_torch.ops.kernel import PAGED_AUX_FIELDS
+from peritext_tpu_torch.parallel.mesh import make_mesh
 from peritext_tpu_torch.store import DEFAULT_PAGE_SIZE, PageAllocator, PagedDocStore, PoolExhausted
 from peritext_tpu_torch.store.paged import group_stream_arrays, plan_page_groups
 from test_torch_batch import FAMILIES, _cursors, _to_port
@@ -234,8 +235,9 @@ def test_pooled_layout_validation(layout, monkeypatch):
     with pytest.raises(ValueError, match="multiple of"):
         DocBatch(layout=layout, slot_capacity=128, page_size=48, device="cpu")
     DocBatch(layout="padded", slot_capacity=100, device="cpu")  # padded takes any width
-    with pytest.raises(NotImplementedError, match="Multi-GPU mesh"):
-        DocBatch(layout=layout, mesh=object(), device="cpu")
+    # as the reference's: a pooled DocBatch takes no mesh (the padded one does)
+    with pytest.raises(ValueError, match="does not support a mesh"):
+        DocBatch(layout=layout, mesh=make_mesh(2, device="cpu"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DocBatch(layout=layout)

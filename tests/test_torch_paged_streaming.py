@@ -26,6 +26,7 @@ from peritext_tpu.testing.fuzz import generate_workload
 from peritext_tpu_torch.core.types import Change
 from peritext_tpu_torch.obs import GLOBAL_COUNTERS
 from peritext_tpu_torch.ops.kernel import PAGED_AUX_FIELDS, apply_batch_paged_groups
+from peritext_tpu_torch.parallel.mesh import make_mesh
 from peritext_tpu_torch.parallel.streaming import StreamingMerge
 from peritext_tpu_torch.store import (
     PageAllocator,
@@ -34,6 +35,7 @@ from peritext_tpu_torch.store import (
     PoolExhausted,
 )
 from peritext_tpu_torch.store.paged import group_stream_arrays, plan_page_groups
+from peritext_tpu_torch.store.sharded import ShardedPagedDocStore
 from peritext_tpu_torch.testing.arrival import build_arrival
 from test_torch_paged import _assert_state_equal, _assert_store_equal, _encoded, _stores
 
@@ -168,7 +170,10 @@ def test_paged_factory_and_validation():
     with pytest.raises(ValueError, match="multiple"):
         StreamingMerge(num_docs=2, actors=ACTORS, layout="paged", slot_capacity=100,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    meshed = StreamingMerge(num_docs=2, actors=ACTORS, layout="paged",
+                            mesh=make_mesh(2, device="cpu"))
+    assert type(meshed) is PagedStreamingMerge and isinstance(meshed.store, ShardedPagedDocStore)
+    with pytest.raises(TypeError, match="Mesh"):
         StreamingMerge(num_docs=2, actors=ACTORS, layout="paged", mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         PagedStreamingMerge(num_docs=2, actors=ACTORS, layout="ragged", device="cpu")

@@ -15,6 +15,7 @@ from peritext_tpu_torch.core.doc import Doc
 from peritext_tpu_torch.obs import GLOBAL_COUNTERS
 from peritext_tpu_torch.ops.insert import SMEM_BUDGET
 from peritext_tpu_torch.ops.ragged_insert import ragged_teams
+from peritext_tpu_torch.parallel.mesh import make_mesh
 from peritext_tpu_torch.parallel.streaming import StreamingMerge
 from peritext_tpu_torch.store import PagedDocStore, PlanCache, RaggedStreamingMerge, ragged_plan
 from peritext_tpu_torch.testing.arrival import build_arrival
@@ -69,7 +70,10 @@ def test_ragged_factory_and_validation():
                        device="cpu")
     with pytest.raises(ValueError):
         RaggedStreamingMerge(num_docs=2, actors=ACTORS, layout="paged", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    meshed = StreamingMerge(num_docs=2, actors=ACTORS, layout="ragged",
+                            mesh=make_mesh(2, device="cpu"))
+    assert type(meshed) is RaggedStreamingMerge and meshed.store.n_shards == 2
+    with pytest.raises(TypeError, match="Mesh"):
         StreamingMerge(num_docs=2, actors=ACTORS, layout="ragged", mesh=object(), device="cpu")
 
 

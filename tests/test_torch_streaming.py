@@ -21,6 +21,7 @@ from peritext_tpu.testing.fuzz import generate_workload
 from peritext_tpu.testing.generate import generate_docs
 from peritext_tpu_torch.core.types import Change
 from peritext_tpu_torch.obs import GLOBAL_COUNTERS
+from peritext_tpu_torch.parallel.mesh import make_mesh
 from peritext_tpu_torch.parallel.streaming import StreamingMerge
 from peritext_tpu_torch.testing.arrival import build_arrival, interleave_rounds
 
@@ -373,12 +374,17 @@ def test_default_device_raises_without_a_card(monkeypatch):
         StreamingMerge(num_docs=1, actors=ACTORS)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "item 11"),
+@pytest.mark.parametrize("kwargs,error,item", [
+    (dict(mesh=object()), TypeError, "parallel.mesh.Mesh"),
+    (dict(mesh=make_mesh(2, device="cpu"), device="cuda"), ValueError, "device type"),
 ])
-def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        StreamingMerge(num_docs=1, actors=ACTORS, device="cpu", **kwargs)
+def test_unported_options_raise(kwargs, error, item):
+    """The mesh is ported (tests/test_torch_mesh*.py); an argument that is
+    not a mesh, or a device the mesh does not hold, raises."""
+    with pytest.raises(error, match=item):
+        StreamingMerge(num_docs=1, actors=ACTORS, **dict(dict(device="cpu"), **kwargs))
+    s = StreamingMerge(num_docs=3, actors=ACTORS, mesh=make_mesh(2, device="cpu"))
+    assert s.mesh.size == 2 and s._padded_docs == 4 and s._n_blocks() == 2
     with pytest.raises(ValueError, match="unknown layout"):
         StreamingMerge(num_docs=1, actors=ACTORS, device="cpu", layout="sparse")
 

@@ -25,6 +25,7 @@ from peritext_tpu_torch.api.batch import _oracle_doc
 from peritext_tpu_torch.core.errors import DeviceRoundError
 from peritext_tpu_torch.core.types import Change
 from peritext_tpu_torch.obs import Tracer
+from peritext_tpu_torch.parallel.mesh import make_mesh
 from peritext_tpu_torch.parallel.streaming import REASON_DEVICE_ROUND, StreamingMerge
 from peritext_tpu_torch.parallel.supervisor import GuardedSession
 from peritext_tpu_torch.utils.nvcc import KernelBuildError
@@ -253,6 +254,21 @@ def test_stage_spans_nest_under_the_guarded_round(workload, tmp_path):
     assert seen[-1].name == "supervisor.round"
 
 
-def test_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        GuardedSession(lambda: StreamingMerge(**CAPS, device="cpu"), tmp_path, mesh=object())
+def test_mesh_is_not_ported(faulted, workload, tmp_path):
+    """The mesh is ported: a supervised session over a 4-shard CPU mesh,
+    with the same injected failure and delay as the reference's, rolls
+    back onto its mesh twice and ends equal to the reference's session."""
+    ref, _, ref_out, _ = faulted
+    _, rounds = workload
+    mesh = make_mesh(4, device="cpu")
+    g = GuardedSession(lambda: StreamingMerge(**CAPS, mesh=mesh, device="cpu"), tmp_path,
+                       mesh=mesh, deadline=60.0, checkpoint_every=1, autotune=False)
+    try:
+        assert _run_faults(g, rounds, 5.0) == ref_out
+        assert g.rollbacks == ref.rollbacks == 2
+        assert g.session.mesh == mesh and g.session._shard_state is not None
+        assert (g.digest(), g.read_all(), g.frontier()) == \
+            (ref.digest(), ref.read_all(), ref.frontier())
+        assert g.join_abandoned(timeout=30)
+    finally:
+        g.close()
