@@ -114,6 +114,23 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    each card's peak memory; (e) ``run_crash_restore`` seed 12 with the
    mesh, restored meshless; the kernel inputs of one round of a shard
    (padded: K1; ragged: K3) are captured for phase 6; within 90 s;
+5k. the scalar baseline and the engine replay (:data:`BASELINE`): (a) the
+   C++ scalar apply (``native.scalar_apply``, one host core) at the
+   reference bench's baseline shape, 16 fuzz docs x 256 ops at seed 7, its
+   op matrices from ``testing/baseline.py``, every doc equal to the oracle,
+   its ops/s the best of 3 sweeps of 20 repetitions; the same docs through
+   ``DocBatch(device="cuda").merge``, one K1 launch, each doc's text equal
+   to the scalar apply's; (b) the reference bench's engine row at
+   A_frames' shape: a session with the engine capture armed
+   (``_capture_rounds``), no fallback and no overflowed doc, equal to A
+   and its digest to A_frames', and its uncaptured twin; the captured
+   rounds replayed on the card (``testing/engine.replay_rounds``), the
+   digest equal to the session's on the warm-up pass and on every timed
+   pass, one K1 launch per captured round of each pass, counted from 0;
+   single-pass ops/s (best of 3) and steady ops/s (``passes`` replays
+   enqueued back to back, synced once) beside both sessions' end-to-end
+   ops/s (ingest to digest); the inputs of the third replayed round's
+   insert call are kept for phase 6; within 30 s;
 5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
@@ -216,7 +233,8 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    fleet host and the first round of chaos seed 0; for the ragged one also
    the first round of the ragged restore, the fused ragged lane's round in
    the sparse window and the first call of the ragged differential; and
-   each the captured round of a mesh shard of phase 5j)
+   each the captured round of a mesh shard of phase 5j; for the insert
+   kernel also the third replayed round of phase 5k)
    and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
@@ -405,6 +423,15 @@ PLANNER = dict(seconds=20.0, regress=0.4)
 #: exist, else 4 virtual shards on ``cuda:0``), the crash campaign's seed,
 #: and the phase's time limit
 MESH = dict(shards=4, crash_seed=12, seconds=90.0)
+#: phase 5k, the scalar baseline and the engine replay.  ``scalar``: the
+#: reference bench's native baseline at its own shape (bench.py
+#: ``measure_native_baseline``: 16 fuzz docs x 256 ops, seed 7, the best of
+#: 3 sweeps of 20 repetitions), with DocBatch's merge of the same docs
+#: (config 3's capacities, :data:`SLICE`); the engine row (bench.py
+#: ``--mode engine``) on A_frames' workload and frames (:data:`STREAM`),
+#: ``passes`` replays enqueued back to back for the steady rate
+BASELINE = dict(scalar=dict(docs=16, ops=256, seed=7, sweeps=3, reps=20), passes=4,
+                round_index=2, seconds=30.0)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -957,9 +984,10 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
     ``drain()`` (synchronized, so its apply time covers the kernels it
     queued); then ``digest()``, ``read_all()`` and ``read_patches_all()``.
     ``arm`` may name a ``layout`` (padded, paged, ragged), the
-    ``fused_pipeline``/``static_rounds`` switches and a ``mesh`` (each
+    ``fused_pipeline``/``static_rounds`` switches, a ``mesh`` (each
     synchronize then covers every card of the mesh, and the report adds
-    each card's peak memory).  Both kernels' launch
+    each card's peak memory) and an ``engine_capture`` list (the session's
+    ``_capture_rounds`` hook).  Both kernels' launch
     counts are set to 0 just before and read just after: the layout's
     kernel must have launched exactly as often as its commits counted
     (:data:`APPLY_COUNTER`), the other never.  A frame session must have
@@ -995,6 +1023,7 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
         mesh=mesh, **pooled,
     )
     s.fused_pipeline = arm.get("fused_pipeline", True)
+    s._capture_rounds = arm.get("engine_capture")
     undo = _arm_capture(capture, layout) if capture is not None else None
     stages = dict.fromkeys(("ingest", "schedule", "apply", "digest", "read_all",
                             "read_patches_all"), 0.0)
@@ -1217,7 +1246,7 @@ def run_streaming(device, ckpts):
     checkpoint_session(ckpts, "C_frames", s_cf, cf)
     del s_cf
     ctx = dict(workloads=workloads, arrival=arrival, wire=wire, wire_bytes=wire_bytes,
-               frames_ops_per_second=f["ops_per_second"],
+               frames_ops_per_second=f["ops_per_second"], frames_digest=f["digest"],
                sample=sample, oracle_a=oracle_a, a=a, workloads_c=workloads_c, wire_c=wire_c,
                wire_bytes_c=wire_bytes_c, sample_c=sample_c, oracle_c=oracle_c, cf=cf)
     return capture, capture_frames, reports + [b, c, cf], ctx
@@ -1830,6 +1859,173 @@ def run_mesh(device, ctx, slice_run):
     if seconds > MESH["seconds"]:
         raise AssertionError(f"mesh: phase 5j took {seconds:.1f} s, over {MESH['seconds']} s")
     return rga, ragged, captures
+
+
+def _record_insert_call(index):
+    """Patch the padded path's kernel wrapper to keep the inputs of its
+    ``index``-th call (cloned) and its ``loop_slots``; returns the record
+    and the undo."""
+    from peritext_tpu_torch.ops import kernel as kernel_mod
+
+    insert = kernel_mod.insert_batch
+    record = {"calls": 0}
+
+    def rec(*args, loop_slots=None, **kw):
+        if record["calls"] == index:
+            record.update(args=[a.clone() for a in args], loop_slots=loop_slots)
+        record["calls"] += 1
+        return insert(*args, loop_slots=loop_slots, **kw)
+
+    kernel_mod.insert_batch = rec
+    return record, lambda: setattr(kernel_mod, "insert_batch", insert)
+
+
+def run_baseline_engine(device, ctx):
+    """Phase 5k (module doc): (a) the C++ scalar baseline at the reference
+    bench's shape, against the oracle and against ``DocBatch`` on the card;
+    (b) a capture session at A_frames' shape and its uncaptured twin, then
+    the captured rounds replayed on the card (testing/engine.py): the
+    digest on every pass, the launches per pass, single-pass and steady
+    ops/s.  Returns the K1 launch counts of its paths and the inputs of one
+    replayed round's insert call."""
+    import torch
+
+    from peritext_tpu_torch import native
+    from peritext_tpu_torch.api.batch import DocBatch
+    from peritext_tpu_torch.ops.insert import insert_batch
+    from peritext_tpu_torch.testing.baseline import (
+        check_scalar_apply_matches_oracle,
+        workload_op_matrices,
+    )
+    from peritext_tpu_torch.testing.engine import replay_digest, replay_rounds
+    from peritext_tpu_torch.testing.fuzz import generate_workload
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) the scalar baseline (bench.py measure_native_baseline)
+    cfg = BASELINE["scalar"]
+    workloads = generate_workload(cfg["seed"], cfg["docs"], cfg["ops"])
+    matrices, total = workload_op_matrices(workloads)
+    check_scalar_apply_matches_oracle(workloads, matrices)
+    calls = native.calls.get("scalar_apply", 0)
+    best = None
+    for _ in range(cfg["sweeps"]):
+        t0 = time.perf_counter()
+        for _ in range(cfg["reps"]):
+            for m in matrices:
+                native.scalar_apply(m)
+        dt = (time.perf_counter() - t0) / cfg["reps"]
+        best = dt if best is None or dt < best else best
+    if native.calls["scalar_apply"] - calls != cfg["sweeps"] * cfg["reps"] * len(matrices):
+        raise AssertionError("baseline: the native library did not serve every scalar apply")
+    scalar_ops = total / best
+    texts = ["".join(chr(int(c)) for c in native.scalar_apply(m)[1]) for m in matrices]
+    batch = DocBatch(slot_capacity=SLICE["slot_capacity"], mark_capacity=SLICE["mark_capacity"],
+                     comment_capacity=SLICE["comment_capacity"], device=device)
+    insert_batch.launches = 0
+    t0 = time.perf_counter()
+    report = batch.merge(workloads)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    launches["baseline_merge"] = insert_batch.launches
+    if report.fallback_docs or launches["baseline_merge"] != 1:
+        raise AssertionError(f"baseline: DocBatch fell back on {report.fallback_docs} and "
+                             f"launched K1 {launches['baseline_merge']} times (one launch)")
+    for d, spans in enumerate(report.spans):
+        if "".join(sp["text"] for sp in spans) != texts[d]:
+            raise AssertionError(f"baseline: doc {d}'s text on the card != the scalar apply's")
+    log("baseline", json.dumps(dict(docs=cfg["docs"], ops_per_doc=cfg["ops"], seed=cfg["seed"],
+                                    total_ops=total, sweep_seconds=best,
+                                    scalar_ops_per_second=scalar_ops,
+                                    docbatch_merge_seconds=merge_s,
+                                    docbatch_k1_launches=launches["baseline_merge"])))
+    log(f"baseline: the scalar apply equals the oracle and DocBatch(device=cuda) on all "
+        f"{cfg['docs']} docs; {scalar_ops:.1f} scalar ops/s on one host core")
+
+    # (b) the engine replay (bench.py run_engine) at A_frames' shape
+    cfg = STREAM
+    captured = []
+    s, out = run_stream_session(device, cfg, ctx["workloads"], ctx["wire"], "A_frames_capture",
+                                wire_bytes=ctx["wire_bytes"], engine_capture=captured)
+    launches["engine_capture"] = out["rga_insert_launches"]
+    compare_arms("A_frames_capture", out, ctx["a"], "A_default")
+    if out["fallback"] or s.overflow_count():
+        raise AssertionError(f"engine: {len(out['fallback'])} fallback and {s.overflow_count()} "
+                             "overflowed docs would skew the replay and its digest")
+    if out["digest"] != ctx["frames_digest"] or len(captured) != s.rounds or \
+            out["block_applies"] != len(captured):
+        raise AssertionError(f"engine: capture digest {out['digest']:#x} (A_frames "
+                             f"{ctx['frames_digest']:#x}), {len(captured)} captured rounds of "
+                             f"{s.rounds}, {out['block_applies']} block applies")
+    _, twin = run_stream_session(device, cfg, ctx["workloads"], ctx["wire"], "A_frames_twin",
+                                 wire_bytes=ctx["wire_bytes"])
+    launches["engine_twin"] = twin["rga_insert_launches"]
+    compare_arms("A_frames_twin", twin, out, "A_frames_capture")
+    digest = out["digest"]
+    tables = s._digest_tables(0, s._padded_docs)
+    caps = s.config
+
+    def engine_pass():
+        return replay_rounds(captured, s._padded_docs, caps, device, tables)
+
+    def counted_pass():
+        insert_batch.launches = 0
+        got = replay_digest(engine_pass())
+        if got != digest or insert_batch.launches != len(captured):
+            raise AssertionError(f"engine: replay digest {got:#x} != session {digest:#x}, or "
+                                 f"{insert_batch.launches} K1 launches for {len(captured)} rounds")
+
+    counted_pass()  # warm-up and check
+    launches["engine_replay"] = insert_batch.launches
+    single = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        counted_pass()
+        single.append(time.perf_counter() - t0)
+    passes = BASELINE["passes"]
+    insert_batch.launches = 0
+    t0 = time.perf_counter()
+    per_docs = [engine_pass() for _ in range(passes)]
+    last = replay_digest(per_docs[-1])
+    steady = (time.perf_counter() - t0) / passes
+    digests = [replay_digest(p) for p in per_docs[:-1]] + [last]
+    if any(g != digest for g in digests) or insert_batch.launches != passes * len(captured):
+        raise AssertionError(f"engine: steady passes gave {[hex(g) for g in digests]} with "
+                             f"{insert_batch.launches} K1 launches (session {digest:#x})")
+    record, undo = _record_insert_call(BASELINE["round_index"])
+    try:
+        counted_pass()
+    finally:
+        undo()
+    if "args" not in record:
+        raise AssertionError("engine: no replayed round was captured")
+    ops = out["ops"]
+    stages = ("ingest", "schedule", "apply", "digest")
+    e2e = {n: ops / sum(r["stage_seconds"][k] for k in stages)
+           for n, r in (("capture", out), ("twin", twin))}
+    row = dict(docs=len(ctx["workloads"]), ops=ops, rounds=len(captured),
+               widths=[list(w) for _, w, _ in captured], loop_slots=[ls for _, _, ls in captured],
+               steady_passes=passes, engine_steady_ops_per_second=ops / steady,
+               engine_single_pass_ops_per_second=ops / min(single),
+               engine_pass_seconds=min(single), engine_steady_seconds=steady,
+               capture_end_to_end_ops_per_second=e2e["capture"],
+               twin_end_to_end_ops_per_second=e2e["twin"],
+               capture_session_ops_per_second=out["ops_per_second"],
+               twin_session_ops_per_second=twin["ops_per_second"],
+               steady_vs_end_to_end=ops / steady / e2e["twin"],
+               k1_launches_per_pass=launches["engine_replay"])
+    log("engine", json.dumps(row))
+    seconds = time.perf_counter() - t_phase
+    log(f"engine: the replay of {len(captured)} captured rounds equals the capture session's "
+        f"and A_frames' digest {digest:#x} on every pass, {len(captured)} K1 launches a pass; "
+        f"steady {ops / steady:.1f} ops/s, single pass {ops / min(single):.1f} ops/s, "
+        f"end to end {e2e['twin']:.1f} ops/s (ratio {ops / steady / e2e['twin']:.3f})")
+    log(f"baseline: phase 5k took {seconds:.2f} s; K1 launches {json.dumps(launches)}")
+    if seconds > BASELINE["seconds"]:
+        raise AssertionError(f"baseline: phase 5k took {seconds:.2f} s, over "
+                             f"{BASELINE['seconds']} s")
+    return launches, record
 
 
 def round_need(workloads):
@@ -3649,6 +3845,8 @@ def run_all(device, jobs, ckpt_root) -> int:
     mesh_paths, mesh_ragged_paths, captures_mesh = run_mesh(device, ctx,
                                                             (workloads, cursors, slice_report))
     log(f"mesh done at {time.perf_counter() - t_start:.1f} s")
+    engine_paths, capture_engine = run_baseline_engine(device, ctx)
+    log(f"baseline and engine done at {time.perf_counter() - t_start:.1f} s")
     sup = dict(workloads=ctx["workloads"], wire=ctx["wire"], digest=ctx["a"]["digest"],
                spans=ctx["a"]["spans"])
     del ctx
@@ -3734,6 +3932,8 @@ def run_all(device, jobs, ckpt_root) -> int:
         rows.append(check_insert("mesh_round", mesh_args,
                                  loop_slots=captures_mesh["padded"]["loop_slots"]))
     del mesh_args
+    rows.append(check_insert("engine_replay_round", capture_engine.pop("args"),
+                             loop_slots=capture_engine["loop_slots"]))
     del capture, capture_frames, capture_paged, capture_bridge, capture_serve, capture_fleet
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
@@ -3804,6 +4004,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths.update({f"planes_{n}": k for n, k in planes_launches.items() if n != "C_frames_ragged"})
     rga_paths["plan_replay"] = plan_launches["padded"]
     rga_paths.update(mesh_paths)
+    rga_paths.update(engine_paths)
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})

@@ -426,7 +426,7 @@ class DocBatch:
             encoded = encode(workloads)
         try:
             groups = device_stages(encoded, stats)
-        except Exception as exc:  # the guard's boundary: re-raised unless guarded
+        except Exception as exc:  # graftlint: boundary(the guard's boundary: re-raised unless guarded)
             if not self.guard or self.device.type != "cpu":
                 raise
             return self._degraded_merge(workloads, cursors, stats, exc)

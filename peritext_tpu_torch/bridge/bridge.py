@@ -290,7 +290,7 @@ class Editor:
     def _backend_ingest(self, change: Change) -> None:
         try:
             self.session.ingest(0, [change])
-        except BaseException as exc:
+        except BaseException as exc:  # graftlint: boundary(a failed session poisons the editor; always re-raised)
             self._failure = exc
             raise
 
@@ -299,7 +299,7 @@ class Editor:
         try:
             self.session.drain()
             patches = self.session.read_patches(0)
-        except BaseException as exc:
+        except BaseException as exc:  # graftlint: boundary(a failed session poisons the editor; always re-raised)
             self._failure = exc
             raise
         for patch in patches:

@@ -6,7 +6,8 @@ use, never at import, into the git-ignored ``peritext_tpu_torch/_build/``
 as ``libptnative-<hash>.so``, keyed by the source and the flags (as
 ``utils/nvcc.py`` keys the CUDA builds), and is bound with ``ctypes``
 through a plain C ABI.  Set ``PERITEXT_TORCH_NO_NATIVE=1`` to force the
-pure-Python fallbacks: every entry point has one, and both give the same
+pure-Python fallbacks: every entry point but the scalar baseline
+(:func:`scalar_apply`, which raises) has one, and both give the same
 arrays.  This is host code; the card is not involved.
 
 ``calls`` counts the native calls made per entry point, so a run can show
@@ -39,8 +40,8 @@ _log = logging.getLogger("peritext_tpu_torch.kernels")
 _tried = False
 
 #: native calls per entry point (``causal_schedule``, ``parse_frames``,
-#: ``parse_changes``, ``schedule_split_batch``, ``varint_encode``,
-#: ``varint_decode``)
+#: ``parse_changes``, ``schedule_split_batch``, ``scalar_apply``,
+#: ``varint_encode``, ``varint_decode``)
 calls: Dict[str, int] = {}
 
 
@@ -131,6 +132,12 @@ def load() -> Optional[ctypes.CDLL]:
             + [i32p] * 5  # n_ins, n_del, n_mark, n_map, n_admitted
             + [u8p] * 2  # admitted, status
         )
+        lib.pt_scalar_apply.restype = ctypes.c_int64
+        lib.pt_scalar_apply.argtypes = [
+            i32p, ctypes.c_int64,  # ops, n_ops
+            i32p, ctypes.c_int64,  # out_text, out_cap
+            i64p, i64p,  # out_visible, out_check
+        ]
         lib.pt_parse_frames.restype = ctypes.c_int32
         lib.pt_parse_frames.argtypes = [
             u8p, i64p, ctypes.c_int32,  # data, frame_off, n_frames
@@ -404,6 +411,28 @@ def schedule_split_batch(
         admitted, status,
     )
     return total, n_ins, n_del, n_mark, n_map, n_admitted, admitted, status
+
+
+def scalar_apply(ops: np.ndarray):
+    """Single-core scalar baseline apply (see pt_scalar_apply): ``ops`` is
+    the (N, 10) parsed op matrix in causal application order.  Returns
+    ``(applied, visible_codepoints)``.  Unlike the other entry points it has
+    no Python fallback: it is the baseline a device rate is held against,
+    so a missing library raises (RuntimeError) instead of returning None."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("the native host library is unavailable: the scalar baseline "
+                           "runs only on it (PERITEXT_TORCH_NO_NATIVE unset, g++ present)")
+    _count("scalar_apply")
+    ops = np.ascontiguousarray(ops, np.int32)
+    cap = int(ops.shape[0]) + 8
+    out_text = np.empty(cap, np.int32)
+    out_visible = np.zeros(1, np.int64)
+    out_check = np.zeros(1, np.int64)
+    applied = lib.pt_scalar_apply(
+        ops.reshape(-1), int(ops.shape[0]), out_text, cap, out_visible, out_check
+    )
+    return int(applied), out_text[: int(out_visible[0])].copy()
 
 
 def varint_encode(values: np.ndarray) -> Optional[bytes]:

@@ -274,7 +274,7 @@ class DeviceProfiler:
                 res = _nbytes(out if out is not None else written)
                 memory = {"argument_size_in_bytes": arg, "output_size_in_bytes": res,
                           "peak_bytes": arg + res}
-            except Exception:  # capture is best-effort telemetry over host metadata
+            except Exception:  # graftlint: boundary(capture is best-effort telemetry over host metadata)
                 cost = memory = None
             with self._lock:
                 capture.cost, capture.memory = cost, memory

@@ -596,7 +596,7 @@ class _Handler(BaseHTTPRequestHandler):
                 body = fn(params).encode("utf-8")
             else:
                 body = fn().encode("utf-8")
-        except Exception as exc:  # an exporter endpoint answers 500, never kills the serving thread
+        except Exception as exc:  # graftlint: boundary(an exporter endpoint answers 500, never kills the serving thread)
             # typed JSON error body: which plane broke + why — a sick
             # plane must not turn a fleet scrape into a traceback page
             stem = path.rsplit("/", 1)[-1]

@@ -577,7 +577,7 @@ class IncidentMonitor:
                 f"incident-{inc.kind}", incident=inc.id,
                 hosts=",".join(inc.hosts), opened_round=inc.opened_round,
             )
-        except Exception:  # a failed dump must not lose the incident that triggered it
+        except Exception:  # graftlint: boundary(a failed dump must not lose the incident that triggered it)
             pass
 
     def ack(self, ident: str) -> bool:

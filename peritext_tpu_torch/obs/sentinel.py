@@ -66,7 +66,7 @@ class RecompileSentinel(logging.Handler):
     def emit(self, record: logging.LogRecord) -> None:
         try:
             message = record.getMessage()
-        except Exception:  # malformed foreign records are ignored, never raised into the workload
+        except Exception:  # graftlint: boundary(malformed foreign records are ignored, never raised into the workload)
             return
         m = _BUILD_MSG_RE.search(message)
         if m is None:

@@ -234,7 +234,7 @@ class Tracer:
         stack.append(sp)
         try:
             yield sp
-        except BaseException as exc:  # annotate the span for the timeline; always re-raised
+        except BaseException as exc:  # graftlint: boundary(annotate the span for the timeline; always re-raised)
             sp.args.setdefault("error", repr(exc))
             raise
         finally:
@@ -252,7 +252,7 @@ class Tracer:
             for sink in list(self._sinks):
                 try:
                     sink(sp)
-                except Exception:  # a telemetry sink must never fail the traced workload
+                except Exception:  # graftlint: boundary(a telemetry sink must never fail the traced workload)
                     pass
 
     def current_context(self) -> Optional[TraceContext]:

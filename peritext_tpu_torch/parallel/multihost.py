@@ -883,7 +883,7 @@ def try_sync_with(
         def run(arg):
             try:
                 cb(arg)
-            except Exception as exc:  # fenced: rewrapped and re-raised below
+            except Exception as exc:  # graftlint: boundary(fenced: rewrapped and re-raised below)
                 raise _CallbackFailed() from exc
 
         return run

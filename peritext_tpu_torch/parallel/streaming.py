@@ -491,6 +491,9 @@ class StreamingMerge:
         # waits on a clock only an ingest() to the doc can move, so passes
         # skip them until then (a port-only shortcut; no result changes)
         self._object_waiting: set = set()
+        # engine capture (the reference's hook, see _capture_rounds): None,
+        # or the list each committed round's device-ready inputs append to
+        self._captured: Optional[list] = None
         #: when True, a drain of a one-block session ends with the block's
         #: resolution and digest already computed, so the next digest() or
         #: read finds them cached
@@ -1120,12 +1123,36 @@ class StreamingMerge:
     # with scheduling; torch compiles nothing, and no result depends on the
     # form (ROADMAP.md queue 1 item 5b).
 
+    @property
+    def _capture_rounds(self) -> Optional[list]:
+        """The engine-capture hook: None, or a list a caller (a bench)
+        assigns.  While it is a list, every committed round of a padded
+        session applies the WHOLE batch as one block and appends
+        ``(round_inputs, widths, loop_slots)``: ``round_inputs`` is
+        ``(counts, ins, dels, marks, maps)`` (4 count vectors, 3 insert
+        streams, the delete stream, dicts of mark and map columns; flat
+        streams each padded to its own power-of-two bucket; tensors on the
+        session's device), the reference's tuple, which
+        ``testing/engine.replay_rounds`` replays.  The page-pool layouts
+        ignore it, as the reference's do.  A padded mesh session refuses a
+        list (ValueError): its shards hold no whole-batch state."""
+        return self._captured
+
+    @_capture_rounds.setter
+    def _capture_rounds(self, rounds: Optional[list]) -> None:
+        if rounds is not None and self.mesh is not None and self._layout == "padded":
+            raise ValueError("a mesh session cannot capture rounds: its shards hold no "
+                             "whole-batch state to apply over")
+        self._captured = rounds
+
     def _fused_eligible(self) -> bool:
-        """Whether a drain ends with the digest prefetch (when armed): the
-        compat switch is on and the session is one block, or a mesh (whose
-        blocks are its shards, as the reference's mesh sessions always
-        qualify).  Every round commits the same way either way."""
-        return self.fused_pipeline and self._one_block()
+        """Whether a drain ends with the digest prefetch (when armed) and
+        counts as fused: the compat switch is on, no engine capture is
+        armed (the reference's capture sessions commit per round), and the
+        session is one block, or a mesh (whose blocks are its shards, as
+        the reference's mesh sessions always qualify).  Every round commits
+        the same way either way."""
+        return self.fused_pipeline and self._captured is None and self._one_block()
 
     def _one_block(self) -> bool:
         """A one-block session, or a mesh (whose blocks are shards of what
@@ -1194,6 +1221,24 @@ class StreamingMerge:
         out[: len(v)] = v
         return out
 
+    def _round_inputs(self, flat, buckets, device: torch.device):
+        """One upload of a flattened round (:meth:`_flatten_round`) to
+        ``device``, as ``(counts, ins, dels, marks, maps)`` for
+        :func:`apply_batch_compact`; each stream kind padded to its bucket in
+        ``buckets`` (ins, del, mark, map), or with None to its own."""
+        counts, ins, dels, marks, maps = flat
+        b_ins, b_del, b_mark, b_map = buckets or (
+            _width_bucket(len(ins[0])), _width_bucket(len(dels)),
+            _width_bucket(len(marks[MARK_COLS[0]])), _width_bucket(len(maps[MAP_STREAM_COLS[0]])))
+        arrays = {f"n{j}": c for j, c in enumerate(counts)}
+        arrays.update({f"ins{j}": self._pad(v, b_ins) for j, v in enumerate(ins)})
+        arrays["del"] = self._pad(dels, b_del)
+        arrays.update({f"mark.{c}": self._pad(marks[c], b_mark) for c in MARK_COLS})
+        arrays.update({f"map.{c}": self._pad(maps[c], b_map) for c in MAP_STREAM_COLS})
+        t = upload_int32(arrays, device)
+        return (tuple(t[f"n{j}"] for j in range(4)), (t["ins0"], t["ins1"], t["ins2"]), t["del"],
+                {c: t[f"mark.{c}"] for c in MARK_COLS}, {c: t[f"map.{c}"] for c in MAP_STREAM_COLS})
+
     def _apply_compact(self, enc: _RoundBuffers, widths, loop_slots: Optional[int]) -> None:
         """One round through the flat-stream apply.  Sessions larger than a
         read block apply BLOCK-CHUNKED: each touched block's rows take their
@@ -1201,8 +1246,18 @@ class StreamingMerge:
         per stream kind), apply on a view of the block, and are written back
         into the session state in place; untouched blocks are not read.  A
         mesh session's blocks are its shards, each applied on its own
-        device.  Each touched block launches the insert kernel once
-        (``streaming.block_applies`` counts them)."""
+        device.  With the engine capture armed (:attr:`_capture_rounds`)
+        the whole batch applies as one block, whatever the round touched,
+        and the round's inputs are recorded.  Each apply launches the insert
+        kernel once (``streaming.block_applies`` counts them)."""
+        if self._captured is not None:
+            inputs = self._round_inputs(self._flatten_round(enc, widths, 0, self._padded_docs),
+                                        None, self.device)
+            self.state = apply_batch_compact(self.state, *inputs, widths=widths,
+                                             insert_loop_slots=loop_slots)
+            GLOBAL_COUNTERS.add("streaming.block_applies")
+            self._captured.append((inputs, widths, loop_slots))
+            return
         n_blocks = self._n_blocks()
         touched = [bi for bi in range(n_blocks)
                    if enc.num_ops[slice(*self._block_bounds(bi))].any()]
@@ -1219,21 +1274,8 @@ class StreamingMerge:
                 _width_bucket(max(len(f[4][MAP_STREAM_COLS[0]]) for f in flats.values())),
             )
         for bi in touched:
-            counts, ins, dels, marks, maps = flats[bi]
-            b_ins, b_del, b_mark, b_map = buckets or (
-                _width_bucket(len(ins[0])), _width_bucket(len(dels)),
-                _width_bucket(len(marks[MARK_COLS[0]])), _width_bucket(len(maps[MAP_STREAM_COLS[0]])))
-            arrays = {f"n{j}": c for j, c in enumerate(counts)}
-            arrays.update({f"ins{j}": self._pad(v, b_ins) for j, v in enumerate(ins)})
-            arrays["del"] = self._pad(dels, b_del)
-            arrays.update({f"mark.{c}": self._pad(marks[c], b_mark) for c in MARK_COLS})
-            arrays.update({f"map.{c}": self._pad(maps[c], b_map) for c in MAP_STREAM_COLS})
-            t = upload_int32(arrays, self._block_device(bi))
             new = apply_batch_compact(
-                self._state_block(bi), tuple(t[f"n{j}"] for j in range(4)),
-                (t["ins0"], t["ins1"], t["ins2"]), t["del"],
-                {c: t[f"mark.{c}"] for c in MARK_COLS},
-                {c: t[f"map.{c}"] for c in MAP_STREAM_COLS},
+                self._state_block(bi), *self._round_inputs(flats[bi], buckets, self._block_device(bi)),
                 widths=widths, insert_loop_slots=loop_slots,
             )
             GLOBAL_COUNTERS.add("streaming.block_applies")

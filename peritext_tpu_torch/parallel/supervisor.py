@@ -325,7 +325,7 @@ class GuardedSession:
                 deadline=round(self.effective_deadline(), 4),
             ) as sp:
                 scheduled = self._run_guarded(self._round)
-        except Exception as exc:  # the ladder's root: a round failure rolls back
+        except Exception as exc:  # graftlint: boundary(the ladder's root: a round failure rolls back)
             if isinstance(exc, KernelBuildError):
                 raise
             if sp is not None:
@@ -367,7 +367,7 @@ class GuardedSession:
                     partial(self._drain_once, max_rounds),
                     deadline=deadline,
                 )
-        except Exception as exc:  # the drain is one containment unit
+        except Exception as exc:  # graftlint: boundary(the drain is one containment unit)
             if isinstance(exc, KernelBuildError):
                 raise
             if sp is not None:
@@ -388,7 +388,7 @@ class GuardedSession:
         after a successful save, so the next round simply retries."""
         try:
             self.checkpoint()
-        except Exception:  # a failed save is retried by the next round
+        except Exception:  # graftlint: boundary(a failed save is retried by the next round)
             GLOBAL_COUNTERS.add("supervisor.checkpoint_failures")
 
     def _drain_deadline(self, max_rounds: int) -> float:
@@ -466,7 +466,7 @@ class GuardedSession:
         try:
             self._run_guarded(self._drain_device,
                               deadline=self._drain_deadline(1_000))
-        except Exception as exc:  # second strike: the device path is still failing
+        except Exception as exc:  # graftlint: boundary(second strike: the device path is still failing)
             if isinstance(exc, KernelBuildError):
                 raise
             # rebuild once more from durable state (a deadline here may

@@ -162,7 +162,9 @@ def test_import_leaves_jax_and_reference_out():
         "peritext_tpu_torch.testing.fuzz, peritext_tpu_torch.testing.chaos, "
         "peritext_tpu_torch.obs.devprof, peritext_tpu_torch.obs.sentinel, "
         "peritext_tpu_torch.obs.ledger, peritext_tpu_torch.obs.exporters, "
-        "peritext_tpu_torch.observability\n"
+        "peritext_tpu_torch.observability, peritext_tpu_torch.testing.baseline, "
+        "peritext_tpu_torch.testing.engine, peritext_tpu_torch.analysis, "
+        "peritext_tpu_torch.analysis.__main__, peritext_tpu_torch.analysis.rules\n"
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_fleet_cuda, test_torch_chaos_cuda, test_torch_devprof_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -181,6 +183,10 @@ def test_sources_import_no_jax_or_reference():
     jax = re.compile(r"\bjax\b")
     files = sorted((ROOT / "peritext_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    walked = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"peritext_tpu_torch/testing/baseline.py", "peritext_tpu_torch/testing/engine.py",
+            "peritext_tpu_torch/analysis/astutil.py",
+            "peritext_tpu_torch/analysis/rules/ptl007_ragged_bucket_free.py"} <= walked
     for path in files:
         for line in path.read_text().splitlines():
             if "import" in line:
