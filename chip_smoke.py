@@ -66,15 +66,18 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    then A_frames, A_paged_frames and C_frames_ragged with
    ``GLOBAL_DEVPROF`` armed with costs, a ``RecompileSentinel`` and a
    ``MetricsServer``, each equal to its earlier arm's digest: per site
-   the dispatches equal the commit counters (``streaming.block_applies``;
-   one ``apply_batch_paged_groups`` or ``apply_batch_ragged`` call per
+   the dispatches equal the commits (one fused form's call per committed
+   batch, ``streaming.fused_dispatches`` for the padded
+   ``apply_batch_staged_rounds``, the graph cache's calls for the paged
+   ``apply_batch_paged_groups``; one ``apply_batch_ragged`` call per
    round), the sites' launches (dispatches x each bucket's
    ``kernel_launches``) equal the commit counters and the kernels' own
    launch counts, the occupancy table's real ops the session's applied
    ops, the page-pool section the session's ``pool_stats()``, the memory
    watermarks are the allocator's (available, a peak above 0), every
    bucket has device ms and bytes above 0, nothing is built or loaded
-   after the first round, and ``/metrics``, ``/devprof.json`` and
+   after the first round and no more graphs are captured than the
+   session's cache holds, and ``/metrics``, ``/devprof.json`` and
    ``/health.json`` answer with the reference's golden key sets; the
    bucket table is printed (device ms against ``kernel_bytes`` over HBM
    bandwidth); one ``ledger_record`` of the sessions' rows with the
@@ -124,13 +127,30 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    A_frames' shape: a session with the engine capture armed
    (``_capture_rounds``), no fallback and no overflowed doc, equal to A
    and its digest to A_frames', and its uncaptured twin; the captured
-   rounds replayed on the card (``testing/engine.replay_rounds``), the
-   digest equal to the session's on the warm-up pass and on every timed
-   pass, one K1 launch per captured round of each pass, counted from 0;
-   single-pass ops/s (best of 3) and steady ops/s (``passes`` replays
-   enqueued back to back, synced once) beside both sessions' end-to-end
-   ops/s (ingest to digest); the inputs of the third replayed round's
-   insert call are kept for phase 6; within 30 s;
+   rounds replayed on the card (``testing/engine.EngineReplay``: every
+   round in one ``apply_batch_compact_rounds`` call over resident buffers;
+   the first pass eager, the second captures a CUDA graph, every later
+   pass one replay), the digest equal to the session's on every pass, one
+   K1 launch per captured round of each pass, counted from 0, the graph
+   cache's counts exact; the eager and capture passes' seconds,
+   single-pass ops/s (best of 3 replays) and steady ops/s (``passes``
+   replays enqueued back to back, synced once) beside both sessions'
+   end-to-end ops/s (ingest to digest); the inputs of the third round's
+   insert call of a fresh replay are kept for phase 6; within 30 s;
+5l. the fused round pipeline (:data:`FUSED_PIPE`) at A_frames' shape:
+   A_frames (the fused default) and its per-round twin
+   (``fused_pipeline=False``), both equal to A_frames' digest and to A:
+   one pinned host-to-device copy per committed batch (the per-round twin
+   none through the lane), K1 launches equal to the commit counters, the
+   drain wall and ``streaming.apply`` seconds of each; A's workload cut
+   into ``fine_rounds`` arrival rounds, padded and paged, so signatures
+   repeat: graph captures, replays and hits per form, a forced reshard
+   (over two read blocks, then one again) after ``reshard_after`` rounds
+   that must bump the graph epoch and be followed by new captures, a page
+   pool (pages of 32 slots, one page a doc to start) that grows between
+   drains, bumping the paged session's epoch;
+   both equal to A; the engine replay's eager, capture, single-pass and
+   steady seconds of phase 5k beside PR 15's 51.6 ms a pass; within 25 s;
 5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
@@ -411,7 +431,7 @@ CHAOS = dict(chaos_seeds=(0, 1, 2, 3), seed=0,
 #: map phases), and more calls queued behind the spin fill the stream's
 #: launch queue, so the host blocks as if a call had synchronized
 PLANES = dict(overhead_pairs=3, sync_reps=1,
-              sessions=(("A_frames", "padded", "apply_batch_compact"),
+              sessions=(("A_frames", "padded", "apply_batch_staged_rounds"),
                         ("A_paged_frames", "paged", "apply_batch_paged_groups"),
                         ("C_frames_ragged", "ragged", "apply_batch_ragged")))
 #: phase 5i, the planner and the ``obs`` CLI over 5h's snapshot and record:
@@ -432,6 +452,11 @@ MESH = dict(shards=4, crash_seed=12, seconds=90.0)
 #: ``passes`` replays enqueued back to back for the steady rate
 BASELINE = dict(scalar=dict(docs=16, ops=256, seed=7, sweeps=3, reps=20), passes=4,
                 round_index=2, seconds=30.0)
+#: phase 5l, the fused round pipeline at A_frames' shape (:data:`STREAM`):
+#: A's workload also cut into ``fine_rounds`` arrival rounds (the drains'
+#: signatures repeat), a forced reshard after ``reshard_after`` of them,
+#: and the phase's time limit
+FUSED_PIPE = dict(fine_rounds=24, reshard_after=8, seconds=25.0)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -927,23 +952,43 @@ class GcClock:
 
 #: the session counters each streaming report gives as deltas over its run
 SESSION_COUNTERS = ("streaming.schedule_passes", "streaming.docs_scanned",
-                    "streaming.docs_skipped")
+                    "streaming.docs_skipped", "streaming.fused_dispatches")
+
+
+def _clone_tree(tree):
+    """A copy of a tensor tree (tuples, named tuples, dicts)."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_clone_tree(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
 
 
 def _arm_capture(capture, layout):
     """Patch the path's kernel wrapper to record the inputs of one armed
     round (``capture["armed"]``), and return the undo.  Padded: the first
     insert call; paged: every insert call of one round's group chain (one
-    per page group); ragged: the first ragged insert call."""
+    per page group, the per-round or the fused form's chain); ragged: the
+    first ragged insert call.  While armed, a fused form's graph cache runs
+    its body eagerly, so the wrapper is called with the batch's own inputs
+    (a replay calls no Python; a capture's would be graph memory)."""
     from peritext_tpu_torch.ops import kernel as kernel_mod
     from peritext_tpu_torch.ops import ragged as ragged_mod
     from peritext_tpu_torch.store import session as session_mod
+    from peritext_tpu_torch.utils.graphs import GraphCache
 
     clone = lambda args: [a.clone() for a in args]  # noqa: E731
     originals = [(kernel_mod, "insert_batch", kernel_mod.insert_batch),
                  (session_mod, "apply_batch_paged_groups", session_mod.apply_batch_paged_groups),
-                 (ragged_mod, "ragged_insert", ragged_mod.ragged_insert)]
-    insert, groups, ragged = (o[2] for o in originals)
+                 (ragged_mod, "ragged_insert", ragged_mod.ragged_insert),
+                 (session_mod, "_apply_groups", session_mod._apply_groups),
+                 (GraphCache, "run", GraphCache.run)]
+    insert, groups, ragged, chain, graph_run = (o[2] for o in originals)
 
     def insert_rec(*args, loop_slots=None, **kw):
         if capture.get("armed") and layout == "padded":
@@ -966,7 +1011,22 @@ def _arm_capture(capture, layout):
             capture.update(armed=False, args=clone(args))
         return ragged(*args, **kw)
 
-    for (mod, name, _), rec in zip(originals, (insert_rec, groups_rec, ragged_rec)):
+    def chain_rec(*args, **kw):
+        if not capture.get("armed") or layout != "paged":
+            return chain(*args, **kw)
+        capture.update(armed=False, recording=True, groups=[])
+        try:
+            return chain(*args, **kw)
+        finally:
+            capture["recording"] = False
+
+    def run_rec(cache, key, form, body, inputs, binds=()):
+        if capture.get("armed") and cache.device.type == "cuda":
+            return body(*inputs)
+        return graph_run(cache, key, form, body, inputs, binds)
+
+    for (mod, name, _), rec in zip(originals, (insert_rec, groups_rec, ragged_rec, chain_rec,
+                                               run_rec)):
         setattr(mod, name, rec)
     return lambda: [setattr(mod, name, fn) for mod, name, fn in originals]
 
@@ -1012,7 +1072,8 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
             torch.cuda.synchronize(card)
 
     ki, kd, km, kp = cfg["round_caps"]
-    pooled = {} if layout == "padded" else dict(page_size=cfg.get("page_size", 64))
+    pooled = {} if layout == "padded" else dict(page_size=cfg.get("page_size", 64),
+                                                pool_pages=arm.get("pool_pages"))
     s = StreamingMerge(
         num_docs=len(workloads), actors=("doc1", "doc2", "doc3"),
         slot_capacity=cfg["slot_capacity"], mark_capacity=cfg["mark_capacity"],
@@ -1107,6 +1168,8 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
                   ragged_insert_launches=launches["ragged_insert"],
                   block_applies=counts["block_applies"], group_applies=counts["group_applies"],
                   ragged_applies=counts["ragged_applies"],
+                  fused_dispatches=counts["fused_dispatches"], graphs=s._graphs.stats(),
+                  h2d_copies=s._copy_lane.copies,
                   fallback_docs=len(fallback), overflow_docs=s.overflow_count(),
                   peak_memory_bytes=torch.cuda.max_memory_allocated(cards[0]), health=s.health(),
                   **extra)
@@ -1334,7 +1397,8 @@ def _check_planes_session(name, layout, site, s, out, before, after, sentinel, s
     launches against the commit counters and the kernels' launch counts,
     its applied ops against the occupancy table's, its pool against the
     page-pool section, the memory watermarks, every bucket costed, no
-    build or load after the first round, and the mounted server's
+    build or load after the first round and no more graph captures than
+    graphs held, and the mounted server's
     endpoints with the golden key sets."""
     rec = after["sites"].get(site)
     if rec is None or set(after["sites"]) - set(before["sites"]) - {site}:
@@ -1346,7 +1410,13 @@ def _check_planes_session(name, layout, site, s, out, before, after, sentinel, s
     counter, kernel = {"padded": ("block_applies", "rga_insert_launches"),
                        "paged": ("group_applies", "rga_insert_launches"),
                        "ragged": ("ragged_applies", "ragged_insert_launches")}[layout]
-    want_dispatches = out["block_applies"] if layout == "padded" else s.rounds
+    # one fused form's call per committed batch (padded: the session's
+    # fused dispatches; paged: the graph cache's calls), one ragged call a
+    # round
+    graph_calls = sum(row["eager"] + row["captures"] + row["hits"]
+                      for row in s._graphs.stats().values())
+    want_dispatches = {"padded": out["fused_dispatches"], "paged": graph_calls,
+                       "ragged": s.rounds}[layout]
     if dispatches != want_dispatches or launches != out[counter] or launches != out[kernel]:
         raise AssertionError(f"planes {name}: {site} dispatched {dispatches} (want "
                              f"{want_dispatches}) with {launches} launches; the session counted "
@@ -1370,9 +1440,15 @@ def _check_planes_session(name, layout, site, s, out, before, after, sentinel, s
         if not cost.get("device_ms") or not cost.get("kernel_bytes") or \
                 set(bucket) != GOLDEN_BUCKET_KEYS:
             raise AssertionError(f"planes {name}: bucket {key} uncosted: {bucket}")
-    if sentinel.since_mark():
-        raise AssertionError(f"planes {name}: built or loaded {sentinel.since_mark()} after "
-                             "the first round")
+    since = sentinel.since_mark()
+    built = {k: n for k, n in since.items() if not k.startswith("graph.")}
+    # a graph capture after the first round is one signature's, held since:
+    # no more captures than the graphs the session's cache holds (a
+    # signature recaptured batch after batch would exceed them)
+    captured = sum(n for k, n in since.items() if k.startswith("graph."))
+    if built or captured > len(s._graphs):
+        raise AssertionError(f"planes {name}: built or loaded {built} after the first round, "
+                             f"{captured} graph captures for {len(s._graphs)} graphs held")
     text = _scrape(server.address, "/metrics")
     missing = [g for g in GOLDEN_DEVICE_GAUGES + ("peritext_recompiles_total",)
                if f"# TYPE {g} " not in text]
@@ -1409,7 +1485,6 @@ def run_device_planes(device, ctx, whole):
     from peritext_tpu_torch.obs import GLOBAL_DEVPROF, MetricsServer, RecompileSentinel
     from peritext_tpu_torch.obs.ledger import evaluate, ledger_record
     from peritext_tpu_torch.ops import kernel as kernel_mod
-    from peritext_tpu_torch.parallel import streaming as streaming_mod
 
     cfg = STREAM
     t_phase = time.perf_counter()
@@ -1419,17 +1494,21 @@ def run_device_planes(device, ctx, whole):
                 "C_frames_ragged": (ctx["workloads_c"], ctx["wire_c"], ctx["wire_bytes_c"],
                                     ctx["cf"]["digest"])}
     captured = {}
+    compact = kernel_mod._apply_batch_compact
 
-    def capture_compact(*args, **kw):
-        if "args" not in captured:
-            captured.update(args=[a.clone() if torch.is_tensor(a) else a for a in args[1:]],
-                            state=type(args[0])(*(x.clone() for x in args[0])), kw=kw)
-        return kernel_mod.apply_batch_compact(*args, **kw)
+    def capture_compact(state, counts, ins, dels, marks, maps, widths, loop_slots):
+        # a round of a fused form's chain, taken from an eager run (a
+        # capture's tensors would be graph memory)
+        if "args" not in captured and not torch.cuda.is_current_stream_capturing():
+            captured.update(args=_clone_tree((counts, ins, dels, marks, maps)),
+                            state=_clone_tree(state),
+                            kw=dict(widths=widths, insert_loop_slots=loop_slots))
+        return compact(state, counts, ins, dels, marks, maps, widths, loop_slots)
 
     # the overhead pairs: the same session, disarmed and armed without costs
     seconds = {"disarmed": [], "armed": []}
     workloads, wire, wire_bytes, digest = arrivals["A_frames"]
-    streaming_mod.apply_batch_compact = capture_compact
+    kernel_mod._apply_batch_compact = capture_compact
     try:
         for i in range(PLANES["overhead_pairs"]):
             for armed in ((False, True) if i % 2 == 0 else (True, False)):
@@ -1448,7 +1527,7 @@ def run_device_planes(device, ctx, whole):
                 seconds["armed" if armed else "disarmed"].append(
                     st["ingest"] + st["schedule"] + st["apply"])
     finally:
-        streaming_mod.apply_batch_compact = kernel_mod.apply_batch_compact
+        kernel_mod._apply_batch_compact = compact
     ratio = float(np.median(seconds["armed"]) / np.median(seconds["disarmed"]))
     log(f"planes overhead: A_frames rounds armed (costs off) {seconds['armed']} s, disarmed "
         f"{seconds['disarmed']} s; ratio of medians {ratio:.4f}")
@@ -1897,7 +1976,7 @@ def run_baseline_engine(device, ctx):
         check_scalar_apply_matches_oracle,
         workload_op_matrices,
     )
-    from peritext_tpu_torch.testing.engine import replay_digest, replay_rounds
+    from peritext_tpu_torch.testing.engine import EngineReplay, replay_digest, replay_rounds
     from peritext_tpu_torch.testing.fuzz import generate_workload
 
     t_phase = time.perf_counter()
@@ -1966,36 +2045,43 @@ def run_baseline_engine(device, ctx):
     tables = s._digest_tables(0, s._padded_docs)
     caps = s.config
 
-    def engine_pass():
-        return replay_rounds(captured, s._padded_docs, caps, device, tables)
+    engine = EngineReplay(captured, s._padded_docs, caps, device, tables)
 
-    def counted_pass():
+    def counted_pass(run=engine):
         insert_batch.launches = 0
-        got = replay_digest(engine_pass())
+        got = replay_digest(run())
         if got != digest or insert_batch.launches != len(captured):
             raise AssertionError(f"engine: replay digest {got:#x} != session {digest:#x}, or "
                                  f"{insert_batch.launches} K1 launches for {len(captured)} rounds")
 
-    counted_pass()  # warm-up and check
-    launches["engine_replay"] = insert_batch.launches
-    single = []
-    for _ in range(3):
+    # pass 1 runs eagerly, pass 2 captures the graph and replays it, every
+    # later pass is one replay
+    timed = []
+    for _ in range(5):
         t0 = time.perf_counter()
         counted_pass()
-        single.append(time.perf_counter() - t0)
+        timed.append(time.perf_counter() - t0)
+        launches.setdefault("engine_replay", insert_batch.launches)
+    eager_s, capture_s, single = timed[0], timed[1], timed[2:]
     passes = BASELINE["passes"]
     insert_batch.launches = 0
     t0 = time.perf_counter()
-    per_docs = [engine_pass() for _ in range(passes)]
+    per_docs = [engine() for _ in range(passes)]
     last = replay_digest(per_docs[-1])
     steady = (time.perf_counter() - t0) / passes
     digests = [replay_digest(p) for p in per_docs[:-1]] + [last]
     if any(g != digest for g in digests) or insert_batch.launches != passes * len(captured):
         raise AssertionError(f"engine: steady passes gave {[hex(g) for g in digests]} with "
                              f"{insert_batch.launches} K1 launches (session {digest:#x})")
+    graphs = engine.graphs.stats()
+    want = {"apply_batch_compact_rounds": dict(eager=1, captures=1, replays=4 + passes,
+                                               hits=3 + passes)}
+    if graphs != want:
+        raise AssertionError(f"engine: graph cache {graphs}, want {want}")
+    # one replayed round's insert inputs, from a fresh replay's eager pass
     record, undo = _record_insert_call(BASELINE["round_index"])
     try:
-        counted_pass()
+        counted_pass(lambda: replay_rounds(captured, s._padded_docs, caps, device, tables))
     finally:
         undo()
     if "args" not in record:
@@ -2009,6 +2095,8 @@ def run_baseline_engine(device, ctx):
                steady_passes=passes, engine_steady_ops_per_second=ops / steady,
                engine_single_pass_ops_per_second=ops / min(single),
                engine_pass_seconds=min(single), engine_steady_seconds=steady,
+               engine_eager_pass_seconds=eager_s, engine_capture_pass_seconds=capture_s,
+               engine_graphs=graphs,
                capture_end_to_end_ops_per_second=e2e["capture"],
                twin_end_to_end_ops_per_second=e2e["twin"],
                capture_session_ops_per_second=out["ops_per_second"],
@@ -2016,6 +2104,7 @@ def run_baseline_engine(device, ctx):
                steady_vs_end_to_end=ops / steady / e2e["twin"],
                k1_launches_per_pass=launches["engine_replay"])
     log("engine", json.dumps(row))
+    ctx["engine_row"] = row
     seconds = time.perf_counter() - t_phase
     log(f"engine: the replay of {len(captured)} captured rounds equals the capture session's "
         f"and A_frames' digest {digest:#x} on every pass, {len(captured)} K1 launches a pass; "
@@ -2026,6 +2115,136 @@ def run_baseline_engine(device, ctx):
         raise AssertionError(f"baseline: phase 5k took {seconds:.2f} s, over "
                              f"{BASELINE['seconds']} s")
     return launches, record
+
+
+def forced_reshard(s):
+    """``reshard()`` of a one-block session over two read blocks (over one
+    it moves no row), then one block again: the rows move by one
+    permutation, so the session's state is new tensors."""
+    chunk = s._read_chunk
+    s._read_chunk = s._padded_docs // 2
+    try:
+        return s.reshard()
+    finally:
+        s._read_chunk = chunk
+
+
+def _graph_totals(stats):
+    return {k: sum(row[k] for row in stats.values())
+            for k in ("eager", "captures", "replays", "hits")}
+
+
+def run_fused_pipeline(device, ctx):
+    """Phase 5l (module doc).  Returns the K1 launch counts of its
+    sessions."""
+    from peritext_tpu_torch.testing.arrival import build_arrival
+
+    cfg = STREAM
+    t_phase = time.perf_counter()
+    launches, rows = {}, {}
+
+    # (a) A_frames fused and per round
+    outs = {}
+    for name, kw in (("A_frames_fused", {}), ("A_frames_per_round", dict(fused_pipeline=False))):
+        _, out = run_stream_session(device, cfg, ctx["workloads"], ctx["wire"], name,
+                                    wire_bytes=ctx["wire_bytes"], **kw)
+        compare_arms(name, out, ctx["a"], "A_default")
+        if out["digest"] != ctx["frames_digest"]:
+            raise AssertionError(f"fused pipeline {name}: digest differs from A_frames'")
+        outs[name] = out
+        launches[name] = out["rga_insert_launches"]
+    fused, twin = outs["A_frames_fused"], outs["A_frames_per_round"]
+    if not fused["fused_dispatches"] or fused["h2d_copies"] != fused["fused_dispatches"] or \
+            twin["h2d_copies"] or twin["fused_dispatches"]:
+        raise AssertionError(f"fused pipeline: A_frames made {fused['h2d_copies']} staged copies "
+                             f"for {fused['fused_dispatches']} batches (one each), the per-round "
+                             f"twin {twin['h2d_copies']} for {twin['fused_dispatches']}")
+    for name, out in outs.items():
+        rows[name] = dict(rounds=out["rounds"], batches=out["fused_dispatches"],
+                          h2d_copies=out["h2d_copies"], graphs=out["graphs"],
+                          k1_launches=out["rga_insert_launches"],
+                          block_applies=out["block_applies"], wall_seconds=out["wall_seconds"],
+                          apply_seconds=out["stage_seconds"]["apply"],
+                          drain_seconds=out["stage_seconds"]["schedule"]
+                          + out["stage_seconds"]["apply"],
+                          ops_per_second=out["ops_per_second"])
+
+    # (b) A's workload in fine rounds: padded with a forced reshard, paged
+    # with its pool growing
+    t0 = time.perf_counter()
+    fine, fine_bytes = build_arrival(ctx["workloads"], FUSED_PIPE["fine_rounds"], cfg["seed"],
+                                     as_frames=True, wire=cfg["wire"])
+    gen_seconds = time.perf_counter() - t0
+    marks = {}
+
+    def reshard_after(s, r):
+        if r == FUSED_PIPE["reshard_after"] - 1:
+            marks.update(epoch=s._graphs.epoch, captures=_graph_totals(s._graphs.stats())["captures"],
+                         moved=forced_reshard(s)["moved"])
+
+    def growth(s, r):
+        if r == 0:
+            marks.update(growths0=s.store.growths)
+
+    # the paged arm: pages of 32 slots and a pool of one page per doc, so
+    # the pool grows once docs pass their first page, between drains
+    for name, layout, hook, arm_cfg, arm in (
+            ("A_frames_fine", "padded", reshard_after, cfg, {}),
+            ("A_paged_frames_fine", "paged", growth, dict(cfg, page_size=32),
+             dict(pool_pages=cfg["docs"] + 1))):
+        s, out = run_stream_session(device, arm_cfg, ctx["workloads"], fine, name,
+                                    wire_bytes=fine_bytes, after_round=hook, layout=layout,
+                                    **arm)
+        compare_arms(name, out, ctx["a"], "A_default")
+        totals = _graph_totals(out["graphs"])
+        launches[name] = out["rga_insert_launches"]
+        row = dict(rounds=out["rounds"], graphs=out["graphs"], totals=totals,
+                   h2d_copies=out["h2d_copies"], k1_launches=out["rga_insert_launches"],
+                   epoch=s._graphs.epoch, apply_seconds=out["stage_seconds"]["apply"],
+                   wall_seconds=out["wall_seconds"], ops_per_second=out["ops_per_second"])
+        calls = totals["eager"] + totals["captures"] + totals["hits"]
+        if totals["captures"] == 0 or totals["replays"] == 0 or out["h2d_copies"] != calls:
+            raise AssertionError(f"fused pipeline {name}: graphs {totals} over "
+                                 f"{out['h2d_copies']} staged copies (one per batch); the "
+                                 "repeated signatures must capture and replay")
+        if layout == "padded":
+            after = totals["captures"] - marks["captures"]
+            row.update(reshard_moved=marks["moved"], epoch_before_reshard=marks["epoch"],
+                       captures_after_reshard=after)
+            if not marks["moved"] or s._graphs.epoch != marks["epoch"] + 1 or after <= 0:
+                raise AssertionError(f"fused pipeline {name}: the reshard moved {marks['moved']} "
+                                     f"rows, epoch {marks['epoch']} -> {s._graphs.epoch}, "
+                                     f"{after} captures after it")
+        else:
+            row.update(growths=s.store.growths, growths_after_first_round=s.store.growths
+                       - marks["growths0"])
+            if s.store.growths <= marks["growths0"] or s._graphs.epoch < 1:
+                raise AssertionError(f"fused pipeline {name}: pool growths {s.store.growths} "
+                                     f"({marks['growths0']} after round 0), epoch "
+                                     f"{s._graphs.epoch}: a growth between drains must bump it")
+        rows[name] = row
+        del s
+
+    engine = ctx.get("engine_row", {})
+    seconds = time.perf_counter() - t_phase
+    report = dict(sessions=rows, fine_arrival_seconds=gen_seconds,
+                  engine=dict(eager_pass_ms=engine.get("engine_eager_pass_seconds", 0) * 1e3,
+                              capture_pass_ms=engine.get("engine_capture_pass_seconds", 0) * 1e3,
+                              single_pass_ms=engine.get("engine_pass_seconds", 0) * 1e3,
+                              steady_ms=engine.get("engine_steady_seconds", 0) * 1e3,
+                              pr15_single_pass_ms=51.6, graphs=engine.get("engine_graphs")),
+                  seconds=seconds)
+    log("fused pipeline", json.dumps(report))
+    log(f"fused pipeline: A_frames fused apply {rows['A_frames_fused']['apply_seconds']:.6f} s, "
+        f"per round {rows['A_frames_per_round']['apply_seconds']:.6f} s; drain "
+        f"{rows['A_frames_fused']['drain_seconds']:.6f} s against "
+        f"{rows['A_frames_per_round']['drain_seconds']:.6f} s; engine single pass "
+        f"{report['engine']['single_pass_ms']:.3f} ms (PR 15: 51.6 ms), steady "
+        f"{report['engine']['steady_ms']:.3f} ms; phase 5l {seconds:.2f} s")
+    if seconds > FUSED_PIPE["seconds"]:
+        raise AssertionError(f"fused pipeline: phase 5l took {seconds:.2f} s, over "
+                             f"{FUSED_PIPE['seconds']} s")
+    return launches
 
 
 def round_need(workloads):
@@ -2663,7 +2882,8 @@ def run_serve_row(device):
         rungs=[r.to_json() for r in rungs], traced=traced.to_json(),
         stages_ms=lat["stages_ms"], time_to_visibility_ms=lat["time_to_visibility_ms"],
         window=tmux.tuner.snapshot(), history_frames=history.snapshot()["frames_sampled"],
-        launches=delta, seconds=time.perf_counter() - t_phase)
+        graphs=tmux.session._graphs.stats(), launches=delta,
+        seconds=time.perf_counter() - t_phase)
     log("serve_row", json.dumps(report))
     log(f"serve_row: {value:.1f} docs/s at the {SERVE['slo_ms']:.0f} ms p99 SLO "
         f"({cfg['docs']} sessions); traced rung at {trace_rate:.1f}/s: stages_ms "
@@ -3847,6 +4067,8 @@ def run_all(device, jobs, ckpt_root) -> int:
     log(f"mesh done at {time.perf_counter() - t_start:.1f} s")
     engine_paths, capture_engine = run_baseline_engine(device, ctx)
     log(f"baseline and engine done at {time.perf_counter() - t_start:.1f} s")
+    fused_paths = run_fused_pipeline(device, ctx)
+    log(f"fused pipeline done at {time.perf_counter() - t_start:.1f} s")
     sup = dict(workloads=ctx["workloads"], wire=ctx["wire"], digest=ctx["a"]["digest"],
                spans=ctx["a"]["spans"])
     del ctx
@@ -4005,6 +4227,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths["plan_replay"] = plan_launches["padded"]
     rga_paths.update(mesh_paths)
     rga_paths.update(engine_paths)
+    rga_paths.update(fused_paths)
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})

@@ -6,9 +6,12 @@ Usage::
     python -m peritext_tpu_torch.analysis --list-rules
     python -m peritext_tpu_torch.analysis --update-baseline  # re-attribute the ledger
 
-A scan of ``peritext_tpu_torch`` finds the package's own baseline,
-``peritext_tpu_torch/graftlint_baseline.json``, first (the walk up starts at
-the scanned path), so its entries' paths are relative to the package.
+With no ``--baseline``, the baseline is the package's own,
+``peritext_tpu_torch/graftlint_baseline.json``, whatever is scanned, so its
+entries' paths are relative to the package.  ``--update-baseline`` writes
+only a baseline inside the package, from a scan of paths inside it: any
+other target or scanned path exits 2 and writes nothing (the repo root's
+``graftlint_baseline.json`` is the JAX package's frozen ledger).
 
 Exit codes: 0 clean (modulo baseline), 1 unbaselined findings, 2 usage error.
 """
@@ -22,10 +25,11 @@ from pathlib import Path
 from typing import List, Optional
 
 from .baseline import (
-    BASELINE_NAME,
     apply_baseline,
     find_default_baseline,
+    inside_package,
     load_baseline,
+    package_baseline,
     save_baseline,
     update_baseline,
 )
@@ -40,13 +44,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("paths", nargs="*", default=["peritext_tpu_torch"],
                         help="files/directories to scan (default: peritext_tpu_torch)")
     parser.add_argument("--baseline", metavar="FILE",
-                        help=f"baseline file (default: nearest {BASELINE_NAME} "
-                             "above the first scanned path)")
+                        help="baseline file (default: the package's own, "
+                             "peritext_tpu_torch/graftlint_baseline.json)")
     parser.add_argument("--no-baseline", action="store_true",
                         help="report every finding, ignoring any baseline")
     parser.add_argument("--update-baseline", action="store_true",
                         help="rewrite the baseline from this scan, preserving "
-                             "existing justifications")
+                             "existing justifications (only a baseline inside the "
+                             "package, from paths inside it)")
     parser.add_argument("--rules", metavar="IDS",
                         help="comma-separated rule subset (e.g. PTL001,PTL005)")
     parser.add_argument("--format", choices=("text", "json"), default="text")
@@ -74,9 +79,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"baseline not found: {baseline_path}", file=sys.stderr)
             return 2
     elif not args.no_baseline:
-        baseline_path = find_default_baseline(args.paths)
+        baseline_path = find_default_baseline()
 
-    root = baseline_path.parent if baseline_path else Path.cwd()
+    root = (baseline_path.parent if baseline_path
+            else package_baseline().parent if args.update_baseline else Path.cwd())
     try:
         findings = scan_paths(args.paths, root=root, rules=rules)
     except (FileNotFoundError, ValueError) as exc:
@@ -84,10 +90,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
 
     if args.update_baseline:
-        # no pre-existing/explicit baseline: anchor the new ledger at cwd
-        # (the scan root), NEVER inside the scanned tree — entries must be
-        # rooted where the default discovery walk will later find them
-        target = baseline_path or Path.cwd() / BASELINE_NAME
+        # the default discovery reads only the package's own baseline, so
+        # that is the one ledger an update may write, from a scan of the
+        # package: never the JAX package's frozen one at the repo root
+        target = baseline_path or package_baseline()
+        outside = [str(p) for p in [target, *args.paths] if not inside_package(p)]
+        if outside:
+            print(f"refusing to update a baseline: {', '.join(outside)} "
+                  f"lie(s) outside the package {package_baseline().parent}", file=sys.stderr)
+            return 2
         old = load_baseline(target) if target.is_file() else {}
         entries = update_baseline(findings, old)
         if rules is not None:

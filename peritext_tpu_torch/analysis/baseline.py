@@ -119,17 +119,29 @@ def update_baseline(
     return out
 
 
-def find_default_baseline(paths: Sequence[str | Path]) -> Optional[Path]:
-    """Walk up from the first scanned path, starting at the path itself,
-    looking for the checked-in baseline (the package's own, for a scan of
-    the package); None if absent."""
-    if not paths:
-        return None
-    start = Path(paths[0]).resolve()
-    if start.is_file():
-        start = start.parent
-    for candidate in [start, *start.parents]:
-        hit = candidate / BASELINE_NAME
-        if hit.is_file():
-            return hit
-    return None
+#: the port package: the only place its linter reads a default baseline from
+#: or writes one to (the repo root's ``graftlint_baseline.json`` is the JAX
+#: package's frozen ledger)
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+
+
+def package_baseline() -> Path:
+    """The port package's own baseline file (it may not exist yet)."""
+    return PACKAGE_DIR / BASELINE_NAME
+
+
+def inside_package(path: str | Path) -> bool:
+    """Whether ``path`` lies in the port package (the package itself
+    included)."""
+    resolved = Path(path).resolve()
+    root = PACKAGE_DIR.resolve()
+    return resolved == root or root in resolved.parents
+
+
+def find_default_baseline() -> Optional[Path]:
+    """The package's own baseline, whatever is scanned; None if absent.
+    Never a walk up from the scanned paths: from a path outside the
+    package that walk would reach the JAX package's baseline at the repo
+    root."""
+    hit = package_baseline()
+    return hit if hit.is_file() else None

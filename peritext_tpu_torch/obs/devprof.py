@@ -11,9 +11,15 @@ captures, per launch site and shape bucket:
   ``ops/ragged_insert.ragged_teams``), the port's launch granularity.  A
   site is one of the ops-level entry points (``apply_batch``,
   ``apply_batch_paged``, ``apply_batch_paged_groups``,
-  ``apply_batch_compact``, ``apply_batch_ragged``); a site called inside
-  another site's call belongs to the outer one, so each kernel launch is
-  counted by exactly one site call.
+  ``apply_batch_compact``, ``apply_batch_ragged``) or a fused round
+  pipeline form under the reference's site name
+  (``apply_batch_staged_rounds``, ``apply_batch_stacked_rounds``,
+  ``apply_batch_stacked_rounds_multi``, ``apply_batch_compact_rounds``,
+  ``_fused_rounds_digest``, ``_stacked_rounds_digest``: one call per
+  committed batch, whether it runs eagerly, is captured into a CUDA graph
+  or replays one); a site called inside another site's call belongs to
+  the outer one, so each kernel launch is counted by exactly one site
+  call.
 * **Launch costs** (``capture_costs``) — on a bucket's first dispatch:
   ``cost`` = ``device_ms`` (the whole site call, between a CUDA event pair
   recorded on the caller's current stream and read only in
@@ -23,7 +29,9 @@ captures, per launch site and shape bucket:
   ``ops/ragged_insert.ragged_insert_bytes``) and ``kernel_launches``;
   ``memory`` = argument and output tensor bytes and ``peak_bytes``, their
   sum (temporaries are not counted).  Capture launches nothing of its own
-  and reads nothing back from the card.
+  and reads nothing back from the card.  A fused form's events are
+  recorded around its whole call (an eager run or a graph replay), never
+  inside a graph capture.
 * **Bucket occupancy** — per padded-shape bucket (:func:`occupancy_key`):
   rounds, real ops vs padded op-stream capacity, and the padding waste.
 * **Device-memory watermarks** — :meth:`~DeviceProfiler.sample_memory`

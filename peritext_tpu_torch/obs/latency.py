@@ -14,11 +14,17 @@ module is the low-overhead decomposition of that journey.
 * ``stage``      — window close → frames bulk-ingested into the session
   (``serve/mux.py`` ``pump``);
 * ``dispatch``   — staged → the drain's return, MINUS its measured apply
-  spans: the host schedule and upload half of ``parallel/streaming.py``;
+  spans: the host schedule of ``parallel/streaming.py`` and the staging
+  lane's flatten and upload (``parallel/staging.py``; its
+  ``staging.stage`` span runs on the lane's worker, overlapped with the
+  next batch's schedule, so only the part the commit waits for lands
+  here);
 * ``commit``     — the apply spans themselves (streaming's
-  ``streaming.apply`` spans accumulated into ``last_drain_marks``).  On
-  the card a commit span ends when the round's kernels are queued, not
-  when the card has run them;
+  ``streaming.apply`` spans accumulated into ``last_drain_marks``), one
+  per committed batch: one site call of a fused form, on the card one
+  CUDA-graph replay once the batch's signature repeats.  On the card a
+  commit span ends when the batch's kernels are queued, not when the card
+  has run them;
 * ``visibility`` — commit → the first ``patches()``/``read()`` that
   exposes the committed round; that read ends in a device-to-host copy,
   so it includes the card's outstanding work.
@@ -29,8 +35,9 @@ that waited the whole window, i.e. the worst case an SLO cares about.
 ``sample_every=N`` decimates further.
 
 **Determinism contract**: the plane is fed clock watermarks by the SERVE
-tier only; the streaming session contributes span DURATIONS
-(``last_drain_marks``), never wall-clock reads.
+tier only; the streaming session and its staging lane contribute span
+DURATIONS (``last_drain_marks``, the ``staging.stage`` spans), never
+wall-clock reads.
 
 Sum-consistency holds by construction: the five server-side stage
 durations are telescoping differences of monotonic watermarks, so they

@@ -1,11 +1,15 @@
-"""Runtime build sentinel: counts kernel-library builds and loads.
+"""Runtime build sentinel: counts kernel-library builds and loads, and
+CUDA-graph captures.
 
 The port compiles nothing per shape: each CUDA source builds once into a
 shared library (``utils/nvcc.py``) and the native host library once with
 g++ (``native/``), and each is loaded once per process.  Those builders log
 one record per build and one per load on the :data:`KERNEL_LOGGER`
-logger; this handler counts them per library, so a steady-state loop can
-assert that it built and loaded nothing.
+logger.  The fused commit forms capture a CUDA graph per new signature
+(``utils/graphs.py``, the port's counterpart of a JAX compile) and log one
+record per capture there too.  This handler counts them per library or
+graph form, so a steady-state loop can assert that it built, loaded and
+captured nothing.
 """
 
 from __future__ import annotations
@@ -19,24 +23,28 @@ from .metrics import Counters, GLOBAL_COUNTERS
 #: the logger the kernel builders write their build and load records to
 KERNEL_LOGGER = "peritext_tpu_torch.kernels"
 
-#: a builder's record: "Building <library> ..." (one per compiler run) or
-#: "Loading <library> ..." (one per library load).  Matched with
+#: a builder's record: "Building <library> ..." (one per compiler run),
+#: "Loading <library> ..." (one per library load) or "Capturing
+#: graph.<form> ..." (one per CUDA-graph capture).  Matched with
 #: ``search``, anywhere in the record: a handler downstream of a formatter
 #: may receive the message prefixed.
-_BUILD_MSG_RE = re.compile(r"\b(Building|Loading) (\S+)")
+_BUILD_MSG_RE = re.compile(r"\b(Building|Loading|Capturing) (\S+)")
 
-_KINDS = {"Building": "builds", "Loading": "loads"}
+_KINDS = {"Building": "builds", "Loading": "loads", "Capturing": "captures"}
 
 
 class RecompileSentinel(logging.Handler):
     """Runtime guard for the build-once discipline: counts kernel-library
     builds and loads **per library** (``insert``, ``ragged_insert``,
-    ``native``).  Counts land three ways:
+    ``native``) and graph captures per form (``graph.<form>``).  Counts
+    land three ways:
 
-    * :attr:`counts` — ``{library: builds + loads}``, with the two kinds
-      apart in :attr:`builds` and :attr:`loads`;
-    * ``kernel.builds.<library>`` / ``kernel.loads.<library>`` on the
-      target :class:`Counters` (default :data:`GLOBAL_COUNTERS`);
+    * :attr:`counts` — ``{library or graph form: builds + loads +
+      captures}``, with the kinds apart in :attr:`builds`, :attr:`loads`
+      and :attr:`captures`;
+    * ``kernel.builds.<library>`` / ``kernel.loads.<library>`` /
+      ``kernel.captures.graph.<form>`` on the target :class:`Counters`
+      (default :data:`GLOBAL_COUNTERS`);
     * ``health_snapshot(sentinel=s)`` embeds :attr:`counts` and
       :attr:`total`.
 
@@ -55,6 +63,7 @@ class RecompileSentinel(logging.Handler):
         self.counts: Dict[str, int] = {}
         self.builds: Dict[str, int] = {}
         self.loads: Dict[str, int] = {}
+        self.captures: Dict[str, int] = {}
         self._marked: Dict[str, int] = {}
         self._counters = counters if counters is not None else GLOBAL_COUNTERS
         self._logger = logging.getLogger(logger)
@@ -72,7 +81,7 @@ class RecompileSentinel(logging.Handler):
         if m is None:
             return
         kind, site = _KINDS[m.group(1)], m.group(2)
-        table = self.builds if kind == "builds" else self.loads
+        table = getattr(self, kind)
         table[site] = table.get(site, 0) + 1
         self.counts[site] = self.counts.get(site, 0) + 1
         self._counters.add(f"kernel.{kind}.{site}")
@@ -115,8 +124,8 @@ class RecompileSentinel(logging.Handler):
         self._marked = dict(self.counts)
 
     def since_mark(self) -> Dict[str, int]:
-        """Per-library builds + loads since :meth:`mark` (empty dict =
-        steady state)."""
+        """Per-library (and graph form) builds, loads and captures since
+        :meth:`mark` (empty dict = steady state)."""
         return {
             site: n - self._marked.get(site, 0)
             for site, n in sorted(self.counts.items())
@@ -128,5 +137,6 @@ class RecompileSentinel(logging.Handler):
         if fresh:
             raise AssertionError(
                 f"{what} built or loaded {sum(fresh.values())} kernel "
-                f"librar{'y' if sum(fresh.values()) == 1 else 'ies'}: {fresh}"
+                f"{'library or graph' if sum(fresh.values()) == 1 else 'libraries or graphs'}"
+                f": {fresh}"
             )

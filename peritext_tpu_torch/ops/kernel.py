@@ -21,16 +21,20 @@ doc's ``overflow`` flag; the API layer falls back to the scalar oracle for
 flagged docs.
 
 The public entry points (:func:`apply_batch`, :func:`apply_batch_paged`,
-:func:`apply_batch_paged_groups`, :func:`apply_batch_compact`) are the
-device profiler's launch sites (obs/devprof.py): with
-``GLOBAL_DEVPROF.enabled`` each call lands in a bucket keyed by its tensor
-shapes, its statics and its insert launch plan (:func:`_insert_plan`,
-host arithmetic only).  Disabled, the cost is one attribute check.
+:func:`apply_batch_paged_groups`, :func:`apply_batch_compact`, and the
+fused round pipeline's multi-round forms :func:`apply_batch_compact_rounds`,
+:func:`apply_batch_staged_rounds`, :func:`apply_batch_stacked_rounds`,
+:func:`apply_batch_stacked_rounds_multi`) are the device profiler's launch
+sites (obs/devprof.py): with ``GLOBAL_DEVPROF.enabled`` each call lands in
+a bucket keyed by its tensor shapes, its statics and its insert launch
+plan (:func:`_insert_plan`, host arithmetic only).  Disabled, the cost is
+one attribute check.  A nested site call runs unprofiled: a form's
+per-round applies belong to its call.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -282,12 +286,19 @@ def _apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_ar
     # since torch leaves duplicate-index writes unordered); restore it last
     pool_elem[0] = 0
     pool_char[0] = 0
-    # padding rows are dropped, not clamped: a clamped write would put a
-    # stale copy of the last doc's aux row over its new one
+    # padding rows must not write their own row: a clamped write would put
+    # a stale copy of the last doc's aux row over its new one.  Each writes
+    # the group's first row with that row's value instead, a duplicate
+    # write of one value (a boolean mask would sync the host; a CUDA graph
+    # cannot hold that).  Padding follows the real rows, so the first row
+    # is real unless the group is all padding, and then every write is the
+    # unchanged last row.
     real = row_idx < aux[0].shape[0]
-    rows = row_idx[real].long()
+    rows = torch.where(real, row_idx, row_idx[:1]).long().clamp(max=aux[0].shape[0] - 1)
     for f, a in zip(PAGED_AUX_FIELDS, aux):
-        a[rows] = getattr(state, f)[real]
+        new = getattr(state, f)
+        keep = real.reshape((-1,) + (1,) * (new.dim() - 1))
+        a[rows] = torch.where(keep, new, new[:1])
 
 
 def apply_batch_paged_groups(pool_elem, pool_char, aux, group_inputs) -> None:
@@ -387,6 +398,194 @@ def _apply_batch_compact(state, stream_counts, ins_flat, del_flat, mark_flat, ma
             n_map.to(torch.int32),
         )
     return _apply_batch(state, arrays, insert_loop_slots)
+
+
+# -- the fused round pipeline's commit forms (parallel/streaming.py) ----------
+#
+# A committed batch of R rounds is ONE site call in the reference's forms:
+# the per-round applies chained in causal order.  On the CPU each form is
+# that eager chain (the plain version the tests run).  On the card the
+# session runs the same chain inside a CUDA graph (utils/graphs.py) that
+# ends by copying the result into its resident state: the port's form of
+# the reference's donated, in-place program.
+
+
+def resolve_state_donation(*tensors) -> bool:
+    """Whether the fused forms update the resident state in place (through
+    a CUDA graph) rather than rebinding it: True for state on the card,
+    False on the CPU, where a single-round commit takes the undonated
+    ``compact1`` / ``static1`` forms the per-round discipline shares, as
+    the reference's CPU does."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            return t.device.type == "cuda"
+    return False
+
+
+def rounds_plan(state: PackedDocs, ks: Sequence[int], loop_slots_seq: Sequence[Optional[int]],
+                extra: Tuple = ()):
+    """``(static, kernel_launches, kernel_bytes)`` of a chain of rounds with
+    insert widths ``ks`` and slot windows ``loop_slots_seq`` on ``state``:
+    the bucket static a form's site call is keyed by (``extra``, the
+    windows and the insert launch plan), the insert launches the chain
+    makes and the bytes they must move."""
+    teams, nbytes = [], 0
+    for k, loop_slots in zip(ks, loop_slots_seq):
+        t, b = _insert_plan(*state.elem_id.shape, k, loop_slots, state.elem_id.device)
+        teams.extend(t)
+        nbytes += b
+    static = tuple(extra) + (("loop_slots_seq", tuple(loop_slots_seq)),
+                             ("plan", plan_static(teams)))
+    return static, len(teams), nbytes
+
+
+def note_form(site: str, tensors, run, plan, *, device: torch.device):
+    """One commit form's site call under the device profiler (``run()``
+    alone when it is off): the form's reference site name, one call per
+    committed batch however it runs (eagerly, captured or replayed).
+    ``plan()`` gives the call's ``(static, kernel_launches, kernel_bytes)``
+    (:func:`rounds_plan`) and runs only while profiling.  The call's CUDA
+    events, when its bucket's first call is timed, are recorded around it
+    on the caller's stream, never inside a capture."""
+    if not GLOBAL_DEVPROF.enabled:
+        return run()
+    static, launches, nbytes = plan()
+    return note_launch(site, tensors, static, run, device=device, kernel_launches=launches,
+                       kernel_bytes=nbytes)
+
+
+def _compact_rounds_chain(state, rounds, widths_seq, loop_slots_seq) -> PackedDocs:
+    for (counts, ins, dels, marks, maps), widths, loop_slots in zip(
+            rounds, widths_seq, loop_slots_seq):
+        state = _apply_batch_compact(state, counts, ins, dels, marks, maps, widths, loop_slots)
+    return state
+
+
+def apply_batch_compact_rounds(state: PackedDocs, rounds, *, widths_seq,
+                               loop_slots_seq) -> PackedDocs:
+    """R causally ordered rounds, each ``(stream_counts, ins_flat,
+    del_flat, mark_flat, map_flat)`` as :func:`apply_batch_compact` takes
+    them, chained in one site call (the engine replay's form).  The
+    ``apply_batch_compact_rounds`` launch site."""
+    rounds = tuple(rounds)
+    if not len(rounds) == len(widths_seq) == len(loop_slots_seq):
+        raise ValueError(f"rounds/widths_seq/loop_slots_seq length mismatch: "
+                         f"{len(rounds)}/{len(widths_seq)}/{len(loop_slots_seq)}")
+    return note_form(
+        "apply_batch_compact_rounds", (state, rounds),
+        lambda: _compact_rounds_chain(state, rounds, widths_seq, loop_slots_seq),
+        lambda: rounds_plan(state, [w[0] for w in widths_seq], loop_slots_seq,
+                            (("widths_seq", tuple(map(tuple, widths_seq))),)),
+        device=state.elem_id.device)
+
+
+def _staged_rounds_chain(state, counts_all, ins_all, del_all, mark_all, map_all, widths_seq,
+                         loop_slots_seq, ins_lens, del_lens, mark_lens, map_lens) -> PackedDocs:
+    io = do = mo = po = 0
+    for r, (widths, loop_slots) in enumerate(zip(widths_seq, loop_slots_seq)):
+        li, ld, lm, lp = ins_lens[r], del_lens[r], mark_lens[r], map_lens[r]
+        state = _apply_batch_compact(
+            state, tuple(counts_all[r, j] for j in range(4)),
+            tuple(a[io:io + li] for a in ins_all), del_all[do:do + ld],
+            {c: a[mo:mo + lm] for c, a in mark_all.items()},
+            {c: a[po:po + lp] for c, a in map_all.items()}, widths, loop_slots)
+        io, do, mo, po = io + li, do + ld, mo + lm, po + lp
+    return state
+
+
+def apply_batch_staged_rounds(state: PackedDocs, counts_all, ins_all, del_all, mark_all,
+                              map_all, *, widths_seq, loop_slots_seq, ins_lens, del_lens,
+                              mark_lens, map_lens) -> PackedDocs:
+    """R causally ordered rounds from ONE staged tensor set (the fused
+    pipeline's flat form): ``counts_all`` (R, 4, D) per-round (ins, del,
+    mark, map) counts; ``ins_all`` the three insert streams, ``del_all``
+    the delete stream, ``mark_all`` / ``map_all`` dicts by column, each the
+    rounds' flat streams concatenated, round r's slice ``*_lens[r]`` long
+    (its bucket).  The ``apply_batch_staged_rounds`` launch site."""
+    if not (len(widths_seq) == len(loop_slots_seq) == counts_all.shape[0] == len(ins_lens)
+            == len(del_lens) == len(mark_lens) == len(map_lens)):
+        raise ValueError("staged rounds: per-round static/tensor length mismatch")
+    statics = (tuple(map(tuple, widths_seq)), tuple(loop_slots_seq), tuple(ins_lens),
+               tuple(del_lens), tuple(mark_lens), tuple(map_lens))
+    return note_form(
+        "apply_batch_staged_rounds", (state, counts_all, ins_all, del_all, mark_all, map_all),
+        lambda: _staged_rounds_chain(state, counts_all, ins_all, del_all, mark_all, map_all,
+                                     *statics),
+        lambda: rounds_plan(state, [w[0] for w in statics[0]], statics[1], tuple(zip(
+            ("widths_seq", "ins_lens", "del_lens", "mark_lens", "map_lens"),
+            (statics[0],) + statics[2:]))),
+        device=state.elem_id.device)
+
+
+def _stacked_round(stacked, r: int):
+    ins_ref, ins_op, ins_char, del_t, marks, mark_count, maps, map_count = stacked
+    return (ins_ref[r], ins_op[r], ins_char[r], del_t[r], {c: a[r] for c, a in marks.items()},
+            mark_count[r], {c: a[r] for c, a in maps.items()}, map_count[r])
+
+
+def _stacked_rounds_chain(state, stacked, loop_slots_seq) -> PackedDocs:
+    for r, loop_slots in enumerate(loop_slots_seq):
+        state = _apply_batch(state, _stacked_round(stacked, r), loop_slots)
+    return state
+
+
+def apply_batch_stacked_rounds(state: PackedDocs, stacked, *, loop_slots_seq) -> PackedDocs:
+    """R rounds of the PADDED (D, K) apply chained in one site call: the
+    fused pipeline's static-rounds form.  ``stacked`` is the
+    :func:`apply_batch` 8-tuple with a leading round axis.  The
+    ``apply_batch_stacked_rounds`` launch site."""
+    return note_form(
+        "apply_batch_stacked_rounds", (state, stacked),
+        lambda: _stacked_rounds_chain(state, stacked, tuple(loop_slots_seq)),
+        lambda: rounds_plan(state, [stacked[0].shape[2]] * len(loop_slots_seq), loop_slots_seq),
+        device=state.elem_id.device)
+
+
+def _scatter_tenant_blocks(blocks: torch.Tensor, row_base: torch.Tensor, docs: int) -> torch.Tensor:
+    """Per-tenant row blocks -> one (docs, ...) staging plane.
+
+    ``blocks`` is (T, Dt, ...), tenant t's Dt doc rows of one plane, and
+    ``row_base`` (T,) int32: tenant t's rows land at ``row_base[t] +
+    arange(Dt)``.  An add into zeros (``index_add_``), as the reference's
+    scatter-add: all-zero rows are no-op rows to the apply phases, so a
+    zero pad block adds nothing wherever its ``row_base`` points.  Tenant
+    blocks never alias each other (the fusion plan hands every tenant a
+    disjoint row range)."""
+    t, dt = blocks.shape[0], blocks.shape[1]
+    rows = (row_base.to(torch.int64)[:, None]
+            + torch.arange(dt, dtype=torch.int64, device=blocks.device)[None, :]).reshape(-1)
+    flat = blocks.reshape((t * dt,) + tuple(blocks.shape[2:]))
+    out = torch.zeros((docs,) + tuple(blocks.shape[2:]), dtype=blocks.dtype, device=blocks.device)
+    return out.index_add_(0, rows, flat)
+
+
+def _stacked_multi_chain(state, stacked, row_base, loop_slots_seq) -> PackedDocs:
+    docs = state.elem_id.shape[0]
+    for r, loop_slots in enumerate(loop_slots_seq):
+        ins_ref, ins_op, ins_char, del_t, marks, mark_count, maps, map_count = \
+            _stacked_round(stacked, r)
+        sc = lambda plane: _scatter_tenant_blocks(plane, row_base, docs)  # noqa: E731
+        arrays = (sc(ins_ref), sc(ins_op), sc(ins_char), sc(del_t),
+                  {c: sc(a) for c, a in marks.items()}, sc(mark_count),
+                  {c: sc(a) for c, a in maps.items()}, sc(map_count))
+        state = _apply_batch(state, arrays, loop_slots)
+    return state
+
+
+def apply_batch_stacked_rounds_multi(state: PackedDocs, stacked, row_base, *,
+                                     loop_slots_seq) -> PackedDocs:
+    """The multi-tenant form of :func:`apply_batch_stacked_rounds`
+    (cross-tenant fusion, plan/fusion.py): ``stacked`` holds only the
+    active tenants' row blocks, leaves shaped (R, T, Dt, ...), and
+    ``row_base`` (T,) their first rows; the full (D, K) planes are rebuilt
+    on the device (:func:`_scatter_tenant_blocks`) before each round's
+    padded apply.  The ``apply_batch_stacked_rounds_multi`` launch site."""
+    return note_form(
+        "apply_batch_stacked_rounds_multi", (state, stacked, row_base),
+        lambda: _stacked_multi_chain(state, stacked, row_base, tuple(loop_slots_seq)),
+        lambda: rounds_plan(state, [stacked[0].shape[3]] * len(loop_slots_seq), loop_slots_seq,
+                            (("docs", int(state.elem_id.shape[0])),)),
+        device=state.elem_id.device)
 
 
 def encoded_arrays_of(encoded: EncodedBatch, device: Union[str, torch.device]):

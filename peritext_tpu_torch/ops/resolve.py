@@ -73,12 +73,21 @@ class ResolvedDocs(NamedTuple):
 def _row_isin(values: torch.Tensor, table: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     """(D, S) bool: ``values[d, s]`` is among row d's ``table`` entries
     where ``live``.  Each value is keyed with its row, so one sorted set
-    membership serves every row, in memory linear in D * (S + T); the
+    membership (a sort of the table's keys and a binary search of each
+    value's) serves every row, in memory linear in D * (S + T); the
     (D, S, T) compare it equals would take D * S * T bytes (69 GB for 1025
-    docs at 8192 slots and 8192 tombstones)."""
+    docs at 8192 slots and 8192 tombstones).  Dead entries key to -1,
+    below every value's key, so nothing here sizes a tensor by the data:
+    no host sync, which a CUDA graph of the fused commit (utils/graphs.py)
+    could not hold (``torch.isin`` and boolean masks size theirs)."""
+    if table.numel() == 0 or values.numel() == 0:
+        return torch.zeros(values.shape, dtype=torch.bool, device=values.device)
     rows = torch.arange(values.shape[0], dtype=torch.int64, device=values.device)[:, None]
     key = lambda x: (rows << 32) | (x.to(torch.int64) & 0xFFFFFFFF)  # noqa: E731
-    return torch.isin(key(values), key(table)[live])
+    table_keys = torch.where(live, key(table), -1).reshape(-1).sort().values
+    value_keys = key(values).reshape(-1)
+    at = torch.searchsorted(table_keys, value_keys).clamp(max=table_keys.numel() - 1)
+    return (table_keys[at] == value_keys).reshape(values.shape)
 
 
 def resolve(state: PackedDocs, comment_capacity: int = 32,

@@ -14,11 +14,20 @@ Design, as in the reference package's session:
   ``round_*_capacity`` widths (shrunk by a power-of-two shift for trickle
   rounds); a doc whose pending work exceeds them defers the rest to the
   next round.
-* **Batched rounds** — :meth:`drain` schedules up to
+* **The fused round pipeline** — :meth:`drain` schedules up to
   :attr:`FUSE_MAX_ROUNDS` rounds on the host first (admission needs only
-  host clocks), then commits them in causal order.  Each round uploads its
-  flat streams once and launches the insert kernel once (ops/insert.py)
-  with its slot window bounded by the cumulative admitted inserts.
+  host clocks), then commits them as ONE batch: flattened into one int32
+  buffer and uploaded (pinned, non-blocking) on the staging lane's worker
+  (parallel/staging.py) while the next batch schedules, then applied as
+  one site call of a multi-round form (ops/kernel.py; the flat staged
+  form, the stacked form for ``static_rounds``, ``stacked_multi`` under a
+  fusion window), which on the card is one CUDA-graph replay
+  (utils/graphs.py) once the batch's signature repeats, updating the
+  resident state in place.  Each round launches the insert kernel once
+  (ops/insert.py), its slot window bounded by the cumulative admitted
+  inserts.  With the digest prefetch armed, the drain's final batch chains
+  the block's resolve and digest into its own call.  ``fused_pipeline =
+  False`` commits round by round (the equality oracle).
 * **Block-chunked state** — sessions larger than ``read_chunk`` docs pad
   the doc axis to a block multiple and apply, resolve and sweep per block.
 * **Event-sourced fallback** — the session keeps every doc's change log, so
@@ -86,16 +95,27 @@ from ..ops.frames import (
     ParsedChanges,
     parse_frames_bulk,
 )
-from ..ops.kernel import apply_batch_compact
+from ..ops.kernel import (
+    _stacked_multi_chain,
+    _stacked_rounds_chain,
+    _staged_rounds_chain,
+    apply_batch,
+    apply_batch_compact,
+    note_form,
+    resolve_state_donation,
+    rounds_plan,
+)
 from ..ops.packed import VK_DELETED, VK_STR, PackedDocs, empty_docs
 from ..ops.resolve import COMMENT_TYPE, LINK_TYPE, ResolvedDocs, resolve
 from ..schema import MARK_INDEX
-from ..utils.device import resolve_device, upload_int32
+from ..utils.device import pack_int32, resolve_device, unpack_int32, upload_int32
+from ..utils.graphs import GraphCache
 from ..utils.interning import Interner, OrderedActorTable
 from ..utils.shapes import next_pow2
 from .causal import causal_schedule
 from .codec import decode_frame, encode_frame, strip_trace_context
 from .mesh_fused import permute_shard_rows
+from .staging import CopyLane, FrameStager
 from .mesh import (
     M32,
     Mesh,
@@ -227,7 +247,8 @@ class _BlockResolution:
     sync points fetch the hash vector and the overflow flags (D words and D
     bools); only span and patch reads pay the (D, S) plane transfer."""
 
-    __slots__ = ("device", "digest_dev", "on_device", "_np", "_overflow", "_digest_vec")
+    __slots__ = ("device", "digest_dev", "on_device", "_np", "_overflow", "_digest_vec",
+                 "_readback")
 
     def __init__(self, device: ResolvedDocs, digest_dev: torch.Tensor, on_device: np.ndarray):
         self.device = device
@@ -236,17 +257,39 @@ class _BlockResolution:
         self._np = None
         self._overflow = None
         self._digest_vec = None
+        #: (event, pinned digest, pinned overflow) of a started readback
+        self._readback = None
+
+    def start_readback(self) -> None:
+        """Start copying the digest vector and the overflow flags into
+        pinned host memory without waiting; the first read of either waits
+        on the copy's event.  A no-op on the CPU or when already started."""
+        if self._readback is not None or self.digest_dev.device.type != "cuda":
+            return
+        host_d = torch.empty(self.digest_dev.shape, dtype=self.digest_dev.dtype, pin_memory=True)
+        host_o = torch.empty(self.device.overflow.shape, dtype=torch.bool, pin_memory=True)
+        host_d.copy_(self.digest_dev, non_blocking=True)
+        host_o.copy_(self.device.overflow, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.digest_dev.device))
+        self._readback = (event, host_d, host_o)
+
+    def _host(self, index: int, dev: torch.Tensor) -> np.ndarray:
+        if self._readback is None:
+            return dev.cpu().numpy()
+        self._readback[0].synchronize()
+        return self._readback[index].numpy().copy()
 
     @property
     def digest_per_doc(self) -> np.ndarray:
         if self._digest_vec is None:
-            self._digest_vec = self.digest_dev.cpu().numpy().astype(np.uint32)
+            self._digest_vec = self._host(1, self.digest_dev).astype(np.uint32)
         return self._digest_vec
 
     @property
     def overflow(self) -> np.ndarray:
         if self._overflow is None:
-            self._overflow = self.device.overflow.cpu().numpy()
+            self._overflow = self._host(2, self.device.overflow)
         return self._overflow
 
     def to_np(self) -> ResolvedDocs:
@@ -254,6 +297,46 @@ class _BlockResolution:
             self._np = ResolvedDocs(*(x.cpu().numpy() for x in self.device))
             self._overflow = self._np.overflow
         return self._np
+
+
+def _compact_args(t: Dict[str, torch.Tensor]):
+    """``(counts, ins, dels, marks, maps)`` for apply_batch_compact from a
+    round's arrays by name (``StreamingMerge._compact_named``)."""
+    return (tuple(t[f"n{j}"] for j in range(4)), (t["ins0"], t["ins1"], t["ins2"]), t["del"],
+            {c: t[f"mark.{c}"] for c in MARK_COLS}, {c: t[f"map.{c}"] for c in MAP_STREAM_COLS})
+
+
+def _staged_args(t: Dict[str, torch.Tensor]):
+    """``(counts_all, ins_all, del_all, mark_all, map_all)`` of the staged
+    flat form from its packed arrays by name."""
+    return (t["counts"], (t["ins0"], t["ins1"], t["ins2"]), t["del"],
+            {c: t[f"mark.{c}"] for c in MARK_COLS}, {c: t[f"map.{c}"] for c in MAP_STREAM_COLS})
+
+
+def _padded_named(enc) -> Dict[str, np.ndarray]:
+    """A round's padded (D, K) staging planes by name (the static-round
+    forms' inputs)."""
+    arrays = {"ins_ref": enc.ins_ref, "ins_op": enc.ins_op, "ins_char": enc.ins_char,
+              "del": enc.del_target, "mark_count": enc.mark_count, "map_count": enc.map_count}
+    arrays.update({f"mark.{c}": enc.marks[c] for c in MARK_COLS})
+    arrays.update({f"map.{c}": enc.map_ops[c] for c in MAP_STREAM_COLS})
+    return arrays
+
+
+def _padded_args(t: Dict[str, torch.Tensor]):
+    """The apply_batch 8-tuple from padded planes by name (with any leading
+    round and tenant axes)."""
+    return (t["ins_ref"], t["ins_op"], t["ins_char"], t["del"],
+            {c: t[f"mark.{c}"] for c in MARK_COLS}, t["mark_count"],
+            {c: t[f"map.{c}"] for c in MAP_STREAM_COLS}, t["map_count"])
+
+
+def _write_resident(resident: Sequence[torch.Tensor], new: Sequence[torch.Tensor]) -> None:
+    """Copy a commit's result into the resident buffers, in place (the
+    port's form of the reference's donated state)."""
+    for dst, src in zip(resident, new):
+        if src is not dst:
+            dst.copy_(src)
 
 
 def _width_bucket(n: int) -> int:
@@ -491,6 +574,12 @@ class StreamingMerge:
         # waits on a clock only an ingest() to the doc can move, so passes
         # skip them until then (a port-only shortcut; no result changes)
         self._object_waiting: set = set()
+        #: the fused pipeline's staging lane (built by the first pipelined
+        #: drain), its uploads, and the session's captured commit graphs
+        self._stager: Optional[FrameStager] = None
+        self._copy_lane = CopyLane(self.device)
+        self._graphs = GraphCache(self.device)
+        self._row_mask_dev = None
         # engine capture (the reference's hook, see _capture_rounds): None,
         # or the list each committed round's device-ready inputs append to
         self._captured: Optional[list] = None
@@ -498,17 +587,17 @@ class StreamingMerge:
         #: resolution and digest already computed, so the next digest() or
         #: read finds them cached
         self.prefetch_digest = False
-        #: the reference's compat switch (its per-round commit discipline);
-        #: every round commits the same way here, and False only turns the
-        #: drain-end digest prefetch off
+        #: compat switch: False restores the per-round commit discipline
+        #: (one upload and one apply per round and touched block, an
+        #: unpipelined drain), the equality tests' oracle side
         self.fused_pipeline = True
         #: cross-tenant fusion window extents (plan/fusion.FusionGroup
         #: window_rows): ``(row_bases, block_docs)``, set by the serve
         #: tier's FusedMuxGroup around a drain whose window touched a
-        #: SUBSET of the lane's tenants, None otherwise.  The commit reads
-        #: nothing from it: each round already uploads only the rows that
-        #: carry ops (``_apply_compact``), which is what the reference's
-        #: offset-plane form buys with it
+        #: SUBSET of the lane's tenants, None otherwise.  While set, a
+        #: static-round commit stages only the active tenants' row blocks
+        #: and rebuilds the full (D, K) planes on the device (the
+        #: ``stacked_multi`` form)
         self.fusion_rows = None
         # per-row cumulative admitted inserts: an upper bound on each row's
         # slot occupancy; its power-of-two bucket bounds the insert kernel's
@@ -1116,12 +1205,16 @@ class StreamingMerge:
 
     # -- committing rounds -----------------------------------------------------
     #
-    # Every committed round takes one path: its flat streams, one upload and
-    # one apply_batch_compact per touched block, bounded by the round's slot
-    # window.  The reference's dispatch forms (staged and stacked batches,
-    # single-round forms) exist to share XLA compiles and to overlap uploads
-    # with scheduling; torch compiles nothing, and no result depends on the
-    # form (ROADMAP.md queue 1 item 5b).
+    # A one-block session (padded or paged, meshless) commits through the
+    # fused round pipeline, as the reference's default drain does: a batch
+    # of up to FUSE_MAX_ROUNDS rounds is prepared on this thread, flattened
+    # and uploaded as ONE contiguous int32 buffer on the staging lane
+    # (parallel/staging.py), and applied as ONE site call of a multi-round
+    # form (ops/kernel.py), which on the card is one CUDA-graph replay
+    # (utils/graphs.py) that updates the resident state in place.  Mesh,
+    # block-chunked, ragged and engine-capture sessions, and
+    # ``fused_pipeline=False`` (the per-round oracle), commit each round on
+    # its own: one upload and one apply_batch_compact per touched block.
 
     @property
     def _capture_rounds(self) -> Optional[list]:
@@ -1146,13 +1239,19 @@ class StreamingMerge:
         self._captured = rounds
 
     def _fused_eligible(self) -> bool:
-        """Whether a drain ends with the digest prefetch (when armed) and
-        counts as fused: the compat switch is on, no engine capture is
-        armed (the reference's capture sessions commit per round), and the
-        session is one block, or a mesh (whose blocks are its shards, as
-        the reference's mesh sessions always qualify).  Every round commits
-        the same way either way."""
+        """Whether commits route through the fused round pipeline: the
+        compat switch is on, no engine capture is armed (capture records
+        per-ROUND inputs, the replay's contract), and the session is one
+        block, or a mesh (whose blocks are its shards, as the reference's
+        mesh sessions always qualify).  A mesh still commits per shard and
+        round (:meth:`_pipelined`), counted and labelled as fused."""
         return self.fused_pipeline and self._captured is None and self._one_block()
+
+    def _pipelined(self) -> bool:
+        """Whether commits take the fused forms and the pipelined drain: a
+        fused-eligible meshless session of the padded or paged layout (the
+        ragged and mesh forms are not ported)."""
+        return self._fused_eligible() and self.mesh is None and self._layout != "ragged"
 
     def _one_block(self) -> bool:
         """A one-block session, or a mesh (whose blocks are shards of what
@@ -1168,7 +1267,17 @@ class StreamingMerge:
 
     def _commit_rounds(self, batch) -> None:
         """The DEVICE half: commit scheduled rounds ``[(enc, widths), ...]``
-        in causal order, one at a time."""
+        in causal order: as ONE fused form when :meth:`_pipelined` (prep,
+        stage and dispatch on this thread), else one round at a time."""
+        if self._pipelined():
+            statics = self._prep_fused_batch(batch)
+            self._dispatch_fused_batch(batch, statics, self._stage_fused_batch(batch, statics))
+            return
+        self._commit_rounds_serial(batch)
+
+    def _commit_rounds_serial(self, batch) -> None:
+        """The per-round discipline (the ``fused_pipeline=False`` oracle):
+        each round one upload and one apply per touched block."""
         for enc, widths in batch:
             self._cum_ins += enc.ins_count
             self._apply_compact(enc, widths, self._loop_slots())
@@ -1226,18 +1335,23 @@ class StreamingMerge:
         ``device``, as ``(counts, ins, dels, marks, maps)`` for
         :func:`apply_batch_compact`; each stream kind padded to its bucket in
         ``buckets`` (ins, del, mark, map), or with None to its own."""
+        return _compact_args(upload_int32(self._compact_named(flat, buckets), device))
+
+    @classmethod
+    def _compact_named(cls, flat, buckets) -> Dict[str, np.ndarray]:
+        """A flattened round's arrays by name, each stream kind padded to
+        its bucket in ``buckets`` (ins, del, mark, map), or with None to its
+        own (:func:`_compact_args` reads them back)."""
         counts, ins, dels, marks, maps = flat
         b_ins, b_del, b_mark, b_map = buckets or (
             _width_bucket(len(ins[0])), _width_bucket(len(dels)),
             _width_bucket(len(marks[MARK_COLS[0]])), _width_bucket(len(maps[MAP_STREAM_COLS[0]])))
         arrays = {f"n{j}": c for j, c in enumerate(counts)}
-        arrays.update({f"ins{j}": self._pad(v, b_ins) for j, v in enumerate(ins)})
-        arrays["del"] = self._pad(dels, b_del)
-        arrays.update({f"mark.{c}": self._pad(marks[c], b_mark) for c in MARK_COLS})
-        arrays.update({f"map.{c}": self._pad(maps[c], b_map) for c in MAP_STREAM_COLS})
-        t = upload_int32(arrays, device)
-        return (tuple(t[f"n{j}"] for j in range(4)), (t["ins0"], t["ins1"], t["ins2"]), t["del"],
-                {c: t[f"mark.{c}"] for c in MARK_COLS}, {c: t[f"map.{c}"] for c in MAP_STREAM_COLS})
+        arrays.update({f"ins{j}": cls._pad(v, b_ins) for j, v in enumerate(ins)})
+        arrays["del"] = cls._pad(dels, b_del)
+        arrays.update({f"mark.{c}": cls._pad(marks[c], b_mark) for c in MARK_COLS})
+        arrays.update({f"map.{c}": cls._pad(maps[c], b_map) for c in MAP_STREAM_COLS})
+        return arrays
 
     def _apply_compact(self, enc: _RoundBuffers, widths, loop_slots: Optional[int]) -> None:
         """One round through the flat-stream apply.  Sessions larger than a
@@ -1288,17 +1402,294 @@ class StreamingMerge:
                 for x, y in zip(self.state, new):
                     x[lo:hi] = y
 
+    # -- the fused round pipeline ---------------------------------------------------
+    #
+    # Split into prep (this thread: advances _cum_ins, derives the form and
+    # its statics), stage (worker-safe: pure reads of the batch's own
+    # staging buffers, one packed int32 buffer, one upload) and dispatch
+    # (this thread: one site call of the form, then the round bookkeeping),
+    # so the pipelined drain can overlap them.
+
+    def _prep_fused_batch(self, batch):
+        """The statics of one batch's commit, tagged with its form: ``flat``
+        (staged flat streams, shared per-kind buckets), ``stacked`` (static
+        rounds: the padded planes at the session's fixed widths, stacked),
+        ``stacked_multi`` (static rounds under ``fusion_rows``: only the
+        active tenants' row blocks, ``T`` power-of-two bucketed), or, for a
+        one-round batch on the CPU, ``compact1`` / ``static1`` (the
+        per-round discipline's own apply).  The reference's tuples."""
+        loop_seq = []
+        for enc, _ in batch:
+            self._cum_ins += enc.ins_count
+            loop_seq.append(self._loop_slots())
+        donate = resolve_state_donation(self.state.elem_id)
+        if self.static_rounds:
+            if self.fusion_rows is not None:
+                bases, block = self.fusion_rows
+                return ("stacked_multi", tuple(loop_seq), tuple(bases), int(block),
+                        _width_bucket(len(bases)))
+            if len(batch) == 1 and not donate:
+                return ("static1", loop_seq[0])
+            return ("stacked", tuple(loop_seq))
+        if len(batch) == 1 and not donate:
+            return ("compact1", loop_seq[0], batch[0][1])
+        k = len(batch)
+        buckets = [_width_bucket(max(int(getattr(enc, f).sum()) for enc, _ in batch))
+                   for f in ("ins_count", "del_count", "mark_count", "map_count")]
+        return ("flat", tuple(loop_seq), tuple(w for _, w in batch),
+                *((b,) * k for b in buckets))
+
+    def _stage_fused_batch(self, batch, statics):
+        """Flatten the batch into ONE int32 buffer and upload it: returns
+        ``(StagedUpload, layout)``.  Reads only the batch's own staging
+        buffers, never session state, so the pipelined drain runs it on the
+        staging lane while this thread schedules the next batch."""
+        form = statics[0]
+        d = self._padded_docs
+        if form == "compact1":
+            arrays = self._compact_named(self._flatten_round(batch[0][0], statics[2], 0, d), None)
+        elif form == "static1":
+            arrays = _padded_named(batch[0][0])
+        elif form == "stacked":
+            per_round = [_padded_named(enc) for enc, _ in batch]
+            arrays = {name: np.stack([r[name] for r in per_round]) for name in per_round[0]}
+        elif form == "stacked_multi":
+            _, _, bases, block, t_pad = statics
+
+            def blocks(plane):
+                out = np.zeros((t_pad, block) + plane.shape[1:], plane.dtype)
+                for t, b in enumerate(bases):
+                    out[t] = plane[b:b + block]
+                return out
+
+            per_round = [{n: blocks(a) for n, a in _padded_named(enc).items()} for enc, _ in batch]
+            arrays = {name: np.stack([r[name] for r in per_round]) for name in per_round[0]}
+            row_base = np.zeros(t_pad, np.int32)
+            row_base[: len(bases)] = bases
+            arrays["row_base"] = row_base
+        else:
+            _, _, widths_seq, ins_lens, del_lens, mark_lens, map_lens = statics
+            arrays = {"counts": np.zeros((len(batch), 4, d), np.int32)}
+            arrays.update({f"ins{j}": np.zeros(sum(ins_lens), np.int32) for j in range(3)})
+            arrays["del"] = np.zeros(sum(del_lens), np.int32)
+            arrays.update({f"mark.{c}": np.zeros(sum(mark_lens), np.int32) for c in MARK_COLS})
+            arrays.update({f"map.{c}": np.zeros(sum(map_lens), np.int32)
+                           for c in MAP_STREAM_COLS})
+            io = do = mo = po = 0
+            for r, (enc, widths) in enumerate(batch):
+                counts, ins, dels, marks, maps = self._flatten_round(enc, widths, 0, d)
+                arrays["counts"][r] = np.stack(counts)
+                for j, v in enumerate(ins):
+                    arrays[f"ins{j}"][io:io + len(v)] = v
+                arrays["del"][do:do + len(dels)] = dels
+                for c in MARK_COLS:
+                    arrays[f"mark.{c}"][mo:mo + len(marks[c])] = marks[c]
+                for c in MAP_STREAM_COLS:
+                    arrays[f"map.{c}"][po:po + len(maps[c])] = maps[c]
+                io, do = io + ins_lens[r], do + del_lens[r]
+                mo, po = mo + mark_lens[r], po + map_lens[r]
+        flat, layout = pack_int32(arrays)
+        return self._copy_lane.upload(flat), layout
+
+    def _dispatch_fused_batch(self, batch, statics, inputs, chain_digest: bool = False) -> bool:
+        """Apply the whole batch as ONE site call of its form, then the
+        per-round bookkeeping.  With ``chain_digest`` (the drain's FINAL
+        batch, digest prefetch armed) the multi-round forms chain the
+        block's resolve and digest into the same call and seed the block
+        cache with them; returns True when that happened."""
+        GLOBAL_COUNTERS.add("streaming.fused_dispatches")
+        form = statics[0]
+        if chain_digest and form in ("stacked", "flat"):
+            self._dispatch_fused_batch_digest(batch, statics, inputs)
+            return True
+        upload, layout = inputs
+        buf = upload.consume()
+        if form == "compact1":
+            self.state = apply_batch_compact(self.state, *_compact_args(unpack_int32(buf, layout)),
+                                             widths=statics[2], insert_loop_slots=statics[1])
+        elif form == "static1":
+            self.state = apply_batch(self.state, _padded_args(unpack_int32(buf, layout)),
+                                     insert_loop_slots=statics[1])
+        else:
+            self._run_form(statics, buf, layout)
+        self._fused_bookkeeping(batch)
+        return False
+
+    def _fused_bookkeeping(self, batch) -> None:
+        """A committed batch's rounds: dirty digest rows, the round count,
+        one insert launch a round (``streaming.block_applies``)."""
+        for enc, _ in batch:
+            self._digest_row_valid[np.nonzero(enc.num_ops)[0]] = False
+            self.rounds += 1
+            GLOBAL_COUNTERS.add("streaming.rounds")
+            GLOBAL_COUNTERS.add("streaming.block_applies")
+
+    def _dispatch_fused_batch_digest(self, batch, statics, inputs) -> None:
+        """The ``chain_digest`` arm of :meth:`_dispatch_fused_batch`: the
+        final batch's apply AND the block's resolve and per-doc digest in
+        one site call (one graph on the card), seeding the per-round block
+        cache, so the drain-end digest costs no further dispatch."""
+        on_device = self._block_fallback_mask(0)
+        upload, layout = inputs
+        resolved, digest_dev = self._run_form(
+            statics, upload.consume(), layout,
+            digest=(self._row_mask(on_device), self._digest_tables(0, self._padded_docs)))
+        self._fused_bookkeeping(batch)
+        entry = _BlockResolution(resolved, digest_dev, on_device)
+        self._resolved_cache = (self.rounds, {0: entry})
+        self._start_digest_readback(entry)
+        GLOBAL_COUNTERS.add("streaming.digest_chained")
+
+    def _row_mask(self, on_device: np.ndarray) -> torch.Tensor:
+        """The fallback mask on the card, uploaded again only when it
+        changed."""
+        key = on_device.tobytes()
+        if self._row_mask_dev is None or self._row_mask_dev[0] != key:
+            self._row_mask_dev = (key, torch.from_numpy(on_device).to(self.device))
+        return self._row_mask_dev[1]
+
+    def _run_form(self, statics, buf: torch.Tensor, layout, digest=None):
+        """One multi-round form over the resident state: its chain of
+        per-round applies, ending with the result copied into the resident
+        buffers, run by the session's graph cache (eagerly on the CPU and
+        on a signature's first occurrence, else one CUDA-graph replay) under
+        the form's reference site name.  With ``digest`` = ``(row_mask,
+        tables)`` the chain ends with the block's resolve and per-doc digest
+        and returns them."""
+        form = statics[0]
+        shapes = dict(layout)
+        loop_seq = statics[1]
+        if form == "flat":
+            _, _, widths_seq, *lens = statics
+            site, ks = "apply_batch_staged_rounds", [w[0] for w in widths_seq]
+
+            def chain(state, b):
+                return _staged_rounds_chain(state, *_staged_args(unpack_int32(b, layout)),
+                                            widths_seq, loop_seq, *lens)
+        elif form == "stacked":
+            site, ks = "apply_batch_stacked_rounds", [shapes["ins_ref"][-1]] * len(loop_seq)
+
+            def chain(state, b):
+                return _stacked_rounds_chain(state, _padded_args(unpack_int32(b, layout)),
+                                             loop_seq)
+        else:
+            site, ks = "apply_batch_stacked_rounds_multi", [shapes["ins_ref"][-1]] * len(loop_seq)
+
+            def chain(state, b):
+                t = unpack_int32(b, layout)
+                return _stacked_multi_chain(state, _padded_args(t), t["row_base"], loop_seq)
+        state = self.state
+        resident = tuple(state)
+        if digest is None:
+            def body(b):
+                _write_resident(resident, chain(PackedDocs(*resident), b))
+            inputs = (buf,)
+        else:
+            site = {"flat": "_fused_rounds_digest", "stacked": "_stacked_rounds_digest"}[form]
+            row_mask, tables = digest
+            cc = self.comment_capacity
+
+            def body(b, mask, *tabs):
+                new = chain(PackedDocs(*resident), b)
+                _write_resident(resident, new)
+                return _resolve_block_digest(new, cc, mask, *tabs)
+            inputs = (buf, row_mask) + tuple(tables)
+        return note_form(
+            site, (state, buf),
+            lambda: self._graphs.run(statics + (layout,), site, body, inputs, binds=resident),
+            lambda: rounds_plan(state, ks, loop_seq, (("statics", statics[1:]),)),
+            device=state.elem_id.device)
+
+    def _ensure_stager(self) -> FrameStager:
+        """The session's staging lane (lazy; rebuilt if closed).  Its jobs
+        run under a ``staging.stage`` span, so the stage wall is measured on
+        the worker thread."""
+        if self._stager is None or self._stager._closed:
+            self._stager = FrameStager()
+            self._stager.span_factory = lambda: self.tracer.span("staging.stage")
+        return self._stager
+
+    def _commit_pending(self, pending, chain_digest: bool = False) -> bool:
+        """Land one staged batch: wait its staging handle (a staging fault
+        surfaces HERE, inside whatever guard wraps the drain) and dispatch
+        it.  Returns whether the dispatch chained the digest in."""
+        handle, batch, statics, scheduled, ssp = pending
+        with self.tracer.span("streaming.apply", rounds=len(batch)) as asp:
+            inputs = handle.wait()
+            chained = bool(self._dispatch_fused_batch(batch, statics, inputs,
+                                                      chain_digest=chain_digest))
+        self._emit_round_stats(batch, scheduled, ssp.duration, asp.duration,
+                               origin="streaming.fused")
+        return chained
+
+    def _prefetch_digest(self) -> None:
+        """Compute the (single) block's resolution and digest now, with the
+        host copy of its digest planes started, so the next digest() or
+        read finds them ready."""
+        self._start_digest_readback(self._digest_resolution(0))
+
+    @staticmethod
+    def _start_digest_readback(entry: "_BlockResolution") -> None:
+        """Start the non-blocking device-to-host copy of a resolved block's
+        digest planes (a no-op on the CPU)."""
+        entry.start_readback()
+
     # -- drains ------------------------------------------------------------------
+
+    def idle(self, budget_s: float) -> int:
+        """The caller commits nothing for ``budget_s`` seconds (a serving
+        mux's open window): the session's graph cache captures the repeated
+        signatures whose capture fits, so no capture lands on a commit
+        (``utils/graphs.py``).  Returns the graphs captured."""
+        return self._graphs.idle(budget_s)
 
     def drain(self, max_rounds: int = 1_000) -> int:
         """Drain all admissible pending work; returns rounds run.
 
-        Scheduling is host-only (causal clocks), so drain schedules a batch
-        of up to :attr:`FUSE_MAX_ROUNDS` rounds first and then commits it.
-        With :attr:`prefetch_digest` armed (and :meth:`_fused_eligible`),
-        the drain ends with the block's resolution and digest computed, so
-        the next digest() or read finds them cached."""
+        Scheduling is host-only (causal clocks): drain schedules a batch of
+        up to :attr:`FUSE_MAX_ROUNDS` rounds, then commits it.  A
+        :meth:`_pipelined` session runs the PIPELINED form: batch k is
+        flattened and uploaded on the staging lane's worker while batch k+1
+        schedules on this thread and batch k-1 runs on the device.  With
+        :attr:`prefetch_digest` armed, the drain ends with the block's
+        resolution and digest computed (chained into the final batch's
+        form where it is a multi-round one), so the next digest() or read
+        finds them cached.  Byte-equal to the per-round discipline."""
         self.last_drain_marks = {"schedule_seconds": 0.0, "apply_seconds": 0.0, "rounds": 0}
+        if not self._pipelined():
+            return self._drain_serial(max_rounds)
+        rounds = 0
+        committed = chained = False
+        pending = None  # (handle, batch, statics, scheduled, schedule span)
+        while True:
+            batch, scheduled_total, ssp = self._schedule_batch(rounds, max_rounds)
+            if pending is not None:
+                # an empty schedule means the batch in flight is the drain's
+                # final one: with the prefetch armed, its dispatch chains
+                # the resolve and digest in
+                chained = self._commit_pending(
+                    pending, chain_digest=self.prefetch_digest and not batch)
+                committed = True
+                pending = None
+            if not batch:
+                break
+            statics = self._prep_fused_batch(batch)
+            handle = self._ensure_stager().submit(self._stage_fused_batch, batch, statics)
+            pending = (handle, batch, statics, scheduled_total, ssp)
+            rounds += len(batch)
+        if committed and self.prefetch_digest and not chained:
+            # the single-round forms and the paged layout keep the
+            # separate resolve
+            self._prefetch_digest()
+        self._sweep_decode_quarantine()
+        return rounds
+
+    def _drain_serial(self, max_rounds: int) -> int:
+        """Unpipelined drain (mesh, block-chunked, ragged and engine-capture
+        sessions, and ``fused_pipeline=False``): schedule, then commit, per
+        batch.  A mesh drain counts as fused (one batch, one
+        ``streaming.fused_dispatches``) and ends with the digest prefetch
+        when armed, as the reference's mesh drain."""
         fused = self._fused_eligible()
         rounds = 0
         while rounds < max_rounds:

@@ -181,8 +181,9 @@ class FusionGroup:
         order is a function of placement, never of arrival) plus the
         uniform per-tenant block size.  Returns None when the active
         tenants' doc budgets differ (a ragged tenant mix is staged as the
-        whole lane).  The session keeps the extents as ``fusion_rows``;
-        its commit uploads only the rows that carry ops either way."""
+        whole lane).  The session keeps the extents as ``fusion_rows``: a
+        static-round commit then stages only those tenants' row blocks
+        (the ``stacked_multi`` form)."""
         plan = self.lanes[lane]
         chosen = sorted(
             (self.slots[t] for t in set(active)),

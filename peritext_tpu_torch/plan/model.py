@@ -68,18 +68,6 @@ DEFAULT_BUDGET_FRACTION = 0.10
 #: ``StreamingMerge.FUSE_MAX_ROUNDS``)
 FUSED_DEPTH = 8
 
-#: the port's padded streaming commit site: ``StreamingMerge._commit_rounds``
-#: commits a drain's batch of up to :data:`FUSED_DEPTH` rounds as one
-#: ``apply_batch_compact`` call per round and touched block.  The paged
-#: (``apply_batch_paged_groups``) and ragged (``apply_batch_ragged``)
-#: session commits read depth 1, as the reference's rule reads its paged
-#: and ragged sessions, whose commits run under those same site names
-PORT_FUSED_SITE = "apply_batch_compact"
-
-#: a port bucket's signature carries its launch plan as a static
-#: (obs/devprof.plan_static); the reference's buckets never do
-PORT_PLAN_MARK = "('plan', "
-
 
 def load_devprof(source: Any) -> Dict[str, Any]:
     """A devprof snapshot dict from a path, JSON string, or dict.
@@ -119,22 +107,6 @@ def _percentile(sorted_vals: Sequence[float], q: float) -> float:
         return 0.0
     idx = max(0, math.ceil(q * len(sorted_vals)) - 1)
     return float(sorted_vals[min(idx, len(sorted_vals) - 1)])
-
-
-def _port_fused(snapshot: Dict[str, Any]) -> bool:
-    """Whether the snapshot holds a port padded session's fused commits:
-    calls of :data:`PORT_FUSED_SITE` in a bucket keyed by a launch plan,
-    and a round committed by a fused-eligible drain (occupancy origin
-    ``streaming.fused``; a block-chunked or ``fused_pipeline=False``
-    session commits per round, under ``streaming.round``)."""
-    site = (snapshot.get("sites") or {}).get(PORT_FUSED_SITE) or {}
-    buckets = site.get("buckets") or {}
-    if not any(PORT_PLAN_MARK in str((b or {}).get("sig", ""))
-               for b in buckets.values()):
-        return False
-    occ = snapshot.get("occupancy") or {}
-    return any((row or {}).get("origin") == "streaming.fused"
-               for row in occ.values())
 
 
 class CostModel:
@@ -216,15 +188,16 @@ class CostModel:
         widths = max(
             (r["widths"] for r in self.rows), default=(64, 32, 32, 16),
         )
-        # fused depth: the reference's staged/stacked round programs, or
-        # the port's padded streaming commits (module doc)
+        # fused depth: the deepest round-chained dispatch the staged
+        # sites saw (distinct shapes on the stacked/staged sites form the
+        # R-ladder; depth itself isn't in the bucket key, so the ladder
+        # size is the observable)
         sites = self.snapshot.get("sites") or {}
         fused_sites = [
             s for s in sites
             if "staged_rounds" in s or "stacked_rounds" in s
         ]
-        fused = bool(fused_sites) or _port_fused(self.snapshot)
-        fused_depth = FUSED_DEPTH if fused else 1
+        fused_depth = FUSED_DEPTH if fused_sites else 1
         pool = self.snapshot.get("page_pool") or {}
         cfg = {
             "insert_width": widths[0],

@@ -11,10 +11,11 @@ each tenant keeps its OWN :class:`SessionMux` — own
 :class:`~.admission.AdmissionController`, own verdict accounting, own
 patch stream — and the group recomposes the mux's split round pump
 (``_take_batch`` / ``_ingest_batch`` / ``_settle_batch``) around ONE
-``drain()`` per touched lane per window.  On the card, a lane's round
-launches the insert kernel once per touched block (padded), once per
-page group (paged) or once per doc class (ragged), however many tenants
-rode it.
+``drain()`` per touched lane per window.  A padded or paged lane commits
+each drain batch as one fused form (on the card one CUDA-graph replay
+once its signature repeats), launching the insert kernel once per round
+(padded) or per (round, page group) (paged); a ragged lane once per round
+and doc class; however many tenants rode it.
 
 Isolation is structural, not filtered: tenants never share doc rows, so
 a tenant's patches/digests are computed from rows no other tenant can
@@ -25,9 +26,12 @@ holds per tenant by construction (documents are independent CRDTs).
 The WINDOW is owned here: the group's :class:`~.mux.BatchWindowTuner`
 times the shared round, any member's backpressure force-closes the
 window for everyone (a queue above its high watermark must drain NOW),
-and ``FusionGroup.window_rows`` gives the drain the active tenants'
-row extents (the session's ``fusion_rows``).  All wall-clock reads of
-the fused tier happen here; :mod:`~..plan.fusion` stays clock-free.
+and ``FusionGroup.window_rows`` decides whether the drain ships the
+multi-tenant offset-plane form (few active tenants: the session's
+``fusion_rows`` stage only their blocks, the ``stacked_multi`` form) or
+full-lane staging (every tenant active: strictly cheaper).  All
+wall-clock reads of the fused tier happen here; :mod:`~..plan.fusion`
+stays clock-free.
 """
 
 from __future__ import annotations

@@ -504,6 +504,15 @@ class SessionMux:
                            staged=t_staged, cause=cause)
         return len(batch)
 
+    def idle(self, budget_s: float) -> int:
+        """The driver submits nothing for ``budget_s`` seconds: offer the
+        session that time, cut to what is left of the open window, for its
+        graph captures (``utils/graphs.py``), so a capture delays neither a
+        submission nor a commit.  Returns the graphs captured."""
+        if self._window_opened is not None:
+            budget_s = min(budget_s, self.window_seconds() - (self.clock() - self._window_opened))
+        return self.session.idle(budget_s) if budget_s > 0 else 0
+
     def flush(self) -> int:
         """Force-close the open round regardless of its window (shutdown,
         test sync points, the traffic generator's end-of-rung drain)."""

@@ -136,7 +136,9 @@ def run_open_loop(
 
     The loop submits every arrival whose time has come (late or not —
     open loop never withholds offered work), pumps the mux's round window
-    in between, and sleeps only until the next arrival or window expiry.
+    in between, offers the wait until the next arrival to the mux's
+    session (:meth:`SessionMux.idle`: graph captures that fit in it), and
+    sleeps only until the next arrival or window expiry.
     ``drain=True`` flushes the tail after the last arrival so every
     admitted frame's latency is measured.  ``deadline_s`` hard-bounds the
     wall clock (a saturated rung must not run away); past it, remaining
@@ -182,10 +184,12 @@ def run_open_loop(
                 if pumps % read_every == 0:
                     mux.patches(read_sid)
             if i < len(sched) and not overtime:
-                nap = min(
-                    max(0.0, sched[i][0] - (clock() - start)),
-                    max(0.0005, mux.window_seconds() / 4),
-                )
+                gap = max(0.0, sched[i][0] - (clock() - start))
+                # the wait until the next arrival is the session's to
+                # capture graphs in (a capture is host time)
+                if gap > 0 and mux.idle(gap):
+                    gap = max(0.0, sched[i][0] - (clock() - start))
+                nap = min(gap, max(0.0005, mux.window_seconds() / 4))
                 if nap > 0:
                     sleep(nap)
         if drain:

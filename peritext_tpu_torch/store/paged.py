@@ -50,11 +50,11 @@ def plan_page_groups(
     return [(g, np.asarray(sorted(buckets[g]), np.int64)) for g in sorted(buckets)]
 
 
-def group_stream_arrays(enc, rows, b: int, device: Union[str, torch.device]):
-    """One group's stream tensors on ``device`` (the ``apply_batch``
-    8-tuple): ``rows`` of an EncodedBatch-shaped object (every row when
-    ``rows`` is None), zero-padded to ``b`` rows, through one upload.
-    Padding rows are all-zero streams, which are no-ops."""
+def group_stream_named(enc, rows, b: int) -> Dict[str, np.ndarray]:
+    """One group's stream arrays by name (host, int32): ``rows`` of an
+    EncodedBatch-shaped object (every row when ``rows`` is None),
+    zero-padded to ``b`` rows.  Padding rows are all-zero streams, which
+    are no-ops; :func:`group_stream_args` reads them back."""
     def take(a):
         a = np.asarray(a)
         src = a if rows is None else a[rows]
@@ -62,18 +62,31 @@ def group_stream_arrays(enc, rows, b: int, device: Union[str, torch.device]):
         out[: src.shape[0]] = src
         return out
 
-    marks, maps = sorted(enc.marks), sorted(enc.map_ops)
     arrays = {"ins_ref": take(enc.ins_ref), "ins_op": take(enc.ins_op),
               "ins_char": take(enc.ins_char), "del_target": take(enc.del_target),
               "mark_count": take(enc.mark_count), "map_count": take(enc.map_count)}
-    arrays.update({f"mark.{c}": take(enc.marks[c]) for c in marks})
-    arrays.update({f"map.{c}": take(enc.map_ops[c]) for c in maps})
-    t = upload_int32(arrays, torch.device(device))
+    arrays.update({f"mark.{c}": take(enc.marks[c]) for c in sorted(enc.marks)})
+    arrays.update({f"map.{c}": take(enc.map_ops[c]) for c in sorted(enc.map_ops)})
+    return arrays
+
+
+def group_stream_args(t: Dict[str, torch.Tensor], prefix: str = ""):
+    """The ``apply_batch`` 8-tuple from a group's tensors by name (names
+    as :func:`group_stream_named` gives them, under ``prefix``)."""
+    col = lambda kind: sorted(n[len(prefix) + len(kind):] for n in t  # noqa: E731
+                              if n.startswith(prefix + kind))
     return (
-        t["ins_ref"], t["ins_op"], t["ins_char"], t["del_target"],
-        {c: t[f"mark.{c}"] for c in marks}, t["mark_count"],
-        {c: t[f"map.{c}"] for c in maps}, t["map_count"],
+        t[prefix + "ins_ref"], t[prefix + "ins_op"], t[prefix + "ins_char"],
+        t[prefix + "del_target"], {c: t[f"{prefix}mark.{c}"] for c in col("mark.")},
+        t[prefix + "mark_count"], {c: t[f"{prefix}map.{c}"] for c in col("map.")},
+        t[prefix + "map_count"],
     )
+
+
+def group_stream_arrays(enc, rows, b: int, device: Union[str, torch.device]):
+    """One group's stream tensors on ``device`` (the ``apply_batch``
+    8-tuple, :func:`group_stream_named`), through one upload."""
+    return group_stream_args(upload_int32(group_stream_named(enc, rows, b), torch.device(device)))
 
 
 class PagedDocStore:

@@ -8,14 +8,19 @@ document state lives and what each round launches:
 
 * **Paged commit** — per round, the rows it touched get their pages
   (``ensure_rows``, host), group by power-of-two page count, and each
-  group is one gather-apply-scatter (ops/kernel.apply_batch_paged_groups)
-  at its own width: one insert launch per (round, group), counted by
-  ``streaming.group_applies``.  A round costs its touched docs at their own
-  size, not every doc at the widest one's.
-* **Ragged commit** — per round, one ops/ragged.apply_batch_ragged over
-  all D rows straight against the pool, at the session's fixed round
-  widths: one ragged insert launch per non-empty doc class of the round's
-  plan, counted by ``streaming.ragged_applies``.  The plan is rebuilt only
+  group is one gather-apply-scatter at its own width: one insert launch
+  per (round, group), counted by ``streaming.group_applies``.  A round
+  costs its touched docs at their own size, not every doc at the widest
+  one's.  A one-block session commits a drain batch's every (round,
+  group) as ONE ``apply_batch_paged_groups`` site call over the pool, in
+  place, from one staged buffer (on the card one CUDA-graph replay once
+  the batch's signature repeats; pool growth starts a new graph epoch);
+  a mesh session, or ``fused_pipeline=False``, one call per round.
+* **Ragged commit** — per round (the fused ragged form is not ported),
+  one ops/ragged.apply_batch_ragged over all D rows straight against the
+  pool, at the session's fixed round widths: one ragged insert launch per
+  non-empty doc class of the round's plan, counted by
+  ``streaming.ragged_applies``.  The plan is rebuilt only
   when the allocator state changed (store/ragged.PlanCache).
 * **Reads and digests** — blocks materialize from the pool at the block's
   page-bucketed width W.  The padded per-doc text hash includes one pad
@@ -43,8 +48,15 @@ import numpy as np
 import torch
 
 from ..obs import GLOBAL_COUNTERS, GLOBAL_DEVPROF, occupancy_key
+from ..obs.devprof import plan_static
 from ..ops.insert import SMEM_BUDGET
-from ..ops.kernel import apply_batch_paged_groups
+from ..ops.kernel import (
+    _apply_groups,
+    _insert_plan,
+    apply_batch_paged_groups,
+    note_form,
+    resolve_state_donation,
+)
 from ..ops.packed import PackedDocs
 from ..ops.ragged import apply_batch_ragged, plan_arrays
 from ..ops.ragged_insert import ragged_teams
@@ -57,8 +69,16 @@ from ..parallel.streaming import (
     _rows_digest,
     _width_bucket,
 )
+from ..utils.device import pack_int32, unpack_int32
 from ..utils.shapes import next_pow2
-from .paged import DEFAULT_PAGE_SIZE, PagedDocStore, group_stream_arrays, plan_page_groups
+from .paged import (
+    DEFAULT_PAGE_SIZE,
+    PagedDocStore,
+    group_stream_args,
+    group_stream_arrays,
+    group_stream_named,
+    plan_page_groups,
+)
 from .ragged import PlanCache
 from .sharded import ShardedPagedDocStore
 
@@ -155,16 +175,16 @@ class PagedStreamingMerge(StreamingMerge):
 
     # -- the device half of a round ------------------------------------------
 
-    def _commit_rounds(self, batch) -> None:
-        """Commit scheduled rounds in causal order: per round, the touched
-        rows get their pages (host), group by page bucket
-        (:meth:`_page_groups`, per shard under a mesh), and each group
-        applies at its own width, one insert launch each (per shard).  Each
-        group's page table is taken when it is planned.  Profiled, each
-        group lands in the occupancy table (the reference's label:
-        ``streaming.paged.fused`` with ``fused_pipeline``, else
-        ``streaming.paged``) and the batch ends with a page-pool snapshot
-        (and a mesh one)."""
+    def _commit_rounds_serial(self, batch) -> None:
+        """Commit scheduled rounds one at a time (a mesh session, or
+        ``fused_pipeline=False``): per round, the touched rows get their
+        pages (host), group by page bucket (:meth:`_page_groups`, per shard
+        under a mesh), and each group applies at its own width, one insert
+        launch each (per shard).  Each group's page table is taken when it
+        is planned.  Profiled, each group lands in the occupancy table (the
+        reference's label: ``streaming.paged.fused`` with
+        ``fused_pipeline``, else ``streaming.paged``) and the batch ends
+        with a page-pool snapshot (and a mesh one)."""
         store = self._store
         origin = "streaming.paged.fused" if self.fused_pipeline else "streaming.paged"
         for enc, widths in batch:
@@ -198,6 +218,108 @@ class PagedStreamingMerge(StreamingMerge):
             GLOBAL_DEVPROF.observe_page_pool(store.pool_stats())
             if self.mesh is not None:
                 GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())
+
+    # -- the fused form: every (round, group) of a batch in one site call ------
+
+    def _prep_fused_batch(self, batch):
+        """Advance the cumulative inserts, give each round's touched rows
+        their pages and plan that round's page groups, each group's page
+        table snapshot taken now: everything that reads or mutates the
+        allocator happens here, in round order (the reference's
+        ``("paged", plans)``)."""
+        store = self._store
+        plans = []
+        for enc, widths in batch:
+            self._cum_ins += enc.ins_count
+            rows = np.nonzero(enc.num_ops)[0]
+            plan = []
+            if len(rows):
+                store.ensure_rows(rows, self._cum_ins[rows])
+                for g, b, ((_, g_rows),) in self._page_groups(rows):
+                    row_idx, table = store.group_plan(g_rows, g, pad_rows_to=b)
+                    plan.append((g_rows, b, row_idx, table))
+            plans.append((widths, plan))
+        return ("paged", tuple(plans))
+
+    def _stage_fused_batch(self, batch, statics):
+        """Every (round, group)'s row indices, page table and streams in ONE
+        int32 buffer, one upload."""
+        arrays = {}
+        for r, ((enc, _), (_, plan)) in enumerate(zip(batch, statics[1])):
+            for j, (g_rows, b, row_idx, table) in enumerate(plan):
+                arrays[f"{r}.{j}.row_idx"] = row_idx
+                arrays[f"{r}.{j}.table"] = table
+                arrays.update({f"{r}.{j}.{n}": a
+                               for n, a in group_stream_named(enc, g_rows, b).items()})
+        flat, layout = pack_int32(arrays)
+        return self._copy_lane.upload(flat), layout
+
+    def _dispatch_fused_batch(self, batch, statics, inputs, chain_digest: bool = False) -> bool:
+        """Every (round, group) gather-apply-scatter of the batch as ONE
+        ``apply_batch_paged_groups`` site call (one graph replay on the
+        card, updating the pool in place), or on the CPU a lone group as
+        the per-group ``apply_batch_paged`` (the reference's undonated
+        form), then the per-round bookkeeping and occupancy rows.  The
+        digest is never chained here (the reference's paged form does not
+        either); the drain prefetches it separately."""
+        plans = statics[1]
+        upload, layout = inputs
+        buf = upload.consume()
+        keys = [f"{r}.{j}." for r, (_, plan) in enumerate(plans) for j in range(len(plan))]
+        store = self._store
+        if keys:
+            pool = (store.pool_elem, store.pool_char, store.aux)
+            if len(keys) == 1 and not resolve_state_donation(store.pool_elem):
+                t = unpack_int32(buf, layout)
+                _apply_groups(*pool, [(t[keys[0] + "row_idx"], t[keys[0] + "table"],
+                                       group_stream_args(t, keys[0]))])
+            else:
+                self._run_groups(pool, buf, layout, keys)
+            GLOBAL_COUNTERS.add("streaming.group_applies", len(keys))
+        for (enc, _), (widths, plan) in zip(batch, plans):
+            cap = 0
+            for g_rows, b, _, _ in plan:
+                cap += b * sum(widths)
+                if GLOBAL_DEVPROF.enabled:
+                    GLOBAL_DEVPROF.observe_round(occupancy_key(b, *widths),
+                                                 int(enc.num_ops[g_rows].sum()), b * sum(widths),
+                                                 origin="streaming.paged.fused")
+            self._commit_caps[id(enc)] = cap
+            rows = np.nonzero(enc.num_ops)[0]
+            if len(rows):
+                self._digest_row_valid[rows] = False
+            self.rounds += 1
+            GLOBAL_COUNTERS.add("streaming.rounds")
+        if GLOBAL_DEVPROF.enabled:
+            GLOBAL_DEVPROF.observe_page_pool(store.pool_stats())
+        return False
+
+    def _run_groups(self, pool, buf: torch.Tensor, layout, keys) -> None:
+        """The batch's group chain over the resident pool and aux rows, in
+        place, run by the session's graph cache under the
+        ``apply_batch_paged_groups`` site."""
+        pool_elem, pool_char, aux = pool
+
+        def plan():
+            shapes = dict(layout)
+            teams, nbytes = [], 0
+            for k in keys:
+                b, g = shapes[k + "table"]
+                t, n = _insert_plan(b, g * pool_elem.shape[1], shapes[k + "ins_op"][1], None,
+                                    pool_elem.device)
+                teams.extend(t)
+                nbytes += n
+            return (("plan", plan_static(teams)),), len(teams), nbytes
+
+        def body(b):
+            t = unpack_int32(b, layout)
+            _apply_groups(pool_elem, pool_char, aux,
+                          [(t[k + "row_idx"], t[k + "table"], group_stream_args(t, k))
+                           for k in keys])
+        note_form("apply_batch_paged_groups", (pool_elem, pool_char, aux, buf),
+                  lambda: self._graphs.run(("paged", layout), "apply_batch_paged_groups", body,
+                                           (buf,), binds=(pool_elem, pool_char) + tuple(aux)),
+                  plan, device=pool_elem.device)
 
     def _round_capacity(self, enc, widths) -> int:
         """What the launched groups paid (row bucket x widths, per group),

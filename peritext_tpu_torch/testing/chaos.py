@@ -1408,26 +1408,25 @@ def run_reconnect_storm(
 
 def run_fused_drain_kill(seed: int, checkpoint_root=None,
                          device: Optional[Union[str, torch.device]] = None) -> Dict:
-    """Kill a multi-batch drain BETWEEN its batch commits and prove recovery
-    is byte-equal: a drain commits several batches of rounds, so the
-    nastiest failure point is mid-drain — some batches landed, one died,
-    the session state is half-advanced.  The supervisor must treat the
-    whole drain as ONE atomic unit: rollback restores the last checkpoint
-    and replays the journal (event-sourced ingest), so the recovered session
-    re-derives its state from the pre-drain round boundary — it can never
-    resume from a half-applied drain.
+    """Kill a fused multi-round drain BETWEEN its staged batch commits and
+    prove recovery is byte-equal: the fused pipeline commits several
+    multi-round device programs per drain, so the nastiest failure point is
+    mid-fuse — some batches landed, one died, the donated state is
+    half-advanced.  The supervisor must treat the whole fused drain as ONE
+    atomic unit: rollback restores the last checkpoint and replays the
+    journal (event-sourced ingest), so the recovered session re-derives
+    device state from the pre-fuse round boundary — it can never resume
+    from a half-applied fused batch.
 
-    Episode: ingest half the workload, drain + checkpoint (the pre-drain
+    Episode: ingest half the workload, drain + checkpoint (the pre-fuse
     boundary is real state, not an empty session); ingest the rest; arm a
-    one-shot fault that raises inside the SECOND batch commit of the next
-    drain (``StreamingMerge._commit_rounds``, the session's one commit
-    seam; the reference kills its fused batch dispatch, a form the port
-    does not have); guarded drain → watchdog containment → rollback →
-    journal replay → clean re-drain.  Oracle: digest + spans byte-equal to
-    a fault-free twin, zero pending, exactly one rollback, and the kill
-    provably fired mid-drain (≥ 1 batch committed before it).  Every
+    one-shot fault that raises inside the SECOND staged-batch dispatch of
+    the next fused drain; guarded drain → watchdog containment → rollback
+    → journal replay → clean re-drain.  Oracle: digest + spans byte-equal
+    to a fault-free twin, zero pending, exactly one rollback, and the kill
+    provably fired mid-fuse (≥ 1 batch committed before it).  Every
     session runs on ``device``; the fault is a Python exception raised
-    before the batch's first launch."""
+    before the batch's site call."""
     tmp = None
     if checkpoint_root is None:
         tmp = tempfile.TemporaryDirectory(prefix="pt-fused-chaos-")
@@ -1438,9 +1437,9 @@ def run_fused_drain_kill(seed: int, checkpoint_root=None,
 
         def factory():
             s = _campaign_session(docs, opd, device=device)
-            # low round caps + a narrow batch window force the drain into
-            # SEVERAL batches (the mid-drain failure point needs a batch
-            # boundary to die on)
+            # low round caps + a narrow fuse window force the drain into
+            # SEVERAL staged batches (the mid-fuse failure point needs a
+            # batch boundary to die on)
             s.round_caps = (8, 8, 8, 8)
             s.FUSE_MAX_ROUNDS = 2
             return s
@@ -1475,34 +1474,34 @@ def run_fused_drain_kill(seed: int, checkpoint_root=None,
         assert not imon.incident_kinds(), (
             f"seed={seed}: clean drain opened {imon.incident_kinds()}"
         )
-        guarded.checkpoint()  # the pre-drain boundary rollback must land on
+        guarded.checkpoint()  # the pre-fuse boundary rollback must land on
 
         for d, (_, b) in enumerate(frames):
             guarded.ingest_frame(d, b)
         sess = guarded.session
-        orig_commit = sess._commit_rounds
+        orig_dispatch = sess._dispatch_fused_batch
         calls = {"n": 0}
 
-        def killer(batch):
+        def killer(batch, statics, inputs, **kw):
             calls["n"] += 1
             if calls["n"] == 2:
-                raise RuntimeError("chaos: device died mid-drain")
-            return orig_commit(batch)
+                raise RuntimeError("chaos: device died mid-fuse")
+            return orig_dispatch(batch, statics, inputs, **kw)
 
-        sess._commit_rounds = killer
+        sess._dispatch_fused_batch = killer
         rolled = guarded.drain()
-        assert rolled == 0, "a killed drain must report a rollback"
+        assert rolled == 0, "a killed fused drain must report a rollback"
         assert guarded.rollbacks == 1, guarded.rollbacks
         assert calls["n"] == 2, (
-            f"kill must fire on the second batch commit (mid-drain), "
-            f"saw {calls['n']} commits"
+            f"kill must fire on the second staged batch (mid-fuse), "
+            f"saw {calls['n']} dispatches"
         )
         # recovery: rollback's guarded re-drain already converged the
         # journal replay; the oracle is byte equality with the clean twin
         assert guarded.pending_count() == 0
         digest, clean_digest = guarded.digest(), clean.digest()
         assert digest == clean_digest, (
-            f"mid-drain kill recovery diverged: {digest:#x} != {clean_digest:#x}"
+            f"mid-fuse kill recovery diverged: {digest:#x} != {clean_digest:#x}"
         )
         assert guarded.read_all() == clean.read_all()
 
@@ -1513,7 +1512,7 @@ def run_fused_drain_kill(seed: int, checkpoint_root=None,
         imon.observe_supervisor(guarded)
         imon.advance_round()
         assert imon.incident_kinds() == ["quarantine-storm"], (
-            f"seed={seed}: mid-drain kill opened {imon.incident_kinds()}, "
+            f"seed={seed}: mid-fuse kill opened {imon.incident_kinds()}, "
             "expected exactly ['quarantine-storm']"
         )
         ttd = imon.time_to_detection("quarantine-storm", kill_mon_round)

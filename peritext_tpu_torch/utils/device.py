@@ -26,16 +26,32 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+def pack_int32(arrays: Dict[str, np.ndarray]):
+    """``(flat, layout)``: every array of ``arrays``, in order, as int32 in
+    ONE buffer, and the ``((name, shape), ...)`` that slices it back
+    (:func:`unpack_int32`)."""
+    layout = tuple((name, tuple(np.shape(a))) for name, a in arrays.items())
+    flat = (np.concatenate([np.ascontiguousarray(a, np.int32).reshape(-1)
+                            for a in arrays.values()])
+            if arrays else np.zeros(0, np.int32))
+    return flat, layout
+
+
+def unpack_int32(buf: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
+    """Views of a packed buffer by name, shaped as ``layout`` says, at its
+    static offsets."""
+    out, off = {}, 0
+    for name, shape in layout:
+        n = int(np.prod(shape, dtype=np.int64))
+        out[name] = buf[off:off + n].view(shape)
+        off += n
+    return out
+
+
 def upload_int32(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     """Every array of ``arrays``, as int32, on ``device`` through ONE copy of
-    one concatenated buffer; returns contiguous views of it, shaped as the
-    arrays.  The buffer is pageable and made here, so the copy has
-    completed when this returns."""
-    flat = np.concatenate([np.ascontiguousarray(a, np.int32).reshape(-1) for a in arrays.values()]) \
-        if arrays else np.zeros(0, np.int32)
-    dev = torch.from_numpy(flat).to(device)
-    out, off = {}, 0
-    for name, a in arrays.items():
-        out[name] = dev[off:off + a.size].view(a.shape)
-        off += a.size
-    return out
+    one concatenated buffer (:func:`pack_int32`); returns contiguous views
+    of it, shaped as the arrays.  The buffer is pageable and made here, so
+    the copy has completed when this returns."""
+    flat, layout = pack_int32(arrays)
+    return unpack_int32(torch.from_numpy(flat).to(device), layout)

@@ -115,9 +115,41 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
+#: per thread, the launch tally of a CUDA-graph capture in progress
+#: (utils/graphs.py): a captured launch does not run, so it is tallied for
+#: the graph, whose replays add it to the wrapper's count
+_capturing = threading.local()
+
+
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, the launch count a kernel wrapper
     keeps, under a lock: an editor's change queue launches from its timer
-    thread while the caller's thread may launch too."""
+    thread while the caller's thread may launch too.  A launch made while
+    this thread captures a CUDA graph goes to the capture's tally instead
+    (:func:`launch_tally`)."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
+    add_launches(wrapper, 1)
+
+
+def add_launches(wrapper, n: int) -> None:
+    """Add ``n`` launches to ``wrapper.launches`` (a graph replay adds the
+    launches its capture tallied)."""
     with _launch_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
+
+
+class launch_tally:
+    """Context manager: while it is open, this thread's kernel launches are
+    tallied in the ``dict`` it yields (wrapper -> launches) and not
+    counted on the wrappers."""
+
+    def __enter__(self) -> dict:
+        self._prev = getattr(_capturing, "tally", None)
+        _capturing.tally = {}
+        return _capturing.tally
+
+    def __exit__(self, *exc_info) -> None:
+        _capturing.tally = self._prev

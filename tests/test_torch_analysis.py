@@ -8,7 +8,11 @@ path, line, column, message, context), and the two CLIs the same exit code
 and output on the same input, the reference restricted to the carried
 rules.  The port's self-scan is clean modulo its own baseline,
 ``peritext_tpu_torch/graftlint_baseline.json``, every entry live and
-justified.
+justified.  The port reads and writes no other default baseline: an
+update from outside the package exits 2 and leaves the JAX package's
+baseline at the repo root, and the package's own, byte for byte as they
+were.  The update tests that write a ledger on a scratch tree take that
+tree as the package.
 """
 
 import json
@@ -27,6 +31,7 @@ from peritext_tpu_torch.analysis import (
     scan_paths,
     update_baseline,
 )
+from peritext_tpu_torch.analysis import baseline as port_baseline
 from peritext_tpu_torch.analysis.__main__ import main
 from peritext_tpu_torch.analysis.baseline import save_baseline
 
@@ -135,6 +140,10 @@ def test_update_baseline_round_trip_equals_reference(tmp_path, capsys, monkeypat
     for name, fn, extra in (("port", main, []), ("ref", jax_main, REF_RULES)):
         root = _corpus_copy(tmp_path, name)
         monkeypatch.chdir(root)
+        # the scratch tree stands for the port's package, the one place the
+        # port's CLI writes a ledger (the reference writes at the scan root,
+        # the same file here)
+        monkeypatch.setattr(port_baseline, "PACKAGE_DIR", root)
         steps = [_cli(fn, ["pkg", "--update-baseline"] + extra, capsys)]
         ledger = root / "graftlint_baseline.json"
         entries = load_baseline(ledger)
@@ -165,6 +174,7 @@ def test_rules_scoped_update_keeps_other_entries(tmp_path, monkeypatch, capsys):
     (scoped / "v.py").write_text("import random, time\n\ndef f(xs):\n"
                                  "    random.shuffle(xs)\n    for x in set(xs):\n        pass\n")
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(port_baseline, "PACKAGE_DIR", tmp_path)
     assert main(["parallel", "--update-baseline"]) == 0
     ledger = tmp_path / "graftlint_baseline.json"
     full = load_baseline(ledger)
@@ -190,8 +200,27 @@ def test_baseline_api_round_trip(tmp_path):
 
 
 def test_package_baseline_is_found_first():
-    assert find_default_baseline([PACKAGE]) == PACKAGE / "graftlint_baseline.json"
-    assert find_default_baseline([CORPUS / "bad"]) == ROOT / "graftlint_baseline.json"
+    """The package's own baseline, whatever is scanned: a walk up from a
+    path outside the package would reach the JAX package's."""
+    assert find_default_baseline() == PACKAGE / "graftlint_baseline.json"
+
+
+@pytest.mark.parametrize("argv", [
+    ["tests/graftlint_corpus/bad", "--update-baseline"],
+    ["tests/graftlint_corpus/bad", "--rules", "PTL001", "--update-baseline"],
+    ["peritext_tpu_torch/parallel", "--update-baseline", "--baseline",
+     "graftlint_baseline.json"],
+], ids=["scan_outside", "rules_scoped", "root_target"])
+def test_update_outside_the_package_writes_nothing(argv, capsys, monkeypatch):
+    """``--update-baseline`` from a path outside the package, or onto the
+    repo root's baseline, exits 2 with a message; the root's baseline (the
+    JAX package's) and the package's own keep their bytes."""
+    monkeypatch.chdir(ROOT)
+    files = (ROOT / "graftlint_baseline.json", PACKAGE / "graftlint_baseline.json")
+    before = [f.read_bytes() for f in files]
+    assert main(argv) == 2
+    assert "refusing to update a baseline" in capsys.readouterr().err
+    assert [f.read_bytes() for f in files] == before
 
 
 def test_self_scan_clean_modulo_package_baseline():

@@ -8,10 +8,9 @@ detection rounds.  The quarantine reasons each drain leaves are recorded in
 both packages and must be equal too.
 
 * ``run_chaos`` (seed 0 at its defaults) and ``run_campaign``;
-* ``run_fused_drain_kill``: the port kills its drain at its one commit seam,
-  ``StreamingMerge._commit_rounds``, on the second batch commit (the
-  reference kills its fused batch dispatch, a form the port does not
-  have), after at least one committed batch, and recovers byte-equal;
+* ``run_fused_drain_kill``: the port kills its drain where the reference
+  does, at ``StreamingMerge._dispatch_fused_batch``, on the second staged
+  batch, after at least one committed batch, and recovers byte-equal;
 * ``run_markheavy_chaos``;
 * the supervisor's last rung in a chaos-style episode: a CPU session
   demotes its pending docs to the oracle (reason ``device-round``) and ends
@@ -84,22 +83,24 @@ def test_run_campaign_is_run_chaos_per_seed(reference, capsys):
 
 
 def test_fused_drain_kill_fires_mid_commit(reference, monkeypatch):
-    commits = []
-    original = port_streaming.StreamingMerge._commit_rounds
+    dispatches = []
+    original = port_streaming.StreamingMerge._dispatch_fused_batch
 
-    def counted(self, batch):
-        commits.append(len(batch))
-        return original(self, batch)
+    def counted(self, batch, statics, inputs, **kw):
+        dispatches.append((len(batch), statics[0]))
+        return original(self, batch, statics, inputs, **kw)
 
-    monkeypatch.setattr(port_streaming.StreamingMerge, "_commit_rounds", counted)
+    monkeypatch.setattr(port_streaming.StreamingMerge, "_dispatch_fused_batch", counted)
     port = chaos.run_fused_drain_kill(0, device="cpu")
     assert port == reference("run_fused_drain_kill", 0)
     assert port["rollbacks"] == 1 and port["batches_before_kill"] >= 1
     assert port["incident_kinds"] == ["quarantine-storm"] and port["incident_resolved"]
     # FUSE_MAX_ROUNDS = 2 with round caps of 8: the factory's sessions drain
-    # in batches of two rounds, several of them (a session restored from a
-    # checkpoint keeps the class's batch window)
-    assert commits[0] == 2 and commits.count(2) > 2
+    # in staged batches of two rounds (the flat form), several of them, as
+    # the reference's (a session restored from a checkpoint keeps the
+    # class's batch window); the kill hooks the fused dispatch seam
+    sizes = [n for n, _ in dispatches]
+    assert dispatches[0] == (2, "flat") and sizes.count(2) > 2
 
 
 def test_fused_drain_kill_keeps_its_checkpoint_root(tmp_path, reference):

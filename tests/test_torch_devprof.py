@@ -14,14 +14,15 @@ against the reference package's, on the CPU.
   16 docs x 48 ops and a padded, paged and ragged ``StreamingMerge`` of 3
   arrival rounds, each run with both packages' ``GLOBAL_DEVPROF`` armed:
   ``occupancy``, ``occupancy_totals``, ``page_pool`` and ``ragged`` equal
-  exactly.  The port's site table on each path: one site per path, its
-  dispatches equal to the commit counters (``streaming.block_applies``;
-  one per page group of a merge; one ``apply_batch_paged_groups`` per
-  paged round), and no launch recorded on the CPU.
+  exactly.  The port's site table on each path: a merge's one site, its
+  dispatches equal to the commit counters (one per page group of a paged
+  merge); a padded or paged session's fused forms, one call per committed
+  batch, named and counted as the reference's dispatches; a ragged
+  session's one call per round; no launch recorded on the CPU.
 
 The reference records sites of its own (jit executables); the port's are
-its ops-level entry points, so site tables are not compared across the
-packages (ROADMAP.md section 3).
+its ops-level entry points, so only the streaming sessions' fused forms
+share site tables across the packages (ROADMAP.md section 3).
 """
 
 import random
@@ -394,20 +395,34 @@ def test_streaming_sections_equal_the_reference(armed, stream_arrival, layout):
     assert ours["occupancy_totals"]["real_ops"] == sum(
         len(ch.ops) for doc in port_arr for b in doc for ch in b)
     sites = ours["sites"]
+    if layout in ("padded", "paged"):
+        # the fused forms: one site call per committed batch under the
+        # reference's site name (a lone round, or a lone page group, in its
+        # undonated single form on the CPU), as many as the reference's
+        # dispatches of each
+        calls = {name: site["dispatches"] for name, site in sites.items()}
+        assert calls == {name: site["dispatches"] for name, site in ref["sites"].items()
+                         if name in COMMIT_SITES}
     if layout == "padded":
-        assert set(sites) == {"apply_batch_compact"}
-        assert sites["apply_batch_compact"]["dispatches"] == applies["streaming.block_applies"]
+        assert set(sites) == {"apply_batch_compact", "apply_batch_staged_rounds"}
+        assert applies["streaming.block_applies"] == s.rounds
     elif layout == "paged":
-        # one call per committed round; its page groups are its launches,
-        # the nested apply_batch_paged calls belong to it
-        assert set(sites) == {"apply_batch_paged_groups"}
-        assert sites["apply_batch_paged_groups"]["dispatches"] == s.rounds
-        # and each group is one occupancy row
+        # the nested apply_batch_paged calls of a group chain belong to its
+        # apply_batch_paged_groups call; each group is one occupancy row
+        assert set(sites) <= {"apply_batch_paged", "apply_batch_paged_groups"}
         assert ours["occupancy_totals"]["rounds"] == applies["streaming.group_applies"] >= s.rounds
     else:
         assert set(sites) == {"apply_batch_ragged"}
         assert sites["apply_batch_ragged"]["dispatches"] == s.rounds
     assert ours["memory"]["samples"] > 0 and ours["memory"]["available"] is False
+
+
+#: the reference's commit sites the port's streaming forms are named after
+#: (its other sites are read paths and jit helpers the port has no site for)
+COMMIT_SITES = ("apply_batch", "apply_batch_compact", "apply_batch_staged_rounds",
+                "apply_batch_stacked_rounds", "apply_batch_stacked_rounds_multi",
+                "_fused_rounds_digest", "_stacked_rounds_digest", "apply_batch_paged",
+                "apply_batch_paged_groups")
 
 
 def test_capture_costs_on_a_cpu_session(armed, stream_arrival):
@@ -419,8 +434,11 @@ def test_capture_costs_on_a_cpu_session(armed, stream_arrival):
     _, port_arr = stream_arrival
     _feed(StreamingMerge(num_docs=len(port_arr), actors=ACTORS, device="cpu", **STREAM_CAPS),
           port_arr)
-    (site,) = ours_p.snapshot()["sites"].values()
-    for bucket in site["buckets"].values():
+    sites = ours_p.snapshot()["sites"]
+    # the drains commit one-round batches (apply_batch_compact) and
+    # multi-round ones (apply_batch_staged_rounds)
+    assert set(sites) == {"apply_batch_compact", "apply_batch_staged_rounds"}
+    for bucket in (b for site in sites.values() for b in site["buckets"].values()):
         cost = bucket["cost"]
         assert cost["device_ms"] is None and cost["kernel_launches"] == 0
         assert cost["kernel_bytes"] > 0

@@ -258,40 +258,47 @@ def test_fused_group_refuses_what_the_reference_refuses():
 
 
 def test_sparse_padded_window_equal_state(monkeypatch):
-    """A window that touches 2 of 8 tenants of a padded lane: the reference
-    routes it through ``stacked_multi`` (only the active blocks staged);
-    the port commits the same rows through its one compact path.  Every
-    state plane of the two lanes is equal afterwards."""
+    """A window that touches 2 of 8 tenants of a padded lane: both packages
+    route it through ``stacked_multi`` (only the active tenants' blocks
+    staged, the full planes rebuilt on the device), every commit takes the
+    same form with the same statics, and every state plane of the two lanes
+    is equal afterwards."""
     names = [f"tenant{i:03d}" for i in range(8)]
     plan = _window_plan(names, 1, 24, seed=5)
     sparse = plan[1]
     assert 0 < len({n for n, _, _ in sparse}) < len(names)
     kw = _session_kw(24)
-    routes = []
+    routes = {"ref": [], "port": []}
     from peritext_tpu.parallel.streaming import StreamingMerge as JaxStreamingMerge
+    from peritext_tpu_torch.parallel.streaming import StreamingMerge
 
-    prep = JaxStreamingMerge._prep_fused_batch
+    def spy(cls, side):
+        prep = cls._prep_fused_batch
 
-    def spy(self, batch):
-        statics = prep(self, batch)
-        routes.append((statics[0], self.fusion_rows))
-        return statics
+        def spied(self, batch):
+            statics = prep(self, batch)
+            routes[side].append((statics[0], self.fusion_rows) + tuple(statics[1:]))
+            return statics
+        monkeypatch.setattr(cls, "_prep_fused_batch", spied)
 
-    monkeypatch.setattr(JaxStreamingMerge, "_prep_fused_batch", spy)
+    spy(JaxStreamingMerge, "ref")
+    spy(StreamingMerge, "port")
     ref = _drive_group(JaxFusedMuxGroup, JaxTenantSpec, jax_lane_factory, JaxHistory, names,
                        ("padded",), 1, plan[:2], kw)[0]
     port = _drive_group(FusedMuxGroup, TenantSpec, default_lane_factory, TimeSeriesPlane,
                         names, ("padded",), 1, plan[:2], dict(kw, device="cpu"))[0]
-    assert routes[0][0] in ("stacked", "static1") and routes[0][1] is None
+    assert routes["port"] == routes["ref"]
+    assert routes["ref"][0][0] in ("stacked", "static1") and routes["ref"][0][1] is None
     bases = tuple(sorted(ref.group.slots[n].doc_base for n, _, _ in sparse))
-    assert [r for r in routes[1:]] and all(
-        r == ("stacked_multi", (bases, 1)) for r in routes[1:])
+    assert routes["ref"][1:] and all(r[:2] == ("stacked_multi", (bases, 1))
+                                     for r in routes["ref"][1:])
     (mine,), (theirs,) = port._lane_sessions, ref._lane_sessions
     for field in mine.state._fields:
         np.testing.assert_array_equal(
             getattr(mine.state, field).cpu().numpy(), np.asarray(getattr(theirs.state, field)),
             err_msg=field)
     assert mine.digest() == theirs.digest()
+    mine._ensure_stager().close()
     stager = getattr(theirs, "_stager", None)
     if stager is not None:
         stager.close()

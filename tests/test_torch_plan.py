@@ -241,11 +241,12 @@ def test_twin_merge_observed_config_equals_the_reference(stream_arrival, layout)
 
 
 def test_single_round_drains_read_fused_depth_8_on_the_port_only(stream_arrival):
-    """The pinned difference: every drain commits one round.  The
-    reference commits it in its single-round form (``apply_batch_compact``
-    alone) and reads depth 1; the port's snapshot holds the same site with
-    a fused origin either way, and reads the depth its drains batch up to.
-    Every other field of the observed configuration is equal."""
+    """Every drain commits one round.  The port once read depth 8 here
+    where the reference reads 1 (its commits had no single-round form);
+    with the fused forms ported, both packages commit the round in the
+    undonated single-round form on the CPU (``apply_batch_compact``
+    alone), and the whole observed configuration, fused depth 1
+    included, is equal."""
     _, ref_arr, port_arr = stream_arrival
     rounds = []
 
@@ -260,14 +261,13 @@ def test_single_round_drains_read_fused_depth_8_on_the_port_only(stream_arrival)
     assert rounds == [1, 1]
     assert set(ref["sites"]) == set(ours["sites"]) == {"apply_batch_compact"}
     got, want = CostModel(ours).observed_config(), JaxCostModel(ref).observed_config()
-    assert (got.pop("fused_depth"), want.pop("fused_depth")) == (8, 1)
+    assert got["fused_depth"] == want["fused_depth"] == 1
     assert got == want
 
 
 def test_reference_snapshot_without_a_launch_plan_reads_as_the_reference(stream_arrival):
-    """The port's rule only reads buckets keyed by a launch plan: a
-    reference snapshot of single-round drains stays at depth 1 under the
-    port's model, as under the reference's."""
+    """A reference snapshot of single-round drains reads depth 1 under the
+    port's model, as under the reference's, and proposes the same."""
     _, ref_arr, port_arr = stream_arrival
     _, ref = _armed(lambda: _feed_rounds(JaxStreamingMerge(
         num_docs=len(ref_arr), actors=ACTORS, **WIDE_CAPS), [[[c for b in d for c in b]]

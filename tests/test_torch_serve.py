@@ -493,6 +493,32 @@ def test_run_open_loop_accounting_equal(plans):
     assert ref_mux.session.digest() == port_mux.session.digest()
 
 
+def test_open_loop_offers_its_waits_to_the_session(plans, monkeypatch):
+    """The open loop offers each wait before the next arrival (800/s: 1.25
+    ms apart) to the session's graph captures, cut to what is left of the
+    mux's open window; the accounting equals the reference's all the
+    same."""
+    ref_s, port_s = sessions()
+    offers = []
+    real_idle = port_s.idle
+
+    def idle(budget_s):
+        offers.append(budget_s)
+        return real_idle(budget_s)
+
+    monkeypatch.setattr(port_s, "idle", idle)
+    _, ref = _open_loop(JaxMux, jax_run_open_loop, ref_s, plans)
+    mux, port = _open_loop(SessionMux, run_open_loop, port_s, plans)
+    assert ref.to_json() == port.to_json()
+    assert offers and all(0 < b <= 1 / 800 + 1e-9 for b in offers)
+    assert min(offers) < 1 / 800  # a window closing before the next arrival cuts one
+    assert port_s._graphs._deferring  # repeated signatures now wait for idle captures
+    clock = mux.clock
+    mux._window_opened = clock() - mux.window_seconds()
+    offers.clear()
+    assert mux.idle(1.0) == 0 and offers == []  # an expired window offers nothing
+
+
 def test_traced_open_loop_is_sum_consistent(plans):
     """With the latency plane armed and ``read_every`` set, every sampled
     record's stages are nonnegative and sum to its total; the visibility

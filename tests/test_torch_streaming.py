@@ -402,17 +402,25 @@ def test_layout_factory_builds_subclass(layout, cls):
 
 
 def _recorded_applies(monkeypatch, workloads, **kwargs):
-    """A port session fed 3 arrival rounds, with every apply_batch_compact
-    call of its commits recorded as (rows, widths, counts)."""
-    from peritext_tpu_torch.ops.kernel import apply_batch_compact as original
-    from peritext_tpu_torch.parallel import streaming
+    """A port session fed 3 arrival rounds, with every per-round apply of
+    its commits recorded as (rows, widths, counts): ``ops.kernel._apply_batch``,
+    which the per-round path and every fused form reach once per round and
+    block."""
+    from peritext_tpu_torch.ops import kernel
 
+    original = getattr(kernel._apply_batch, "__wrapped__", kernel._apply_batch)
     calls = []
 
-    def recording(state, counts, *args, widths, insert_loop_slots=None):
-        calls.append((state.elem_id.shape[0], widths, [c.tolist() for c in counts]))
-        return original(state, counts, *args, widths=widths, insert_loop_slots=insert_loop_slots)
-    monkeypatch.setattr(streaming, "apply_batch_compact", recording)
+    def recording(state, arrays, insert_loop_slots):
+        ins_op, del_t, marks, mark_count, maps, map_count = arrays[1], *arrays[3:]
+        widths = (ins_op.shape[1], del_t.shape[1], next(iter(marks.values())).shape[1],
+                  next(iter(maps.values())).shape[1])
+        counts = [(ins_op != 0).sum(1).tolist(), (del_t != 0).sum(1).tolist(),
+                  mark_count.tolist(), map_count.tolist()]
+        calls.append((state.elem_id.shape[0], widths, counts))
+        return original(state, arrays, insert_loop_slots)
+    recording.__wrapped__ = original
+    monkeypatch.setattr(kernel, "_apply_batch", recording)
     t = StreamingMerge(num_docs=len(workloads), actors=ACTORS, device="cpu", **kwargs)
     before = GLOBAL_COUNTERS.get("streaming.block_applies")
     _feed(t, _arrival(workloads, 3, 4)[1])
