@@ -69,8 +69,8 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    the dispatches equal the commits (one fused form's call per committed
    batch, ``streaming.fused_dispatches`` for the padded
    ``apply_batch_staged_rounds``, the graph cache's calls for the paged
-   ``apply_batch_paged_groups``; one ``apply_batch_ragged`` call per
-   round), the sites' launches (dispatches x each bucket's
+   ``apply_batch_paged_groups``; one ``apply_batch_ragged`` call per round
+   of the block-chunked C_frames_ragged), the sites' launches (dispatches x each bucket's
    ``kernel_launches``) equal the commit counters and the kernels' own
    launch counts, the occupancy table's real ops the session's applied
    ops, the page-pool section the session's ``pool_stats()``, the memory
@@ -105,18 +105,25 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    (asked for explicitly; the phase prints which): (a) ``DocBatch(mesh=)``
    on config 3, equal to phase 3's merge in spans, roots, cursors and the
    fallback set, with one K1 launch per shard; (b) A's frames over the
-   mesh in the padded, paged and ragged layouts, each equal to A on every
-   doc and passing phase 5's checks, its launches equal to its commit
-   counter (K1 once per touched shard of a padded round and once per
-   (round, shard, page group) of a paged one, K3 once per (round, touched
-   shard, non-empty doc class)), its session ops/s printed beside
-   A_frames'; (d) a reshard of the paged mesh session: digest and reads
+   mesh in the padded, paged and ragged layouts on the fused drain (per
+   shard one staged upload and one site call a batch, through the
+   shard's own graph cache), each equal to A on every doc and passing
+   phase 5's checks, and to its per-round mesh twin
+   (``fused_pipeline=False``, which stages nothing), its launches equal
+   to its commit counter (K1 once per (round, shard) of a padded batch
+   and once per (round, shard, page group) of a paged one, K3 once per
+   (round, non-empty doc class) of each shard that holds an op in the
+   batch), its session ops/s and graph statistics per shard printed
+   beside A_frames'; (d) a reshard of the paged mesh session: digest and reads
    unchanged, no character changed, the pages moved between shards
    counted (``store.ici_page_moves``); (c) C's frames at full width over
-   the mesh (10,240 docs, 4 shards of 2,560 rows), equal to C_frames, with
-   each card's peak memory; (e) ``run_crash_restore`` seed 12 with the
-   mesh, restored meshless; the kernel inputs of one round of a shard
-   (padded: K1; ragged: K3) are captured for phase 6; within 90 s;
+   the mesh (10,240 docs, 4 shards of 2,560 rows), equal to C_frames and
+   to its per-round mesh twin, with each card's peak memory; (f) A's
+   workload in ``fine_rounds`` arrival rounds over the padded mesh, equal
+   to A, every shard's graph cache replaying and hitting; (e)
+   ``run_crash_restore`` seed 12 with the mesh, restored meshless; the
+   kernel inputs of one round of a shard (padded: K1; ragged: K3) are
+   captured for phase 6; within 120 s;
 5k. the scalar baseline and the engine replay (:data:`BASELINE`): (a) the
    C++ scalar apply (``native.scalar_apply``, one host core) at the
    reference bench's baseline shape, 16 fuzz docs x 256 ops at seed 7, its
@@ -149,8 +156,16 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    that must bump the graph epoch and be followed by new captures, a page
    pool (pages of 32 slots, one page a doc to start) that grows between
    drains, bumping the paged session's epoch;
-   both equal to A; the engine replay's eager, capture, single-pass and
-   steady seconds of phase 5k beside PR 15's 51.6 ms a pass; within 25 s;
+   both equal to A; A_frames on the ragged layout, fused and per round,
+   both equal to A_frames' digest and to A, one staged copy per batch (the
+   graph cache's calls; the ragged forms count no fused dispatch, as the
+   reference's) and none for the twin; the fine arrival on a ragged
+   session whose pool grows likewise, replaying and hitting, no signature
+   captured twice within a graph epoch, equal to its per-round twin, the
+   ragged insert's inputs of the first round of a replayed batch kept for
+   phase 6; the engine replay's eager, capture, single-pass and steady
+   seconds of phase 5k beside the 51.6 ms of a host-enqueued pass; within
+   50 s;
 5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
@@ -254,7 +269,8 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    the first round of the ragged restore, the fused ragged lane's round in
    the sparse window and the first call of the ragged differential; and
    each the captured round of a mesh shard of phase 5j; for the insert
-   kernel also the third replayed round of phase 5k)
+   kernel also the third replayed round of phase 5k; for the ragged one
+   also the first round of a replayed ragged batch of phase 5l)
    and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
@@ -442,7 +458,7 @@ PLANNER = dict(seconds=20.0, regress=0.4)
 #: phase 5j, the device mesh: 4 shards (``cuda:0..3`` where four cards
 #: exist, else 4 virtual shards on ``cuda:0``), the crash campaign's seed,
 #: and the phase's time limit
-MESH = dict(shards=4, crash_seed=12, seconds=90.0)
+MESH = dict(shards=4, crash_seed=12, seconds=120.0)
 #: phase 5k, the scalar baseline and the engine replay.  ``scalar``: the
 #: reference bench's native baseline at its own shape (bench.py
 #: ``measure_native_baseline``: 16 fuzz docs x 256 ops, seed 7, the best of
@@ -454,9 +470,9 @@ BASELINE = dict(scalar=dict(docs=16, ops=256, seed=7, sweeps=3, reps=20), passes
                 round_index=2, seconds=30.0)
 #: phase 5l, the fused round pipeline at A_frames' shape (:data:`STREAM`):
 #: A's workload also cut into ``fine_rounds`` arrival rounds (the drains'
-#: signatures repeat), a forced reshard after ``reshard_after`` of them,
-#: and the phase's time limit
-FUSED_PIPE = dict(fine_rounds=24, reshard_after=8, seconds=25.0)
+#: signatures repeat; phase 5j's fine mesh arm too), a forced reshard after
+#: ``reshard_after`` of them, and the phase's time limit
+FUSED_PIPE = dict(fine_rounds=24, reshard_after=8, seconds=50.0)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -1169,13 +1185,14 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
                   block_applies=counts["block_applies"], group_applies=counts["group_applies"],
                   ragged_applies=counts["ragged_applies"],
                   fused_dispatches=counts["fused_dispatches"], graphs=s._graphs.stats(),
-                  h2d_copies=s._copy_lane.copies,
+                  h2d_copies=sum(lane.copies for lane in s._shard_lanes),
                   fallback_docs=len(fallback), overflow_docs=s.overflow_count(),
                   peak_memory_bytes=torch.cuda.max_memory_allocated(cards[0]), health=s.health(),
                   **extra)
     if mesh is not None:
         report.update(mesh_shards=mesh.size, mesh_devices=[str(d) for d in mesh.devices],
                       mesh_stats=s._mesh_stats(),
+                      shard_graphs=[g.stats() for g in s._shard_graphs],
                       peak_memory_bytes_by_card={str(c): torch.cuda.max_memory_allocated(c)
                                                  for c in cards})
     log("streaming", json.dumps(report))
@@ -1411,12 +1428,12 @@ def _check_planes_session(name, layout, site, s, out, before, after, sentinel, s
                        "paged": ("group_applies", "rga_insert_launches"),
                        "ragged": ("ragged_applies", "ragged_insert_launches")}[layout]
     # one fused form's call per committed batch (padded: the session's
-    # fused dispatches; paged: the graph cache's calls), one ragged call a
-    # round
+    # fused dispatches; paged and ragged: the graph cache's calls), or, on
+    # a block-chunked session's per-round path, one ragged call a round
     graph_calls = sum(row["eager"] + row["captures"] + row["hits"]
                       for row in s._graphs.stats().values())
-    want_dispatches = {"padded": out["fused_dispatches"], "paged": graph_calls,
-                       "ragged": s.rounds}[layout]
+    want_dispatches = (out["fused_dispatches"] if layout == "padded"
+                       else graph_calls if s._pipelined() else s.rounds)
     if dispatches != want_dispatches or launches != out[counter] or launches != out[kernel]:
         raise AssertionError(f"planes {name}: {site} dispatched {dispatches} (want "
                              f"{want_dispatches}) with {launches} launches; the session counted "
@@ -1866,7 +1883,9 @@ def run_mesh(device, ctx, slice_run):
         f"fallback set), {rga['mesh_docbatch']} K1 launches, {time.perf_counter() - t0:.3f} s; "
         f"stats {json.dumps(report.stats.to_json())}")
 
-    # (b) A_frames over the mesh in each layout, against phase 5's twin
+    # (b) A_frames over the mesh in each layout, on the fused drain (each
+    # shard one staged upload and one site call a batch, through its own
+    # graph cache), against phase 5's twin and the per-round mesh twin
     cfg = STREAM
     sessions = {}
     for layout in ("padded", "paged", "ragged"):
@@ -1876,13 +1895,20 @@ def run_mesh(device, ctx, slice_run):
                                     layout=layout, mesh=mesh)
         compare_arms(name, out, ctx["a"], "A_default")
         check_stream_session(name, s, out, ctx["workloads"], cfg, ctx["sample"], ctx["oracle_a"])
-        if layout == "ragged":
-            ragged[name] = out["ragged_insert_launches"]
-        else:
-            rga[name] = out["rga_insert_launches"]
-        log(f"mesh: {name} equals A on all {cfg['docs']} docs; {out['ops_per_second']:.1f} "
-            f"session ops/s against meshless A_frames' {ctx['frames_ops_per_second']:.1f} "
-            f"(ratio {out['ops_per_second'] / ctx['frames_ops_per_second']:.4f})")
+        _, twin = run_stream_session(device, cfg, ctx["workloads"], ctx["wire"],
+                                     f"{name}_per_round", wire_bytes=ctx["wire_bytes"],
+                                     layout=layout, mesh=mesh, fused_pipeline=False)
+        compare_arms(f"{name}_per_round", twin, out, name)
+        _check_mesh_fused(name, out, twin)
+        paths = ragged if layout == "ragged" else rga
+        kernel = "ragged_insert_launches" if layout == "ragged" else "rga_insert_launches"
+        paths[name], paths[f"{name}_per_round"] = out[kernel], twin[kernel]
+        log(f"mesh: {name} equals A on all {cfg['docs']} docs and its per-round mesh twin; "
+            f"{out['ops_per_second']:.1f} session ops/s (per round "
+            f"{twin['ops_per_second']:.1f}) against meshless A_frames' "
+            f"{ctx['frames_ops_per_second']:.1f} (ratio "
+            f"{out['ops_per_second'] / ctx['frames_ops_per_second']:.4f}); graphs per shard "
+            f"{json.dumps(out['shard_graphs'])}")
         sessions[layout] = s
 
     # (d) a paged reshard under the mesh: pages move between shards
@@ -1906,16 +1932,44 @@ def run_mesh(device, ctx, slice_run):
     del sessions, s
 
     # (c) C_frames at full width over the mesh, against phase 5's C_frames
+    # and the per-round mesh twin
     s_c, c = run_stream_session(device, cfg, ctx["workloads_c"], ctx["wire_c"], "C_frames_mesh",
                                 wire_bytes=ctx["wire_bytes_c"], mesh=mesh)
     compare_arms("C_frames_mesh", c, ctx["cf"], "C_frames")
     check_stream_session("C_frames_mesh", s_c, c, ctx["workloads_c"], cfg, ctx["sample_c"],
                          ctx["oracle_c"])
-    rga["C_frames_mesh"] = c["rga_insert_launches"]
-    log(f"mesh: C_frames_mesh ({c['padded_docs']} rows, {mesh.size} shards of "
-        f"{c['padded_docs'] // mesh.size}) equals C_frames; peak memory by card "
-        f"{json.dumps(c['peak_memory_bytes_by_card'])}")
     del s_c
+    _, c_twin = run_stream_session(device, cfg, ctx["workloads_c"], ctx["wire_c"],
+                                   "C_frames_mesh_per_round", wire_bytes=ctx["wire_bytes_c"],
+                                   mesh=mesh, fused_pipeline=False)
+    compare_arms("C_frames_mesh_per_round", c_twin, c, "C_frames_mesh")
+    _check_mesh_fused("C_frames_mesh", c, c_twin)
+    rga["C_frames_mesh"] = c["rga_insert_launches"]
+    rga["C_frames_mesh_per_round"] = c_twin["rga_insert_launches"]
+    log(f"mesh: C_frames_mesh ({c['padded_docs']} rows, {mesh.size} shards of "
+        f"{c['padded_docs'] // mesh.size}) equals C_frames and its per-round mesh twin; "
+        f"{c['ops_per_second']:.1f} session ops/s (per round {c_twin['ops_per_second']:.1f}); "
+        f"peak memory by card {json.dumps(c['peak_memory_bytes_by_card'])}; graphs per shard "
+        f"{json.dumps(c['shard_graphs'])}")
+
+    # (f) A's workload in fine arrival rounds over the padded mesh: the
+    # signatures repeat, and every shard's graph cache replays
+    from peritext_tpu_torch.testing.arrival import build_arrival
+
+    t0 = time.perf_counter()
+    ctx["fine"] = build_arrival(ctx["workloads"], FUSED_PIPE["fine_rounds"], cfg["seed"],
+                                as_frames=True, wire=cfg["wire"])
+    ctx["fine_seconds"] = time.perf_counter() - t0
+    _, fine = run_stream_session(device, cfg, ctx["workloads"], ctx["fine"][0],
+                                 "A_frames_mesh_fine", wire_bytes=ctx["fine"][1], mesh=mesh)
+    compare_arms("A_frames_mesh_fine", fine, ctx["a"], "A_default")
+    per_shard = [_graph_totals(stats) for stats in fine["shard_graphs"]]
+    if any(t["replays"] == 0 or t["hits"] == 0 for t in per_shard):
+        raise AssertionError(f"mesh: A_frames_mesh_fine graphs per shard {per_shard}: every "
+                             "shard must replay its repeated signatures")
+    rga["A_frames_mesh_fine"] = fine["rga_insert_launches"]
+    log(f"mesh: A_frames_mesh_fine ({fine['rounds']} rounds) equals A; graphs per shard "
+        f"{json.dumps(per_shard)}; {fine['ops_per_second']:.1f} session ops/s")
 
     # (e) the crash campaign with the mesh, restoring meshless
     start = _phase_counts()
@@ -1938,6 +1992,17 @@ def run_mesh(device, ctx, slice_run):
     if seconds > MESH["seconds"]:
         raise AssertionError(f"mesh: phase 5j took {seconds:.1f} s, over {MESH['seconds']} s")
     return rga, ragged, captures
+
+
+def _check_mesh_fused(name, out, twin) -> None:
+    """A mesh session on the fused drain and its per-round twin: the fused
+    one counted its batches and staged every upload on its shards' copy
+    lanes (at least one a batch), the twin neither."""
+    if not out["fused_dispatches"] or out["h2d_copies"] < out["fused_dispatches"] or \
+            twin["fused_dispatches"] or twin["h2d_copies"]:
+        raise AssertionError(f"mesh: {name} made {out['h2d_copies']} staged copies for "
+                             f"{out['fused_dispatches']} batches, its per-round twin "
+                             f"{twin['h2d_copies']} for {twin['fused_dispatches']}")
 
 
 def _record_insert_call(index):
@@ -2135,13 +2200,13 @@ def _graph_totals(stats):
 
 
 def run_fused_pipeline(device, ctx):
-    """Phase 5l (module doc).  Returns the K1 launch counts of its
-    sessions."""
+    """Phase 5l (module doc).  Returns the K1 and the K3 launch counts of
+    its sessions, and the K3 inputs of one replayed ragged round."""
     from peritext_tpu_torch.testing.arrival import build_arrival
 
     cfg = STREAM
     t_phase = time.perf_counter()
-    launches, rows = {}, {}
+    launches, ragged, rows = {}, {}, {}
 
     # (a) A_frames fused and per round
     outs = {}
@@ -2169,13 +2234,47 @@ def run_fused_pipeline(device, ctx):
                           + out["stage_seconds"]["apply"],
                           ops_per_second=out["ops_per_second"])
 
+    # (a') A_frames on the ragged layout, fused and per round: a batch is
+    # one staged upload and one site call (the ragged forms count no fused
+    # dispatch, as the reference's: the graph cache's calls count batches)
+    for name, kw in (("A_frames_ragged_fused", {}),
+                     ("A_frames_ragged_per_round", dict(fused_pipeline=False))):
+        _, out = run_stream_session(device, cfg, ctx["workloads"], ctx["wire"], name,
+                                    wire_bytes=ctx["wire_bytes"], layout="ragged", **kw)
+        compare_arms(name, out, ctx["a"], "A_default")
+        if out["digest"] != ctx["frames_digest"]:
+            raise AssertionError(f"fused pipeline {name}: digest differs from A_frames'")
+        totals = _graph_totals(out["graphs"])
+        ragged[name] = out["ragged_insert_launches"]
+        rows[name] = dict(rounds=out["rounds"], graphs=out["graphs"],
+                          batches=totals["eager"] + totals["captures"] + totals["hits"],
+                          h2d_copies=out["h2d_copies"], k3_launches=out["ragged_insert_launches"],
+                          ragged_applies=out["ragged_applies"], wall_seconds=out["wall_seconds"],
+                          apply_seconds=out["stage_seconds"]["apply"],
+                          drain_seconds=out["stage_seconds"]["schedule"]
+                          + out["stage_seconds"]["apply"],
+                          ops_per_second=out["ops_per_second"])
+    fused, twin = rows["A_frames_ragged_fused"], rows["A_frames_ragged_per_round"]
+    if not fused["batches"] or fused["h2d_copies"] != fused["batches"] or \
+            twin["h2d_copies"] or twin["batches"]:
+        raise AssertionError(f"fused pipeline: A_frames_ragged made {fused['h2d_copies']} staged "
+                             f"copies for {fused['batches']} batches (one each), the per-round "
+                             f"twin {twin['h2d_copies']} for {twin['batches']}")
+    log(f"fused pipeline: A_frames_ragged fused graphs {json.dumps(fused['graphs'])}, "
+        f"{fused['batches']} batches, apply {fused['apply_seconds']:.6f} s against "
+        f"{twin['apply_seconds']:.6f} s per round")
+
     # (b) A's workload in fine rounds: padded with a forced reshard, paged
-    # with its pool growing
+    # and ragged with their pools growing (the ragged arm against its
+    # per-round twin, and K3 held on the first round of a replayed batch)
     t0 = time.perf_counter()
-    fine, fine_bytes = build_arrival(ctx["workloads"], FUSED_PIPE["fine_rounds"], cfg["seed"],
-                                     as_frames=True, wire=cfg["wire"])
-    gen_seconds = time.perf_counter() - t0
+    if "fine" not in ctx:
+        ctx["fine"] = build_arrival(ctx["workloads"], FUSED_PIPE["fine_rounds"], cfg["seed"],
+                                    as_frames=True, wire=cfg["wire"])
+    fine, fine_bytes = ctx["fine"]
+    gen_seconds = ctx.get("fine_seconds", time.perf_counter() - t0)
     marks = {}
+    replayed = {}
 
     def reshard_after(s, r):
         if r == FUSED_PIPE["reshard_after"] - 1:
@@ -2185,21 +2284,32 @@ def run_fused_pipeline(device, ctx):
     def growth(s, r):
         if r == 0:
             marks.update(growths0=s.store.growths)
+            if s.layout == "ragged":
+                _record_ragged_replay(s, replayed)
+        held = marks.setdefault("held", {})
+        held[s._graphs.epoch] = max(held.get(s._graphs.epoch, 0), len(s._graphs))
 
-    # the paged arm: pages of 32 slots and a pool of one page per doc, so
+    # the pooled arms: pages of 32 slots and a pool of one page per doc, so
     # the pool grows once docs pass their first page, between drains
     for name, layout, hook, arm_cfg, arm in (
             ("A_frames_fine", "padded", reshard_after, cfg, {}),
             ("A_paged_frames_fine", "paged", growth, dict(cfg, page_size=32),
+             dict(pool_pages=cfg["docs"] + 1)),
+            ("A_ragged_frames_fine", "ragged", growth, dict(cfg, page_size=32),
              dict(pool_pages=cfg["docs"] + 1))):
+        marks.pop("held", None)
         s, out = run_stream_session(device, arm_cfg, ctx["workloads"], fine, name,
                                     wire_bytes=fine_bytes, after_round=hook, layout=layout,
                                     **arm)
         compare_arms(name, out, ctx["a"], "A_default")
         totals = _graph_totals(out["graphs"])
-        launches[name] = out["rga_insert_launches"]
+        if layout == "ragged":
+            ragged[name] = out["ragged_insert_launches"]
+        else:
+            launches[name] = out["rga_insert_launches"]
         row = dict(rounds=out["rounds"], graphs=out["graphs"], totals=totals,
                    h2d_copies=out["h2d_copies"], k1_launches=out["rga_insert_launches"],
+                   k3_launches=out["ragged_insert_launches"],
                    epoch=s._graphs.epoch, apply_seconds=out["stage_seconds"]["apply"],
                    wall_seconds=out["wall_seconds"], ops_per_second=out["ops_per_second"])
         calls = totals["eager"] + totals["captures"] + totals["hits"]
@@ -2217,13 +2327,28 @@ def run_fused_pipeline(device, ctx):
                                      f"{after} captures after it")
         else:
             row.update(growths=s.store.growths, growths_after_first_round=s.store.growths
-                       - marks["growths0"])
+                       - marks["growths0"], held_by_epoch=marks["held"])
             if s.store.growths <= marks["growths0"] or s._graphs.epoch < 1:
                 raise AssertionError(f"fused pipeline {name}: pool growths {s.store.growths} "
                                      f"({marks['growths0']} after round 0), epoch "
                                      f"{s._graphs.epoch}: a growth between drains must bump it")
+        if layout == "ragged":
+            # no signature captured twice within an epoch; the digest equals
+            # the per-round twin's
+            if totals["hits"] == 0 or totals["captures"] > sum(marks["held"].values()):
+                raise AssertionError(f"fused pipeline {name}: graphs {totals}, held by epoch "
+                                     f"{marks['held']}")
+            _, twin = run_stream_session(device, arm_cfg, ctx["workloads"], fine,
+                                         f"{name}_per_round", wire_bytes=fine_bytes,
+                                         layout=layout, fused_pipeline=False, **arm)
+            compare_arms(f"{name}_per_round", twin, out, name)
+            ragged[f"{name}_per_round"] = twin["ragged_insert_launches"]
+            row.update(per_round_apply_seconds=twin["stage_seconds"]["apply"],
+                       per_round_ops_per_second=twin["ops_per_second"])
         rows[name] = row
         del s
+    if "args" not in replayed:
+        raise AssertionError("fused pipeline: no replayed ragged batch was recorded")
 
     engine = ctx.get("engine_row", {})
     seconds = time.perf_counter() - t_phase
@@ -2244,7 +2369,39 @@ def run_fused_pipeline(device, ctx):
     if seconds > FUSED_PIPE["seconds"]:
         raise AssertionError(f"fused pipeline: phase 5l took {seconds:.2f} s, over "
                              f"{FUSED_PIPE['seconds']} s")
-    return launches
+    return launches, ragged, replayed
+
+
+def _record_ragged_replay(s, capture) -> None:
+    """Record, into ``capture["args"]``, the ragged insert's inputs for the
+    first round of the first batch of ``s`` (a meshless ragged session)
+    that its graph cache replays: the pool planes as the replay finds them
+    (cloned on the stream, in order), the batch's plan planes and its
+    first round's streams and counts, as the graph copies them in."""
+    from peritext_tpu_torch.ops.kernel import PAGED_AUX_FIELDS
+    from peritext_tpu_torch.utils.device import unpack_int32
+    from peritext_tpu_torch.utils.graphs import _binds_signature
+
+    cache = s._graphs
+    run = cache.run
+    num_slots = PAGED_AUX_FIELDS.index("num_slots")
+    overflow = PAGED_AUX_FIELDS.index("overflow")
+
+    def recording(key, form, body, inputs, binds=()):
+        full = (cache.epoch, form, key, tuple((tuple(x.shape), x.dtype) for x in inputs))
+        if "args" not in capture and form == "apply_batch_ragged" and full in cache._graphs \
+                and _binds_signature(binds) == cache._binds:
+            buf, row_idx, *planes = inputs[:7]
+            t = unpack_int32(buf, key[-1])
+            aux = binds[2:]
+            rows = row_idx.long()
+            capture["args"] = [binds[0].clone(), binds[1].clone(), *(p.clone() for p in planes[:5]),
+                               aux[num_slots][rows].clone(), aux[overflow][rows].clone(),
+                               *(t[f"0.{n}"].clone() for n in ("ins_counts", "ins_ref", "ins_op",
+                                                               "ins_char"))]
+            capture["round"] = s.rounds
+        return run(key, form, body, inputs, binds)
+    cache.run = recording
 
 
 def round_need(workloads):
@@ -4067,7 +4224,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     log(f"mesh done at {time.perf_counter() - t_start:.1f} s")
     engine_paths, capture_engine = run_baseline_engine(device, ctx)
     log(f"baseline and engine done at {time.perf_counter() - t_start:.1f} s")
-    fused_paths = run_fused_pipeline(device, ctx)
+    fused_paths, fused_ragged_paths, capture_fused_replay = run_fused_pipeline(device, ctx)
     log(f"fused pipeline done at {time.perf_counter() - t_start:.1f} s")
     sup = dict(workloads=ctx["workloads"], wire=ctx["wire"], digest=ctx["a"]["digest"],
                spans=ctx["a"]["spans"])
@@ -4180,6 +4337,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     with torch.cuda.device(mesh_args[0].device):  # the shard's card
         ragged_rows += check_ragged("mesh_ragged_round", mesh_args)
     del mesh_args
+    ragged_rows += check_ragged("fused_replayed_ragged_round", capture_fused_replay.pop("args"))
     del captures_fused, captures_chaos, captures_plan
     ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
         device, BATCH_8K["slots"],
@@ -4238,6 +4396,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_paths["planes_C_frames_ragged"] = planes_launches["C_frames_ragged"]
     ragged_paths["plan_replay"] = plan_launches["ragged"]
     ragged_paths.update(mesh_ragged_paths)
+    ragged_paths.update(fused_ragged_paths)
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

@@ -231,7 +231,9 @@ def insert_batch(elem_id, char, num_slots, overflow, ins_ref, ins_op, ins_char, 
     a larger window runs the global-memory variant of the same body.
 
     CUDA tensors launch the kernel (or raise): one launch, whose team
-    follows ``s_loop`` (:func:`insert_teams`).  CPU tensors run
+    follows ``s_loop`` (:func:`insert_teams`); every doc has that window,
+    so the launch has no row list and the call copies nothing from the
+    host (a CUDA graph may capture it as it is).  CPU tensors run
     :func:`insert_batch_reference`.  ``insert_batch.launches`` counts the
     kernel's launches.
     """

@@ -39,7 +39,13 @@ from ..obs.devprof import GLOBAL_DEVPROF, note_launch, plan_static
 from .insert import SMEM_BUDGET, num_sms
 from .kernel import PAGED_AUX_FIELDS, _apply_maps, _post_insert
 from .packed import PackedDocs
-from .ragged_insert import ragged_insert, ragged_insert_bytes, ragged_teams
+from .ragged_insert import (
+    RaggedLaunchPlan,
+    ragged_insert,
+    ragged_insert_bytes,
+    ragged_launch_plan,
+    ragged_teams,
+)
 
 _NUM_SLOTS = PAGED_AUX_FIELDS.index("num_slots")
 _OVERFLOW = PAGED_AUX_FIELDS.index("overflow")
@@ -73,7 +79,8 @@ def _ragged_exists(pool_elem, owner, del_target) -> torch.Tensor:
 def apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev_page,
                        page_count, page_table, encoded_arrays, ins_counts, *,
                        page_count_host: Optional[np.ndarray] = None,
-                       ins_counts_host: Optional[np.ndarray] = None) -> None:
+                       ins_counts_host: Optional[np.ndarray] = None,
+                       launch_plan: Optional[RaggedLaunchPlan] = None) -> None:
     """Apply one round's streams directly against the pool's pages.
 
     ``aux`` is the tuple of dense (D, ...) tensors in PAGED_AUX_FIELDS
@@ -85,12 +92,14 @@ def apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev
     ``page_count_host`` the plan's host page counts, which size the insert
     kernel's launches without a read from the card, and ``ins_counts_host``
     the insert counts as host numpy: a profiled call takes its launch plan
-    and bytes from them (without them, those are left unknown).
+    and bytes from them (without them, those are left unknown);
+    ``launch_plan`` the plan's :func:`plan_launch`, built beforehand (the
+    insert phase then copies nothing from the host).
     Updates the pool and aux tensors in place."""
     args = (pool_elem, pool_char, aux, row_idx, owner, pos_base, prev_page, page_count,
             page_table, encoded_arrays, ins_counts)
     if not GLOBAL_DEVPROF.enabled:
-        _apply_batch_ragged(*args, page_count_host)
+        _apply_batch_ragged(*args, page_count_host, launch_plan)
         return
     device = pool_elem.device
     teams = nbytes = None
@@ -100,7 +109,7 @@ def apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev
     note_launch(
         "apply_batch_ragged", args,
         (("plan", None if teams is None else plan_static(teams)),),
-        lambda: _apply_batch_ragged(*args, page_count_host),
+        lambda: _apply_batch_ragged(*args, page_count_host, launch_plan),
         device=device, kernel_launches=None if teams is None else len(teams),
         kernel_bytes=nbytes, written=(pool_elem, pool_char, aux),
     )
@@ -121,7 +130,7 @@ def _ragged_plan(page_count_host: np.ndarray, ins_counts_host: Optional[np.ndarr
 
 def _apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev_page,
                         page_count, page_table, encoded_arrays, ins_counts,
-                        page_count_host) -> None:
+                        page_count_host, launch_plan=None) -> None:
     if len(encoded_arrays) == 6:
         ins_ref, ins_op, ins_char, del_target, marks, mark_count = encoded_arrays
         maps, map_count = None, None
@@ -132,7 +141,7 @@ def _apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, pre
     n1, ov1 = ragged_insert(
         pool_elem, pool_char, owner, pos_base, prev_page, page_count, page_table,
         aux[_NUM_SLOTS][rows], aux[_OVERFLOW][rows], ins_counts,
-        ins_ref, ins_op, ins_char, page_count_host=page_count_host,
+        ins_ref, ins_op, ins_char, page_count_host=page_count_host, launch_plan=launch_plan,
     )
     exists = _ragged_exists(pool_elem, owner, del_target)
     dummy = del_target.new_zeros((rows.shape[0], 1))
@@ -153,6 +162,18 @@ def plan_arrays(plan, device: Union[str, torch.device]):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return (t(plan.row_idx), t(plan.owner), t(plan.pos_base), t(plan.prev_page),
             t(plan.page_count), t(plan.page_table))
+
+
+def plan_launch(plan, page_size: int,
+                device: Union[str, torch.device]) -> Optional[RaggedLaunchPlan]:
+    """The ragged insert's launch plan of a store/ragged.RaggedPlan on the
+    card ``device`` (ops/ragged_insert.ragged_launch_plan), built with the
+    plan's planes and reused by every apply over them; None on the CPU,
+    whose plain pool walk has no launch plan."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return ragged_launch_plan(plan.page_count, page_size, int(plan.page_table.shape[1]), device)
 
 
 def stream_counts(enc, rows: Optional[Sequence[int]] = None):

@@ -26,7 +26,7 @@ capacity is its allocation, ``page_count * P``.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,10 +166,69 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(device, non_blocking=True)
 
 
+class RaggedLaunchPlan(NamedTuple):
+    """The card-side half of :func:`ragged_insert`'s launch plan, built once
+    per ragged plan (:func:`ragged_launch_plan`), never inside a CUDA-graph
+    capture: a capture would keep the address of a pinned staging buffer
+    that the caching host allocator hands out again after it, so a replay
+    could read another batch's bytes."""
+
+    #: one launch per non-empty doc class (:func:`ragged_teams`)
+    launches: Tuple[TeamLaunch, ...]
+    #: per launch, the class's batch rows on the card (int32), or None when
+    #: the class holds every doc
+    rows: Tuple[Optional[torch.Tensor], ...]
+    #: (B,) int64 offset of each doc's device-memory window in the scratch
+    #: planes (its class runs the global-memory variant), or empty
+    offsets: torch.Tensor
+    #: slots of each scratch plane: every global-memory class's docs at the
+    #: class's widest window, a size the launch plan alone sets
+    scratch: int
+
+    @property
+    def num_rows(self) -> int:
+        return sum(t.num_docs for t in self.launches)
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The plan's card tensors, in order (a graph's inputs)."""
+        return tuple(r for r in self.rows if r is not None) + (self.offsets,)
+
+    def with_tensors(self, tensors) -> "RaggedLaunchPlan":
+        """This plan over ``tensors`` (as :meth:`tensors` orders them), e.g.
+        a graph's own copies of them."""
+        it = iter(tensors)
+        rows = tuple(None if r is None else next(it) for r in self.rows)
+        return self._replace(rows=rows, offsets=next(it))
+
+
+def ragged_launch_plan(page_count_host: np.ndarray, page_size: int, gmax: int,
+                       device: torch.device,
+                       smem_budget: int = SMEM_BUDGET) -> RaggedLaunchPlan:
+    """:func:`ragged_insert`'s launch plan on the card ``device`` from the
+    plan's host page counts: the doc classes, each class's rows and the
+    scratch offsets, uploaded now (the only host-to-device copies of the
+    insert phase)."""
+    device = torch.device(device)
+    windows = ragged_windows(page_count_host, page_size, gmax)
+    launches = tuple(plan_teams(windows, smem_budget, num_sms(device)))
+    slots = np.zeros(len(windows), np.int64)
+    for launch in launches:
+        if not launch.shared:
+            rows = slice(None) if launch.rows is None else launch.rows
+            slots[rows] = windows[rows]
+    scratch = sum(t.num_docs * t.window for t in launches if not t.shared)
+    offsets = (_upload(np.cumsum(slots) - slots, device) if scratch
+               else torch.empty(0, dtype=torch.int64, device=device))
+    rows = tuple(None if t.rows is None else _upload(t.rows, device) for t in launches)
+    return RaggedLaunchPlan(launches, rows, offsets, int(scratch))
+
+
 def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, page_table,
                   num_slots, overflow, ins_counts, ins_ref, ins_op, ins_char, *,
                   smem_budget: int = SMEM_BUDGET,
-                  page_count_host: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  page_count_host: Optional[np.ndarray] = None,
+                  launch_plan: Optional[RaggedLaunchPlan] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply every batch doc's first ``ins_counts`` inserts to its pages of
     the pool, in place; returns the new ``(num_slots, overflow)``.
 
@@ -183,7 +242,11 @@ def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, 
     ``page_count`` as host numpy (the plan's ``RaggedPlan.page_count``; it
     must hold the same values), which sizes the launches: given, the call
     reads nothing back from the card; omitted, the wrapper copies
-    ``page_count`` to the host first.
+    ``page_count`` to the host first.  ``launch_plan`` (a card call only)
+    is the plan's :func:`ragged_launch_plan`, built beforehand: given, the
+    call copies nothing from the host (the form a CUDA graph captures) and
+    ``page_count_host`` and ``smem_budget`` are not read; omitted, the
+    wrapper builds it.
 
     CUDA tensors launch the kernel once per non-empty doc class (or raise);
     CPU tensors run :func:`ragged_insert_reference`.
@@ -204,27 +267,23 @@ def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, 
     ov_out = torch.empty_like(overflow)
     if b == 0:
         return n_out, ov_out
-    if page_count_host is None:
-        page_count_host = page_count.cpu().numpy()
-    windows = ragged_windows(page_count_host, p, gmax)
-    if windows.shape != (b,):
-        raise ValueError(f"page_count_host must have shape ({b},), got {windows.shape}")
-    launches = plan_teams(windows, smem_budget, num_sms(device))
+    if launch_plan is None:
+        if page_count_host is None:
+            page_count_host = page_count.cpu().numpy()
+        if np.shape(page_count_host) != (b,):
+            raise ValueError(f"page_count_host must have shape ({b},), "
+                             f"got {np.shape(page_count_host)}")
+        launch_plan = ragged_launch_plan(page_count_host, p, gmax, device, smem_budget)
+    elif launch_plan.num_rows != b:
+        raise ValueError(f"the launch plan covers {launch_plan.num_rows} docs, the batch {b}")
     # device-memory windows, one per doc of a class that runs that variant,
-    # at offsets from a host prefix sum
-    slots = np.zeros(b, np.int64)
-    for launch in launches:
-        if not launch.shared:
-            rows = slice(None) if launch.rows is None else launch.rows
-            slots[rows] = windows[rows]
-    total = int(slots.sum())
-    offsets = _upload(np.cumsum(slots) - slots, device) if total else pool_elem.new_empty(0)
-    scratch_elem = torch.empty(total, dtype=torch.int32, device=device)
-    scratch_char = torch.empty(total, dtype=torch.int32, device=device)
+    # at the plan's offsets
+    scratch_elem = torch.empty(launch_plan.scratch, dtype=torch.int32, device=device)
+    scratch_char = torch.empty(launch_plan.scratch, dtype=torch.int32, device=device)
     lib = _library()
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
-    for launch in launches:
-        rows = None if launch.rows is None else _upload(launch.rows, device)
+    offsets = launch_plan.offsets if launch_plan.scratch else None
+    for launch, rows in zip(launch_plan.launches, launch_plan.rows):
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.peritext_ragged_insert(

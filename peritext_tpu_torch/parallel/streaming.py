@@ -53,15 +53,20 @@ Design, as in the reference package's session:
 
 * **Mesh** — ``mesh=`` (parallel/mesh.Mesh) shards the doc axis: it pads
   to a multiple of the shard count, and each shard's rows are one block on
-  the shard's device.  A committed round launches the insert kernel once
-  per touched shard, on that shard's device; reads resolve and digests
-  hash per shard, and the digest sums the shards' uint32 partial sums on
-  the host.  :meth:`StreamingMerge.reshard` balances over the shards and
-  copies rows between their devices.
+  the shard's device.  A drain batch commits through the fused pipeline's
+  ``mesh_stacked`` form: every shard stages its rows of every round in one
+  buffer, uploaded once through its own copy lane, and runs the batch as
+  one site call on its device, through its own graph cache (one
+  CUDA-graph replay per shard once the signature repeats), launching the
+  insert kernel once a round.  Reads resolve and digests hash per shard,
+  and the digest sums the shards' uint32 partial sums on the host.
+  :meth:`StreamingMerge.reshard` balances over the shards and copies rows
+  between their devices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from dataclasses import dataclass, field
@@ -109,7 +114,7 @@ from ..ops.packed import VK_DELETED, VK_STR, PackedDocs, empty_docs
 from ..ops.resolve import COMMENT_TYPE, LINK_TYPE, ResolvedDocs, resolve
 from ..schema import MARK_INDEX
 from ..utils.device import pack_int32, resolve_device, unpack_int32, upload_int32
-from ..utils.graphs import GraphCache
+from ..utils.graphs import GraphCache, GraphPool, idle_caches
 from ..utils.interning import Interner, OrderedActorTable
 from ..utils.shapes import next_pow2
 from .causal import causal_schedule
@@ -339,6 +344,16 @@ def _write_resident(resident: Sequence[torch.Tensor], new: Sequence[torch.Tensor
             dst.copy_(src)
 
 
+def _pad_cols(a: np.ndarray, width: Optional[int]) -> np.ndarray:
+    """``a`` zero-padded on its second axis to ``width`` (None, or a plane
+    already that wide: ``a`` itself)."""
+    if width is None or a.shape[1] == width:
+        return a
+    out = np.zeros((a.shape[0], width) + a.shape[2:], a.dtype)
+    out[:, : a.shape[1]] = a
+    return out
+
+
 def _width_bucket(n: int) -> int:
     """Power-of-two width, at least 8: stream paddings, table widths and the
     insert kernel's slot window follow the reference package's buckets."""
@@ -453,12 +468,6 @@ class StreamingMerge:
     #: max rounds drain() schedules before committing them; bounds the host
     #: memory of a batch's staging buffers
     FUSE_MAX_ROUNDS = 8
-
-    #: whether a fused-eligible drain counts ``streaming.fused_dispatches``,
-    #: one per scheduled batch: the reference counts the padded layout's
-    #: batch program only (its paged and ragged commits count none), and
-    #: FusedMuxGroup.dispatches reads deltas of the counter
-    _COUNTS_FUSED_DISPATCHES = True
 
     def __init__(
         self,
@@ -575,11 +584,19 @@ class StreamingMerge:
         # skip them until then (a port-only shortcut; no result changes)
         self._object_waiting: set = set()
         #: the fused pipeline's staging lane (built by the first pipelined
-        #: drain), its uploads, and the session's captured commit graphs
+        #: drain), its uploads, and the session's captured commit graphs;
+        #: under a mesh one copy lane and one graph cache per shard (the
+        #: first shard's are ``_copy_lane`` and ``_graphs``), the caches of
+        #: the shards on one card capturing into one shared pool
         self._stager: Optional[FrameStager] = None
-        self._copy_lane = CopyLane(self.device)
-        self._graphs = GraphCache(self.device)
-        self._row_mask_dev = None
+        devices = mesh.devices if mesh is not None else (self.device,)
+        pools: Dict = {}
+        self._shard_lanes = [CopyLane(d) for d in devices]
+        self._shard_graphs = [GraphCache(d, pool=pools.setdefault(d, GraphPool()))
+                              for d in devices]
+        self._copy_lane, self._graphs = self._shard_lanes[0], self._shard_graphs[0]
+        #: per block, the fallback mask on its device and the mask's bytes
+        self._row_mask_dev: Dict[int, tuple] = {}
         # engine capture (the reference's hook, see _capture_rounds): None,
         # or the list each committed round's device-ready inputs append to
         self._captured: Optional[list] = None
@@ -1205,16 +1222,17 @@ class StreamingMerge:
 
     # -- committing rounds -----------------------------------------------------
     #
-    # A one-block session (padded or paged, meshless) commits through the
-    # fused round pipeline, as the reference's default drain does: a batch
-    # of up to FUSE_MAX_ROUNDS rounds is prepared on this thread, flattened
-    # and uploaded as ONE contiguous int32 buffer on the staging lane
-    # (parallel/staging.py), and applied as ONE site call of a multi-round
-    # form (ops/kernel.py), which on the card is one CUDA-graph replay
-    # (utils/graphs.py) that updates the resident state in place.  Mesh,
-    # block-chunked, ragged and engine-capture sessions, and
-    # ``fused_pipeline=False`` (the per-round oracle), commit each round on
-    # its own: one upload and one apply_batch_compact per touched block.
+    # A one-block session of any layout, and every mesh session, commits
+    # through the fused round pipeline, as the reference's default drain
+    # does: a batch of up to FUSE_MAX_ROUNDS rounds is prepared on this
+    # thread, flattened and uploaded as ONE contiguous int32 buffer (one per
+    # shard under a mesh) on the staging lane (parallel/staging.py), and
+    # applied as ONE site call of a multi-round form (ops/kernel.py,
+    # store/session.py) per shard, which on the card is one CUDA-graph
+    # replay (utils/graphs.py) that updates the resident state in place.
+    # Block-chunked and engine-capture sessions, and ``fused_pipeline=False``
+    # (the per-round oracle), commit each round on its own: one upload and
+    # one apply per touched block.
 
     @property
     def _capture_rounds(self) -> Optional[list]:
@@ -1243,15 +1261,16 @@ class StreamingMerge:
         compat switch is on, no engine capture is armed (capture records
         per-ROUND inputs, the replay's contract), and the session is one
         block, or a mesh (whose blocks are its shards, as the reference's
-        mesh sessions always qualify).  A mesh still commits per shard and
-        round (:meth:`_pipelined`), counted and labelled as fused."""
+        mesh sessions always qualify), in any layout."""
         return self.fused_pipeline and self._captured is None and self._one_block()
 
     def _pipelined(self) -> bool:
-        """Whether commits take the fused forms and the pipelined drain: a
-        fused-eligible meshless session of the padded or paged layout (the
-        ragged and mesh forms are not ported)."""
-        return self._fused_eligible() and self.mesh is None and self._layout != "ragged"
+        """Whether commits take the fused forms and :meth:`drain` the
+        pipelined drain: every fused-eligible session, each layout with its
+        own forms (padded ``flat`` / ``stacked`` / ``stacked_multi`` /
+        ``mesh_stacked``, ``paged`` / ``mesh_paged``, ``ragged`` /
+        ``mesh_ragged``), as the reference's drain."""
+        return self._fused_eligible()
 
     def _one_block(self) -> bool:
         """A one-block session, or a mesh (whose blocks are shards of what
@@ -1268,7 +1287,8 @@ class StreamingMerge:
     def _commit_rounds(self, batch) -> None:
         """The DEVICE half: commit scheduled rounds ``[(enc, widths), ...]``
         in causal order: as ONE fused form when :meth:`_pipelined` (prep,
-        stage and dispatch on this thread), else one round at a time."""
+        stage and dispatch on this thread), else one round at a time
+        (:meth:`_commit_rounds_serial`)."""
         if self._pipelined():
             statics = self._prep_fused_batch(batch)
             self._dispatch_fused_batch(batch, statics, self._stage_fused_batch(batch, statics))
@@ -1276,8 +1296,9 @@ class StreamingMerge:
         self._commit_rounds_serial(batch)
 
     def _commit_rounds_serial(self, batch) -> None:
-        """The per-round discipline (the ``fused_pipeline=False`` oracle):
-        each round one upload and one apply per touched block."""
+        """The per-round discipline (the ``fused_pipeline=False`` oracle,
+        block-chunked and engine-capture sessions): each round one upload
+        and one apply per touched block (shard)."""
         for enc, widths in batch:
             self._cum_ins += enc.ins_count
             self._apply_compact(enc, widths, self._loop_slots())
@@ -1406,22 +1427,31 @@ class StreamingMerge:
     #
     # Split into prep (this thread: advances _cum_ins, derives the form and
     # its statics), stage (worker-safe: pure reads of the batch's own
-    # staging buffers, one packed int32 buffer, one upload) and dispatch
-    # (this thread: one site call of the form, then the round bookkeeping),
-    # so the pipelined drain can overlap them.
+    # staging buffers, one packed int32 buffer and one upload per device
+    # that runs the batch) and dispatch (this thread: one site call of the
+    # form, one per shard under a mesh, then the round bookkeeping), so the
+    # pipelined drain can overlap them.
 
     def _prep_fused_batch(self, batch):
         """The statics of one batch's commit, tagged with its form: ``flat``
         (staged flat streams, shared per-kind buckets), ``stacked`` (static
         rounds: the padded planes at the session's fixed widths, stacked),
         ``stacked_multi`` (static rounds under ``fusion_rows``: only the
-        active tenants' row blocks, ``T`` power-of-two bucketed), or, for a
-        one-round batch on the CPU, ``compact1`` / ``static1`` (the
-        per-round discipline's own apply).  The reference's tuples."""
+        active tenants' row blocks, ``T`` power-of-two bucketed),
+        ``mesh_stacked`` (a mesh: every round's padded planes at the batch's
+        widest width per stream kind, stacked; ``fusion_rows`` is ignored,
+        as in the reference), or, for a one-round batch on the CPU,
+        ``compact1`` / ``static1`` (the per-round discipline's own apply).
+        The reference's tuples."""
         loop_seq = []
         for enc, _ in batch:
             self._cum_ins += enc.ins_count
             loop_seq.append(self._loop_slots())
+        if self.mesh is not None:
+            widths = tuple(max(plane(enc).shape[1] for enc, _ in batch) for plane in (
+                lambda e: e.ins_ref, lambda e: e.del_target,
+                lambda e: e.marks[MARK_COLS[0]], lambda e: e.map_ops[MAP_STREAM_COLS[0]]))
+            return ("mesh_stacked", tuple(loop_seq), widths)
         donate = resolve_state_donation(self.state.elem_id)
         if self.static_rounds:
             if self.fusion_rows is not None:
@@ -1441,11 +1471,15 @@ class StreamingMerge:
 
     def _stage_fused_batch(self, batch, statics):
         """Flatten the batch into ONE int32 buffer and upload it: returns
-        ``(StagedUpload, layout)``.  Reads only the batch's own staging
+        ``(StagedUpload, layout)``, or under a mesh ``[(shard, StagedUpload,
+        layout), ...]``, one buffer of the shard's rows per shard, each
+        through the shard's copy lane.  Reads only the batch's own staging
         buffers, never session state, so the pipelined drain runs it on the
         staging lane while this thread schedules the next batch."""
         form = statics[0]
         d = self._padded_docs
+        if form == "mesh_stacked":
+            return self._stage_mesh_stacked(batch, statics[2])
         if form == "compact1":
             arrays = self._compact_named(self._flatten_round(batch[0][0], statics[2], 0, d), None)
         elif form == "static1":
@@ -1491,14 +1525,43 @@ class StreamingMerge:
         flat, layout = pack_int32(arrays)
         return self._copy_lane.upload(flat), layout
 
+    def _stage_mesh_stacked(self, batch, widths):
+        """The ``mesh_stacked`` staging: per shard, its rows of every
+        round's padded planes, zero-padded to the batch's widest width per
+        stream kind (zero op ids are no-op slots), stacked on a round axis
+        in one buffer and uploaded through the shard's copy lane."""
+        ki, kd, km, kp = widths
+        per_round = [_padded_named(enc) for enc, _ in batch]
+
+        def width(name):
+            if name in ("ins_ref", "ins_op", "ins_char"):
+                return ki
+            if name == "del":
+                return kd
+            return km if name.startswith("mark.") else kp if name.startswith("map.") else None
+
+        out = []
+        for shard in range(self.mesh.size):
+            lo, hi = self._block_bounds(shard)
+            arrays = {name: np.stack([_pad_cols(r[name][lo:hi], width(name)) for r in per_round])
+                      for name in per_round[0]}
+            flat, layout = pack_int32(arrays)
+            out.append((shard, self._shard_lanes[shard].upload(flat), layout))
+        return out
+
     def _dispatch_fused_batch(self, batch, statics, inputs, chain_digest: bool = False) -> bool:
-        """Apply the whole batch as ONE site call of its form, then the
-        per-round bookkeeping.  With ``chain_digest`` (the drain's FINAL
-        batch, digest prefetch armed) the multi-round forms chain the
-        block's resolve and digest into the same call and seed the block
-        cache with them; returns True when that happened."""
+        """Apply the whole batch as ONE site call of its form (one per shard
+        under a mesh), then the per-round bookkeeping.  With
+        ``chain_digest`` (the drain's FINAL batch, digest prefetch armed)
+        the multi-round forms chain the block's (each shard's) resolve and
+        digest into the same call and seed the block cache with them;
+        returns True when that happened."""
         GLOBAL_COUNTERS.add("streaming.fused_dispatches")
         form = statics[0]
+        if form == "mesh_stacked":
+            if GLOBAL_DEVPROF.enabled:
+                GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())
+            return self._dispatch_mesh_stacked(batch, statics, inputs, chain_digest)
         if chain_digest and form in ("stacked", "flat"):
             self._dispatch_fused_batch_digest(batch, statics, inputs)
             return True
@@ -1515,14 +1578,15 @@ class StreamingMerge:
         self._fused_bookkeeping(batch)
         return False
 
-    def _fused_bookkeeping(self, batch) -> None:
+    def _fused_bookkeeping(self, batch, launches: int = 1) -> None:
         """A committed batch's rounds: dirty digest rows, the round count,
-        one insert launch a round (``streaming.block_applies``)."""
+        ``launches`` insert launches a round (``streaming.block_applies``:
+        one, or one per shard under a mesh)."""
         for enc, _ in batch:
             self._digest_row_valid[np.nonzero(enc.num_ops)[0]] = False
             self.rounds += 1
             GLOBAL_COUNTERS.add("streaming.rounds")
-            GLOBAL_COUNTERS.add("streaming.block_applies")
+            GLOBAL_COUNTERS.add("streaming.block_applies", launches)
 
     def _dispatch_fused_batch_digest(self, batch, statics, inputs) -> None:
         """The ``chain_digest`` arm of :meth:`_dispatch_fused_batch`: the
@@ -1540,22 +1604,59 @@ class StreamingMerge:
         self._start_digest_readback(entry)
         GLOBAL_COUNTERS.add("streaming.digest_chained")
 
-    def _row_mask(self, on_device: np.ndarray) -> torch.Tensor:
-        """The fallback mask on the card, uploaded again only when it
-        changed."""
-        key = on_device.tobytes()
-        if self._row_mask_dev is None or self._row_mask_dev[0] != key:
-            self._row_mask_dev = (key, torch.from_numpy(on_device).to(self.device))
-        return self._row_mask_dev[1]
+    def _dispatch_mesh_stacked(self, batch, statics, inputs, chain_digest: bool) -> bool:
+        """The ``mesh_stacked`` form: each shard's stacked rounds as one
+        site call over its own state, on its device, through its graph
+        cache (one insert launch a round and shard).  With
+        ``chain_digest`` each shard's resolve and per-doc digest run in the
+        same call and seed its block of the cache; ``digest()`` then sums
+        the shards' masked partial sums on the host, as after a separate
+        prefetch.  Returns ``chain_digest``."""
+        entries = {}
+        for shard, upload, layout in inputs:
+            with self._on_device(shard):
+                buf = upload.consume()
+                if not chain_digest:
+                    self._run_form(statics, buf, layout, shard=shard)
+                    continue
+                on_device = self._block_fallback_mask(shard)
+                resolved, digest_dev = self._run_form(
+                    statics, buf, layout, shard=shard,
+                    digest=(self._row_mask(on_device, shard),
+                            self._digest_tables(*self._block_bounds(shard))))
+                entries[shard] = _BlockResolution(resolved, digest_dev, on_device)
+        self._fused_bookkeeping(batch, launches=self.mesh.size)
+        if chain_digest:
+            self._resolved_cache = (self.rounds, entries)
+            for entry in entries.values():
+                self._start_digest_readback(entry)
+            GLOBAL_COUNTERS.add("streaming.digest_chained")
+        return chain_digest
 
-    def _run_form(self, statics, buf: torch.Tensor, layout, digest=None):
-        """One multi-round form over the resident state: its chain of
-        per-round applies, ending with the result copied into the resident
-        buffers, run by the session's graph cache (eagerly on the CPU and
-        on a signature's first occurrence, else one CUDA-graph replay) under
-        the form's reference site name.  With ``digest`` = ``(row_mask,
-        tables)`` the chain ends with the block's resolve and per-doc digest
-        and returns them."""
+    def _on_device(self, shard: int):
+        """The shard's card as the current device (nothing on the CPU)."""
+        dev = self._block_device(shard)
+        return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+    def _row_mask(self, on_device: np.ndarray, block: int = 0) -> torch.Tensor:
+        """A block's fallback mask on its device, uploaded again only when
+        it changed."""
+        key = on_device.tobytes()
+        hit = self._row_mask_dev.get(block)
+        if hit is None or hit[0] != key:
+            hit = (key, torch.from_numpy(on_device).to(self._block_device(block)))
+            self._row_mask_dev[block] = hit
+        return hit[1]
+
+    def _run_form(self, statics, buf: torch.Tensor, layout, digest=None,
+                  shard: Optional[int] = None):
+        """One multi-round form over the resident state (a mesh shard's,
+        given ``shard``): its chain of per-round applies, ending with the
+        result copied into the resident buffers, run by the session's (the
+        shard's) graph cache (eagerly on the CPU and on a signature's first
+        occurrence, else one CUDA-graph replay) under the form's reference
+        site name.  With ``digest`` = ``(row_mask, tables)`` the chain ends
+        with the block's resolve and per-doc digest and returns them."""
         form = statics[0]
         shapes = dict(layout)
         loop_seq = statics[1]
@@ -1566,8 +1667,9 @@ class StreamingMerge:
             def chain(state, b):
                 return _staged_rounds_chain(state, *_staged_args(unpack_int32(b, layout)),
                                             widths_seq, loop_seq, *lens)
-        elif form == "stacked":
-            site, ks = "apply_batch_stacked_rounds", [shapes["ins_ref"][-1]] * len(loop_seq)
+        elif form in ("stacked", "mesh_stacked"):
+            site = "apply_batch_stacked_rounds" + (".mesh" if form == "mesh_stacked" else "")
+            ks = [shapes["ins_ref"][-1]] * len(loop_seq)
 
             def chain(state, b):
                 return _stacked_rounds_chain(state, _padded_args(unpack_int32(b, layout)),
@@ -1578,14 +1680,17 @@ class StreamingMerge:
             def chain(state, b):
                 t = unpack_int32(b, layout)
                 return _stacked_multi_chain(state, _padded_args(t), t["row_base"], loop_seq)
-        state = self.state
+        if shard is None:
+            state, graphs = self.state, self._graphs
+        else:
+            state, graphs = self._shard_state[shard], self._shard_graphs[shard]
         resident = tuple(state)
         if digest is None:
             def body(b):
                 _write_resident(resident, chain(PackedDocs(*resident), b))
             inputs = (buf,)
         else:
-            site = {"flat": "_fused_rounds_digest", "stacked": "_stacked_rounds_digest"}[form]
+            site = "_fused_rounds_digest" if form == "flat" else "_stacked_rounds_digest"
             row_mask, tables = digest
             cc = self.comment_capacity
 
@@ -1596,7 +1701,7 @@ class StreamingMerge:
             inputs = (buf, row_mask) + tuple(tables)
         return note_form(
             site, (state, buf),
-            lambda: self._graphs.run(statics + (layout,), site, body, inputs, binds=resident),
+            lambda: graphs.run(statics + (layout,), site, body, inputs, binds=resident),
             lambda: rounds_plan(state, ks, loop_seq, (("statics", statics[1:]),)),
             device=state.elem_id.device)
 
@@ -1623,10 +1728,11 @@ class StreamingMerge:
         return chained
 
     def _prefetch_digest(self) -> None:
-        """Compute the (single) block's resolution and digest now, with the
-        host copy of its digest planes started, so the next digest() or
-        read finds them ready."""
-        self._start_digest_readback(self._digest_resolution(0))
+        """Compute every block's (the one block's, or each shard's)
+        resolution and digest now, with the host copy of its digest planes
+        started, so the next digest() or read finds them ready."""
+        for block in range(self._n_blocks()):
+            self._start_digest_readback(self._digest_resolution(block))
 
     @staticmethod
     def _start_digest_readback(entry: "_BlockResolution") -> None:
@@ -1638,23 +1744,26 @@ class StreamingMerge:
 
     def idle(self, budget_s: float) -> int:
         """The caller commits nothing for ``budget_s`` seconds (a serving
-        mux's open window): the session's graph cache captures the repeated
+        mux's open window): the session's graph caches (each shard's under
+        a mesh, in turn, within the one wait) capture the repeated
         signatures whose capture fits, so no capture lands on a commit
         (``utils/graphs.py``).  Returns the graphs captured."""
-        return self._graphs.idle(budget_s)
+        return idle_caches([self._graphs] if self.mesh is None else self._shard_graphs,
+                           budget_s)
 
     def drain(self, max_rounds: int = 1_000) -> int:
         """Drain all admissible pending work; returns rounds run.
 
         Scheduling is host-only (causal clocks): drain schedules a batch of
         up to :attr:`FUSE_MAX_ROUNDS` rounds, then commits it.  A
-        :meth:`_pipelined` session runs the PIPELINED form: batch k is
-        flattened and uploaded on the staging lane's worker while batch k+1
-        schedules on this thread and batch k-1 runs on the device.  With
-        :attr:`prefetch_digest` armed, the drain ends with the block's
-        resolution and digest computed (chained into the final batch's
-        form where it is a multi-round one), so the next digest() or read
-        finds them cached.  Byte-equal to the per-round discipline."""
+        :meth:`_pipelined` session (one block or a mesh, in any layout) runs
+        the PIPELINED form: batch k is flattened and uploaded on the
+        staging lane's worker while batch k+1 schedules on this thread and
+        batch k-1 runs on the device.  With :attr:`prefetch_digest` armed,
+        the drain ends with every block's resolution and digest computed
+        (chained into the final batch's form where it is a padded
+        multi-round one), so the next digest() or read finds them cached.
+        Byte-equal to the per-round discipline."""
         self.last_drain_marks = {"schedule_seconds": 0.0, "apply_seconds": 0.0, "rounds": 0}
         if not self._pipelined():
             return self._drain_serial(max_rounds)
@@ -1678,35 +1787,25 @@ class StreamingMerge:
             pending = (handle, batch, statics, scheduled_total, ssp)
             rounds += len(batch)
         if committed and self.prefetch_digest and not chained:
-            # the single-round forms and the paged layout keep the
+            # the single-round forms and the page-pool layouts keep the
             # separate resolve
             self._prefetch_digest()
         self._sweep_decode_quarantine()
         return rounds
 
     def _drain_serial(self, max_rounds: int) -> int:
-        """Unpipelined drain (mesh, block-chunked, ragged and engine-capture
-        sessions, and ``fused_pipeline=False``): schedule, then commit, per
-        batch.  A mesh drain counts as fused (one batch, one
-        ``streaming.fused_dispatches``) and ends with the digest prefetch
-        when armed, as the reference's mesh drain."""
-        fused = self._fused_eligible()
+        """Unpipelined drain (block-chunked and engine-capture sessions, and
+        ``fused_pipeline=False``): schedule, then commit round by round
+        (:meth:`_commit_rounds_serial`), per batch."""
         rounds = 0
         while rounds < max_rounds:
             batch, scheduled_total, ssp = self._schedule_batch(rounds, max_rounds)
             if not batch:
                 break
             with self.tracer.span("streaming.apply", rounds=len(batch)) as asp:
-                self._commit_rounds(batch)
-            if fused and (self._COUNTS_FUSED_DISPATCHES or self.mesh is not None):
-                GLOBAL_COUNTERS.add("streaming.fused_dispatches")
-            self._emit_round_stats(batch, scheduled_total, ssp.duration, asp.duration,
-                                   origin="streaming.fused" if fused else "streaming.round")
+                self._commit_rounds_serial(batch)
+            self._emit_round_stats(batch, scheduled_total, ssp.duration, asp.duration)
             rounds += len(batch)
-        if rounds and fused and self.prefetch_digest:
-            for bi in range(self._n_blocks()):
-                self._digest_resolution(bi)
-            GLOBAL_COUNTERS.add("streaming.digest_chained")
         self._sweep_decode_quarantine()
         return rounds
 
@@ -1809,7 +1908,9 @@ class StreamingMerge:
             resolved, digest_dev = self._block_resolve_digest(
                 block_index, torch.from_numpy(on_device).to(self._block_device(block_index)))
         entry = _BlockResolution(resolved, digest_dev, on_device)
-        if len(cache) >= 2:  # bound device memory at large scale
+        # bound device memory at large scale: two blocks, or every shard of
+        # a mesh (each on its own device, all seeded by a chained digest)
+        if len(cache) >= max(2, self.mesh.size if self.mesh is not None else 0):
             cache.pop(next(iter(cache)))  # least-recently-used
         cache[block_index] = entry
         return entry

@@ -28,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..ops.ragged import plan_arrays
+from ..ops.ragged import plan_arrays, plan_launch
 
 
 @dataclass(frozen=True)
@@ -98,24 +98,29 @@ def ragged_plan(store, rows: Optional[Sequence[int]] = None) -> RaggedPlan:
 
 
 class PlanCache:
-    """The ragged plan of every row of a store, with its planes on the
-    store's device, rebuilt only when the allocator state it snapshots
-    changed: keyed on ``(store.alloc_epoch, pool pages)``, which every
-    allocation, evacuation, compaction, row permutation and pool growth
-    moves."""
+    """The ragged plan of every row of a store, with its planes and the
+    ragged insert's launch plan (ops/ragged.plan_launch; None on the CPU)
+    on the store's device, rebuilt only when the allocator state it
+    snapshots changed: keyed on ``(store.alloc_epoch, pool pages)``, which
+    every allocation, evacuation, compaction, row permutation and pool
+    growth moves."""
 
     def __init__(self) -> None:
         self.key: Optional[Tuple[int, int]] = None
         self._value = None
+        #: the launch plan of the cached plan
+        self.launch = None
         #: plans built so far
         self.builds = 0
 
     def get(self, store) -> Tuple[RaggedPlan, tuple]:
-        """``(plan, plan_arrays(plan))`` for the store's current state."""
+        """``(plan, plan_arrays(plan))`` for the store's current state
+        (:attr:`launch` then holds its launch plan)."""
         key = (store.alloc_epoch, int(store.pool_elem.shape[0]))
         if key != self.key:
             plan = ragged_plan(store)
             self._value = (plan, plan_arrays(plan, store.device))
+            self.launch = plan_launch(plan, store.page_size, store.device)
             self.key = key
             self.builds += 1
         return self._value

@@ -15,13 +15,23 @@ document state lives and what each round launches:
   group) as ONE ``apply_batch_paged_groups`` site call over the pool, in
   place, from one staged buffer (on the card one CUDA-graph replay once
   the batch's signature repeats; pool growth starts a new graph epoch);
-  a mesh session, or ``fused_pipeline=False``, one call per round.
-* **Ragged commit** — per round (the fused ragged form is not ported),
-  one ops/ragged.apply_batch_ragged over all D rows straight against the
-  pool, at the session's fixed round widths: one ragged insert launch per
-  non-empty doc class of the round's plan, counted by
-  ``streaming.ragged_applies``.  The plan is rebuilt only
-  when the allocator state changed (store/ragged.PlanCache).
+  ``fused_pipeline=False`` or a block-chunked session, one call per
+  round.
+* **Ragged commit** — one ops/ragged.apply_batch_ragged per round over
+  all D rows straight against the pool, at the session's fixed round
+  widths: one ragged insert launch per non-empty doc class of the plan,
+  counted by ``streaming.ragged_applies``.  The plan, its planes and the
+  ragged insert's launch plan (ops/ragged.plan_launch, its card arrays
+  uploaded once) are rebuilt only when the allocator state changed
+  (store/ragged.PlanCache).  A one-block session commits a drain batch
+  as ONE ``apply_batch_ragged`` site call: prep gives every round's rows
+  their pages, in round order; one staged buffer holds every round's
+  streams and insert counts; the call runs the batch's rounds over the
+  plan as it stands after prep (on the card one CUDA-graph replay once
+  the batch's depth, K3 team plan and buffer layout repeat; the plan's
+  planes and the launch plan's arrays are the graph's inputs, so a new
+  allocation keeps the graphs and only pool growth starts a new epoch).
+  ``fused_pipeline=False`` or a block-chunked session, one call a round.
 * **Reads and digests** — blocks materialize from the pool at the block's
   page-bucketed width W.  The padded per-doc text hash includes one pad
   term per non-visible slot of the full width S, so every digest program
@@ -33,11 +43,17 @@ document state lives and what each round launches:
   that change shard move between the shards' pools).
 * **Mesh** — under ``mesh=`` the pool is a store/sharded.
   ShardedPagedDocStore: one pool and aux block per shard, on its device.
-  A paged round plans its page groups per shard and launches the insert
-  kernel once per (round, shard, group); a ragged round launches the
-  ragged insert kernel once per (round, touched shard, non-empty doc
-  class), over that shard's plan (cached per allocation epoch and shard
-  pool size).  Read blocks are the shards.
+  A paged round plans its page groups per shard, every shard at the
+  group's largest shard row count, and launches the insert kernel once
+  per (round, shard, group); a ragged round launches the ragged insert
+  kernel once per (round, non-empty doc class) of each shard it runs on,
+  over that shard's plan (cached per allocation epoch and shard pool
+  size).  A drain batch commits per shard as one site call through the
+  shard's graph cache (``apply_batch_paged_groups.mesh`` on every shard
+  when the batch has a group; ``apply_batch_ragged.mesh`` on each shard
+  that holds an op anywhere in the batch), from one staged buffer per
+  shard, counted as one ``streaming.fused_dispatches``.  Read blocks are
+  the shards.
 """
 
 from __future__ import annotations
@@ -58,8 +74,8 @@ from ..ops.kernel import (
     resolve_state_donation,
 )
 from ..ops.packed import PackedDocs
-from ..ops.ragged import apply_batch_ragged, plan_arrays
-from ..ops.ragged_insert import ragged_teams
+from ..ops.ragged import _apply_batch_ragged, apply_batch_ragged, plan_arrays, plan_launch
+from ..ops.ragged_insert import ragged_insert_bytes, ragged_teams
 from ..ops.resolve import resolve
 from ..parallel.mesh import M32, _PAD_SEED, _av_host, per_doc_text_digest
 from ..parallel.streaming import (
@@ -101,7 +117,6 @@ class PagedStreamingMerge(StreamingMerge):
     padded layout; under ``mesh=`` the pool shards (module doc)."""
 
     _layout = "paged"
-    _COUNTS_FUSED_DISPATCHES = False
 
     def __init__(self, num_docs, actors, *args, layout: str = "paged",
                  page_size: int = DEFAULT_PAGE_SIZE, pool_pages: Optional[int] = None,
@@ -219,14 +234,19 @@ class PagedStreamingMerge(StreamingMerge):
             if self.mesh is not None:
                 GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())
 
-    # -- the fused form: every (round, group) of a batch in one site call ------
+    # -- the fused forms: every (round, group) of a batch in one site call -----
 
     def _prep_fused_batch(self, batch):
         """Advance the cumulative inserts, give each round's touched rows
         their pages and plan that round's page groups, each group's page
         table snapshot taken now: everything that reads or mutates the
-        allocator happens here, in round order (the reference's
-        ``("paged", plans)``)."""
+        allocator happens here, in round order: the reference's
+        ``("paged", plans)``, each group ``(rows, b, row_idx, table)``.
+        Under a mesh each group is planned per shard, every shard at the
+        group's largest shard row count (:meth:`_page_groups`): the
+        reference's ``("mesh_paged", plans)``, each group ``(rows by shard,
+        bucket pages, b, row_idx (n, b), table (n, b, bucket pages))`` with
+        local row ids and local pages."""
         store = self._store
         plans = []
         for enc, widths in batch:
@@ -235,54 +255,88 @@ class PagedStreamingMerge(StreamingMerge):
             plan = []
             if len(rows):
                 store.ensure_rows(rows, self._cum_ins[rows])
-                for g, b, ((_, g_rows),) in self._page_groups(rows):
-                    row_idx, table = store.group_plan(g_rows, g, pad_rows_to=b)
-                    plan.append((g_rows, b, row_idx, table))
+                for g, b, per_shard in self._page_groups(rows):
+                    planned = [(s_rows, *store.group_plan(s_rows, g, pad_rows_to=b))
+                               for _, s_rows in per_shard]
+                    if self.mesh is None:
+                        g_rows, row_idx, table = planned[0]
+                        plan.append((g_rows, b, row_idx, table))
+                    else:
+                        plan.append(([p[0] for p in planned], g, b,
+                                     np.stack([p[1] for p in planned]),
+                                     np.stack([p[2] for p in planned])))
             plans.append((widths, plan))
-        return ("paged", tuple(plans))
+        return ("paged" if self.mesh is None else "mesh_paged", tuple(plans))
+
+    def _shard_groups(self, plan, shard: int):
+        """``[(rows, b, row_idx, table), ...]``: one shard's part of each
+        group of a planned round (meshless: the groups themselves)."""
+        if self.mesh is None:
+            return list(plan)
+        return [(rows[shard], b, row_idx[shard], table[shard])
+                for rows, _, b, row_idx, table in plan]
 
     def _stage_fused_batch(self, batch, statics):
         """Every (round, group)'s row indices, page table and streams in ONE
-        int32 buffer, one upload."""
-        arrays = {}
-        for r, ((enc, _), (_, plan)) in enumerate(zip(batch, statics[1])):
-            for j, (g_rows, b, row_idx, table) in enumerate(plan):
-                arrays[f"{r}.{j}.row_idx"] = row_idx
-                arrays[f"{r}.{j}.table"] = table
-                arrays.update({f"{r}.{j}.{n}": a
-                               for n, a in group_stream_named(enc, g_rows, b).items()})
-        flat, layout = pack_int32(arrays)
-        return self._copy_lane.upload(flat), layout
+        int32 buffer, one upload: ``(StagedUpload, layout)``, or under a
+        mesh ``[(shard, StagedUpload, layout), ...]``, each shard's own
+        slice of every group through its copy lane."""
+        shards = range(1 if self.mesh is None else self.mesh.size)
+        out = []
+        for shard in shards:
+            arrays = {}
+            for r, ((enc, _), (_, plan)) in enumerate(zip(batch, statics[1])):
+                for j, (s_rows, b, row_idx, table) in enumerate(self._shard_groups(plan, shard)):
+                    arrays[f"{r}.{j}.row_idx"] = row_idx
+                    arrays[f"{r}.{j}.table"] = table
+                    arrays.update({f"{r}.{j}.{n}": a
+                                   for n, a in group_stream_named(enc, s_rows, b).items()})
+            flat, layout = pack_int32(arrays)
+            out.append((shard, self._shard_lanes[shard].upload(flat), layout))
+        return out[0][1:] if self.mesh is None else out
 
     def _dispatch_fused_batch(self, batch, statics, inputs, chain_digest: bool = False) -> bool:
         """Every (round, group) gather-apply-scatter of the batch as ONE
         ``apply_batch_paged_groups`` site call (one graph replay on the
         card, updating the pool in place), or on the CPU a lone group as
         the per-group ``apply_batch_paged`` (the reference's undonated
-        form), then the per-round bookkeeping and occupancy rows.  The
-        digest is never chained here (the reference's paged form does not
-        either); the drain prefetches it separately."""
+        form); under a mesh one such call per shard over its pool
+        (``apply_batch_paged_groups.mesh``, each through the shard's graph
+        cache, counted as one fused dispatch when the batch has a group).
+        Then the per-round bookkeeping and occupancy rows.  The digest is
+        never chained here (the reference's paged forms do not either); the
+        drain prefetches it separately."""
         plans = statics[1]
-        upload, layout = inputs
-        buf = upload.consume()
         keys = [f"{r}.{j}." for r, (_, plan) in enumerate(plans) for j in range(len(plan))]
         store = self._store
-        if keys:
+        n = 1 if self.mesh is None else self.mesh.size
+        if self.mesh is None:
+            upload, layout = inputs
+            buf = upload.consume()
             pool = (store.pool_elem, store.pool_char, store.aux)
             if len(keys) == 1 and not resolve_state_donation(store.pool_elem):
                 t = unpack_int32(buf, layout)
                 _apply_groups(*pool, [(t[keys[0] + "row_idx"], t[keys[0] + "table"],
                                        group_stream_args(t, keys[0]))])
-            else:
+            elif keys:
                 self._run_groups(pool, buf, layout, keys)
-            GLOBAL_COUNTERS.add("streaming.group_applies", len(keys))
+        elif keys:
+            for shard, upload, layout in inputs:
+                with self._on_device(shard):
+                    self._run_groups(store.shard_tensors(shard), upload.consume(), layout, keys,
+                                     shard=shard)
+            GLOBAL_COUNTERS.add("streaming.fused_dispatches")
+        if keys:
+            GLOBAL_COUNTERS.add("streaming.group_applies", len(keys) * n)
         for (enc, _), (widths, plan) in zip(batch, plans):
             cap = 0
-            for g_rows, b, _, _ in plan:
-                cap += b * sum(widths)
+            for group in plan:
+                by_shard, b = ([group[0]], group[1]) if self.mesh is None else (group[0], group[2])
+                cap += b * n * sum(widths)
                 if GLOBAL_DEVPROF.enabled:
-                    GLOBAL_DEVPROF.observe_round(occupancy_key(b, *widths),
-                                                 int(enc.num_ops[g_rows].sum()), b * sum(widths),
+                    real = sum(int(enc.num_ops[s_rows].sum()) for s_rows in by_shard)
+                    GLOBAL_DEVPROF.observe_round(occupancy_key(b * n, *widths), real,
+                                                 b * n * sum(widths),
                                                  origin="streaming.paged.fused")
             self._commit_caps[id(enc)] = cap
             rows = np.nonzero(enc.num_ops)[0]
@@ -292,13 +346,19 @@ class PagedStreamingMerge(StreamingMerge):
             GLOBAL_COUNTERS.add("streaming.rounds")
         if GLOBAL_DEVPROF.enabled:
             GLOBAL_DEVPROF.observe_page_pool(store.pool_stats())
+            if self.mesh is not None:
+                GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())
         return False
 
-    def _run_groups(self, pool, buf: torch.Tensor, layout, keys) -> None:
-        """The batch's group chain over the resident pool and aux rows, in
-        place, run by the session's graph cache under the
-        ``apply_batch_paged_groups`` site."""
+    def _run_groups(self, pool, buf: torch.Tensor, layout, keys,
+                    shard: Optional[int] = None) -> None:
+        """The batch's group chain over the resident pool and aux rows (a
+        mesh shard's, given ``shard``), in place, run by the session's (the
+        shard's) graph cache under the ``apply_batch_paged_groups`` site
+        (``.mesh`` for a shard)."""
         pool_elem, pool_char, aux = pool
+        graphs = self._graphs if shard is None else self._shard_graphs[shard]
+        site = "apply_batch_paged_groups" + ("" if shard is None else ".mesh")
 
         def plan():
             shapes = dict(layout)
@@ -316,9 +376,9 @@ class PagedStreamingMerge(StreamingMerge):
             _apply_groups(pool_elem, pool_char, aux,
                           [(t[k + "row_idx"], t[k + "table"], group_stream_args(t, k))
                            for k in keys])
-        note_form("apply_batch_paged_groups", (pool_elem, pool_char, aux, buf),
-                  lambda: self._graphs.run(("paged", layout), "apply_batch_paged_groups", body,
-                                           (buf,), binds=(pool_elem, pool_char) + tuple(aux)),
+        note_form(site, (pool_elem, pool_char, aux, buf),
+                  lambda: graphs.run(("paged", layout), site, body, (buf,),
+                                     binds=(pool_elem, pool_char) + tuple(aux)),
                   plan, device=pool_elem.device)
 
     def _round_capacity(self, enc, widths) -> int:
@@ -423,8 +483,8 @@ class RaggedStreamingMerge(PagedStreamingMerge):
         super().__init__(num_docs, actors, *args, layout="paged", **kwargs)
         self._plan_cache = PlanCache()
         #: the mesh form: ((alloc_epoch, pages per shard), [(plan, planes)
-        #: per shard])
-        self._mesh_plans: tuple = (None, None)
+        #: per shard], [launch plan per shard])
+        self._mesh_plans: tuple = (None, None, None)
 
     def _round_widths(self, pool, obj_streams, ki, kd, km, kp):
         """Round widths stay at the session caps, as the reference's ragged
@@ -435,33 +495,50 @@ class RaggedStreamingMerge(PagedStreamingMerge):
 
     def _ragged_planes(self):
         """``(plan, plan planes)`` of every row, rebuilt only when the
-        allocator state changed (store/ragged.PlanCache)."""
+        allocator state changed (store/ragged.PlanCache; its ``launch`` is
+        the plan's ragged insert launch plan)."""
         return self._plan_cache.get(self._store)
 
     def _shard_planes(self):
         """Under a mesh, ``[(plan, plan planes), ...]`` per shard, each
         shard's on its device (ShardedPagedDocStore.ragged_shard_plan),
         rebuilt only when the allocation epoch or the shard pool size
-        changed."""
+        changed (with each shard's launch plan, :meth:`_shard_launches`)."""
         store = self._store
         key = (store.alloc_epoch, store.pages_per_shard)
         if self._mesh_plans[0] != key:
             plans = [store.ragged_shard_plan(s) for s in range(store.n_shards)]
-            self._mesh_plans = (key, [(plan, plan_arrays(plan, dev))
-                                      for plan, dev in zip(plans, self.mesh.devices)])
+            self._mesh_plans = (
+                key, [(plan, plan_arrays(plan, dev)) for plan, dev in zip(plans, self.mesh.devices)],
+                [plan_launch(plan, store.page_size, dev)
+                 for plan, dev in zip(plans, self.mesh.devices)])
         return self._mesh_plans[1]
+
+    def _shard_launches(self):
+        """Each shard's ragged insert launch plan (None on the CPU), of the
+        plans :meth:`_shard_planes` holds."""
+        self._shard_planes()
+        return self._mesh_plans[2]
 
     def _launch_plans(self, rows: np.ndarray):
         """``[(device, (pool_elem, pool_char, aux), row slice of the
-        launch, (plan, planes)), ...]``: the whole pool meshless, else each
-        shard that holds a row with ops."""
+        launch, (plan, planes), launch plan), ...]``: the whole pool
+        meshless, else each shard that holds a row with ops."""
         if self.mesh is None:
             return [(*self._shard_tensors(None), slice(0, self._padded_docs),
-                     self._ragged_planes())]
-        planes = self._shard_planes()
+                     self._ragged_planes(), self._plan_cache.launch)]
+        planes, launches = self._shard_planes(), self._shard_launches()
         r = self._store.rows_per_shard
-        return [(*self._shard_tensors(s), slice(s * r, (s + 1) * r), planes[s])
+        return [(*self._shard_tensors(s), slice(s * r, (s + 1) * r), planes[s], launches[s])
                 for s in np.unique(rows // r)]
+
+    def _classes(self, plan) -> int:
+        """The doc classes of a plan's ragged insert, one launch each (their
+        split does not depend on the card's SM count)."""
+        return len(ragged_teams(plan.page_count, self._store.page_size, plan.page_table.shape[1],
+                                SMEM_BUDGET, 1))
+
+    # -- the per-round discipline ----------------------------------------------
 
     def _commit_round_ragged(self, enc, widths) -> None:
         """One round: one ragged apply over every row (one insert launch per
@@ -472,34 +549,40 @@ class RaggedStreamingMerge(PagedStreamingMerge):
         if len(rows):
             store.ensure_rows(rows, self._cum_ins[rows])
         docs_walked = pages_walked = 0
-        for dev, tensors, l_rows, (plan, planes) in self._launch_plans(rows):
+        for dev, tensors, l_rows, (plan, planes), launch in self._launch_plans(rows):
             ins_host = np.ascontiguousarray(enc.ins_count[l_rows], np.int32)
             apply_batch_ragged(
                 *tensors, *planes, group_stream_arrays(enc, l_rows, plan.num_rows, dev),
                 torch.from_numpy(ins_host).to(dev), page_count_host=plan.page_count,
-                ins_counts_host=ins_host,
+                ins_counts_host=ins_host, launch_plan=launch,
             )
-            # the doc classes of the launch plan (their split does not depend
-            # on the card's SM count)
-            classes = ragged_teams(plan.page_count, store.page_size, plan.page_table.shape[1],
-                                   SMEM_BUDGET, 1)
-            GLOBAL_COUNTERS.add("streaming.ragged_applies", len(classes))
+            GLOBAL_COUNTERS.add("streaming.ragged_applies", self._classes(plan))
             docs_walked += plan.docs_walked
             pages_walked += plan.pages_walked
-        # no bucket rows, no padded steps: the capacity paid is the real work
-        real = int(enc.num_ops.sum())
-        self._commit_caps[id(enc)] = real
-        if GLOBAL_DEVPROF.enabled:
-            GLOBAL_DEVPROF.observe_round(occupancy_key(self._padded_docs, *widths), real,
-                                         max(real, 1), origin="streaming.ragged")
-            GLOBAL_DEVPROF.observe_ragged(docs_walked=docs_walked,
-                                          pages_walked=pages_walked, real_ops=real)
-        if len(rows):
-            self._digest_row_valid[rows] = False
-        self.rounds += 1
-        GLOBAL_COUNTERS.add("streaming.rounds")
+        self._ragged_bookkeeping([(enc, widths)], docs_walked, pages_walked)
 
-    def _commit_rounds(self, batch) -> None:
+    def _ragged_bookkeeping(self, batch, docs_walked: int, pages_walked: int) -> None:
+        """Committed ragged rounds: the capacity paid (no bucket rows, no
+        padded steps: the real work), the occupancy and ragged-walk rows,
+        dirty digest rows, the round count."""
+        for enc, widths in batch:
+            real = int(enc.num_ops.sum())
+            self._commit_caps[id(enc)] = real
+            if GLOBAL_DEVPROF.enabled:
+                GLOBAL_DEVPROF.observe_round(occupancy_key(self._padded_docs, *widths), real,
+                                             max(real, 1), origin="streaming.ragged")
+                GLOBAL_DEVPROF.observe_ragged(docs_walked=docs_walked,
+                                              pages_walked=pages_walked, real_ops=real)
+            rows = np.nonzero(enc.num_ops)[0]
+            if len(rows):
+                self._digest_row_valid[rows] = False
+            self.rounds += 1
+            GLOBAL_COUNTERS.add("streaming.rounds")
+
+    def _commit_rounds_serial(self, batch) -> None:
+        """Commit scheduled rounds one at a time (``fused_pipeline=False``,
+        a block-chunked session): :meth:`_commit_round_ragged` each, then
+        a page-pool snapshot (and a mesh one) when profiled."""
         for enc, widths in batch:
             self._cum_ins += enc.ins_count
             self._commit_round_ragged(enc, widths)
@@ -507,3 +590,126 @@ class RaggedStreamingMerge(PagedStreamingMerge):
             GLOBAL_DEVPROF.observe_page_pool(self._store.pool_stats())
             if self.mesh is not None:
                 GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())
+
+    # -- the fused forms: a batch's rounds in one site call --------------------
+
+    def _prep_fused_batch(self, batch):
+        """Advance the cumulative inserts and give every round's touched
+        rows their pages, in round order: the batch's rounds then apply
+        over the plan as it stands after the whole batch (a round's rows
+        hold at least the pages it needs).  The reference's ``("ragged",
+        k)``, or ``("mesh_ragged", k)`` under a mesh."""
+        store = self._store
+        for enc, _ in batch:
+            self._cum_ins += enc.ins_count
+            rows = np.nonzero(enc.num_ops)[0]
+            if len(rows):
+                store.ensure_rows(rows, self._cum_ins[rows])
+        return ("ragged" if self.mesh is None else "mesh_ragged", len(batch))
+
+    def _stage_fused_batch(self, batch, statics):
+        """Every round's streams of all D rows at the session's fixed
+        widths, with its insert counts, in ONE int32 buffer, one upload:
+        ``(StagedUpload, layout)``; under a mesh ``[(shard, StagedUpload,
+        layout), ...]`` for each shard that holds an op anywhere in the
+        batch, its rows through its copy lane."""
+        if self.mesh is None:
+            return self._stage_ragged_rows(batch, slice(0, self._padded_docs), self._copy_lane)
+        r = self._store.rows_per_shard
+        out = []
+        for shard in range(self.mesh.size):
+            rows = slice(shard * r, (shard + 1) * r)
+            if any(enc.num_ops[rows].any() for enc, _ in batch):
+                out.append((shard, *self._stage_ragged_rows(batch, rows,
+                                                            self._shard_lanes[shard])))
+        return out
+
+    @staticmethod
+    def _stage_ragged_rows(batch, rows: slice, lane):
+        """``(StagedUpload, layout)``: the batch's streams and insert counts
+        of ``rows``, packed and uploaded through ``lane``."""
+        arrays = {}
+        for r, (enc, _) in enumerate(batch):
+            arrays.update({f"{r}.{n}": a for n, a in
+                           group_stream_named(enc, rows, rows.stop - rows.start).items()})
+            arrays[f"{r}.ins_counts"] = enc.ins_count[rows]
+        flat, layout = pack_int32(arrays)
+        return lane.upload(flat), layout
+
+    def _dispatch_fused_batch(self, batch, statics, inputs, chain_digest: bool = False) -> bool:
+        """The batch's rounds as ONE site call over the plan (meshless:
+        ``apply_batch_ragged``; under a mesh ``apply_batch_ragged.mesh``
+        per staged shard over its plan, counted as one fused dispatch, as
+        the reference's), through the graph cache: eager on a signature's
+        first occurrence, then one CUDA-graph replay.  Then the per-round
+        bookkeeping, the ragged walk of the plan at the end of the batch.
+        The digest is never chained (the reference's ragged forms do not
+        either); the drain prefetches it separately."""
+        store = self._store
+        if self.mesh is None:
+            plan, planes = self._ragged_planes()
+            upload, layout = inputs
+            self._run_ragged((store.pool_elem, store.pool_char, store.aux), plan, planes,
+                             self._plan_cache.launch, upload.consume(), layout, batch,
+                             slice(0, self._padded_docs))
+            walked = [plan]
+        else:
+            planes, launches = self._shard_planes(), self._shard_launches()
+            r = store.rows_per_shard
+            for shard, upload, layout in inputs:
+                plan, shard_planes = planes[shard]
+                with self._on_device(shard):
+                    self._run_ragged(store.shard_tensors(shard), plan, shard_planes,
+                                     launches[shard], upload.consume(), layout, batch,
+                                     slice(shard * r, (shard + 1) * r), shard=shard)
+            GLOBAL_COUNTERS.add("streaming.fused_dispatches")
+            walked = [plan for plan, _ in planes]
+        self._ragged_bookkeeping(batch, sum(p.docs_walked for p in walked),
+                                 sum(p.pages_walked for p in walked))
+        if GLOBAL_DEVPROF.enabled:
+            GLOBAL_DEVPROF.observe_page_pool(store.pool_stats())
+            if self.mesh is not None:
+                GLOBAL_DEVPROF.observe_mesh(self._mesh_stats())
+        return False
+
+    def _run_ragged(self, pool, plan, planes, launch, buf: torch.Tensor, layout, batch,
+                    rows: slice, shard: Optional[int] = None) -> None:
+        """The batch's per-round ragged applies over one plan (the whole
+        pool, or a mesh shard's) in place, run by the session's (the
+        shard's) graph cache.  Its key is the depth, the insert's launch
+        plan and the buffer layout; the plan planes and the launch plan's
+        card tensors are the graph's inputs, so a new allocation epoch
+        keeps the graphs and only pool growth (new pool tensors, the
+        binds) starts a new epoch.  Each round launches the ragged insert
+        once per doc class (``streaming.ragged_applies``)."""
+        pool_elem, pool_char, aux = pool
+        k = len(batch)
+        graphs = self._graphs if shard is None else self._shard_graphs[shard]
+        site = "apply_batch_ragged" + ("" if shard is None else ".mesh")
+        teams = [] if launch is None else list(launch.launches)
+        # the plan lists every launch of the call, round by round, as the
+        # padded forms' (ops/kernel.rounds_plan)
+        static = (("rounds", k), ("plan", plan_static(teams * k)))
+        extra = () if launch is None else launch.tensors()
+
+        def body(b, *plane_inputs):
+            t = unpack_int32(b, layout)
+            grid = None if launch is None else launch.with_tensors(plane_inputs[6:])
+            for r in range(k):
+                _apply_batch_ragged(pool_elem, pool_char, aux, *plane_inputs[:6],
+                                    group_stream_args(t, f"{r}."), t[f"{r}.ins_counts"],
+                                    plan.page_count, grid)
+
+        def profile():
+            gmax = plan.page_table.shape[1]
+            nbytes = sum(ragged_insert_bytes(plan.page_count,
+                                             np.ascontiguousarray(enc.ins_count[rows], np.int32),
+                                             self._store.page_size, gmax) for enc, _ in batch)
+            return static, len(teams) * k, nbytes
+
+        note_form(site, (pool_elem, pool_char, aux, buf),
+                  lambda: graphs.run(("ragged", k, static, layout), site, body,
+                                     (buf,) + tuple(planes) + tuple(extra),
+                                     binds=(pool_elem, pool_char) + tuple(aux)),
+                  profile, device=pool_elem.device)
+        GLOBAL_COUNTERS.add("streaming.ragged_applies", self._classes(plan) * k)

@@ -36,8 +36,13 @@ card is a captured ``torch.cuda.CUDAGraph``, keyed by the same statics.
 * **Capture.** On a side stream of the device, with
   ``capture_error_mode="thread_local"`` (the staging worker may allocate
   pinned memory and copy on its own stream while this thread captures),
-  into one memory pool shared by the session's graphs.  A host sync inside
-  the body raises, and the capture is abandoned; nothing falls back.
+  into one memory pool (:class:`GraphPool`) shared by the session's graphs,
+  and under a mesh by the caches of every shard on the same card (one
+  cache per shard: a cache shared by shards would see its binds change on
+  every call and drop its graphs).  Graphs of one pool replay on one
+  stream, never at once, and each replay's outputs are cloned before the
+  next, so their intermediates may share memory.  A host sync inside the
+  body raises, and the capture is abandoned; nothing falls back.
 * **Launch counts.** A captured kernel launch does not run, so it counts
   for the graph (``utils/nvcc.launch_tally``); every replay adds the
   graph's launches to each wrapper's count.
@@ -54,6 +59,7 @@ from __future__ import annotations
 import collections
 import logging
 import time
+import warnings
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -102,10 +108,39 @@ class _Graph:
         self.launches = launches
 
 
-class GraphCache:
-    """A session's captured commit graphs on ``device`` (module doc)."""
+def idle_caches(caches: Sequence["GraphCache"], budget_s: float) -> int:
+    """Offer one wait of ``budget_s`` seconds to several caches in turn (a
+    mesh session's shards), each what is left of it: returns the graphs
+    captured."""
+    deadline = time.perf_counter() + budget_s
+    return sum(c.idle(max(0.0, deadline - time.perf_counter())) for c in caches)
 
-    def __init__(self, device) -> None:
+
+class GraphPool:
+    """The capture memory pool the graph caches of one card share (module
+    doc), and the side stream they capture on (the caching allocator hands
+    a freed block only to the stream it was made on, so caches that share
+    memory share the stream): made by the first capture, the pool let go
+    once no cache of it holds a graph."""
+
+    def __init__(self) -> None:
+        self.handle = None
+        self.stream = None
+        self.caches: list = []
+
+    def release(self) -> None:
+        """Let the pool go when no cache of it holds a graph (the allocator
+        frees a private pool once no graph holds it)."""
+        if not any(len(c) for c in self.caches):
+            self.handle = None
+
+
+class GraphCache:
+    """A session's (or a mesh shard's) captured commit graphs on
+    ``device`` (module doc), capturing into ``pool`` (a :class:`GraphPool`
+    shared with other caches on the card; a pool of its own by default)."""
+
+    def __init__(self, device, pool: "GraphPool" = None) -> None:
         self.device = torch.device(device)
         self.epoch = 0
         self._binds: Tuple = ()
@@ -118,8 +153,8 @@ class GraphCache:
         self._least_eager = float("inf")
         self._deferring = False
         self._capture_ratio = CAPTURE_COST_RATIO
-        self._pool = None
-        self._stream = None
+        self._pool = pool if pool is not None else GraphPool()
+        self._pool.caches.append(self)
         self._stats: Dict[str, Dict[str, int]] = {}
 
     # -- accounting ----------------------------------------------------------
@@ -138,14 +173,14 @@ class GraphCache:
 
     def bump_epoch(self) -> None:
         """Drop every graph and every signature's occurrence count.  The
-        pool goes with them (the allocator frees a private pool once no
-        graph holds it), and the next capture starts a new one."""
+        pool goes with them unless another cache's graphs hold it, and the
+        next capture then starts a new one."""
         self.epoch += 1
         self._graphs.clear()
         self._seen.clear()
         self._pending.clear()
         self._least_eager = float("inf")
-        self._pool = None
+        self._pool.release()
 
     # -- running a form ------------------------------------------------------
 
@@ -238,22 +273,23 @@ class GraphCache:
         static = tuple(torch.empty_like(x) for x in inputs)
         for s, x in zip(static, inputs):
             s.copy_(x)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        self._stream.wait_stream(current)
+        pool = self._pool
+        if pool.stream is None:
+            pool.stream = torch.cuda.Stream(device)
+        if pool.handle is None:
+            pool.handle = torch.cuda.graph_pool_handle()
+        pool.stream.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device), torch.cuda.stream(self._stream), \
+        with torch.cuda.device(device), torch.cuda.stream(pool.stream), \
                 launch_tally() as tally:
-            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            graph.capture_begin(pool=pool.handle, capture_error_mode="thread_local")
             try:
                 outputs = body(*static)
             except BaseException:  # graftlint: boundary(a failed capture is ended, then the body's own failure propagates unchanged)
                 self._abandon(graph)
                 raise
             graph.capture_end()
-        current.wait_stream(self._stream)
+        current.wait_stream(pool.stream)
         launches = {w: n for w, n in tally.items() if n}
         _log.info("Capturing graph.%s (%d kernel launches)", form, sum(launches.values()))
         self._count(form, "captures")
@@ -263,8 +299,8 @@ class GraphCache:
         """End a capture the body broke: the stream leaves capture mode,
         the allocator stops routing the stream's allocations to the pool
         (ending the capture of an invalidated graph raises before it does
-        that itself), and the next capture takes a new pool."""
-        pool, self._pool = self._pool, None
+        that itself), and the next capture on the card takes a new pool."""
+        pool, self._pool.handle = self._pool.handle, None
         try:
             graph.capture_end()
         except RuntimeError:  # graftlint: boundary(the capture is already invalid; the body's own failure is what propagates)
@@ -275,11 +311,21 @@ class GraphCache:
                         else torch.cuda.current_device(), pool)
                 except RuntimeError:  # graftlint: boundary(the allocator had already stopped routing to the pool)
                     pass
+            # a capture_end that failed never ran the card's random
+            # generators' capture epilogue, so they stay in capture mode and
+            # every later random draw on the card raises; an empty capture
+            # on this stream runs the epilogue
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # "the CUDA graph is empty"
+                reset = torch.cuda.CUDAGraph()
+                reset.capture_begin(capture_error_mode="thread_local")
+                reset.capture_end()
 
     def _replay(self, entry: _Graph, form: str, inputs: Sequence[torch.Tensor]):
-        for s, x in zip(entry.inputs, inputs):
-            s.copy_(x)
-        entry.graph.replay()
+        with torch.cuda.device(self.device):
+            for s, x in zip(entry.inputs, inputs):
+                s.copy_(x)
+            entry.graph.replay()
         for wrapper, n in entry.launches.items():
             add_launches(wrapper, n)
         self._count(form, "replays")

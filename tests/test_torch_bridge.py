@@ -9,7 +9,8 @@ drive the same transactions through the port's editors and the reference's
 through ``Change.to_json()``): changes, views, ``editor_doc_to_pm``, each
 editor's ``read_patches`` stream and ``patch_to_steps`` of it must be
 equal, exactly.  Also: the transport (``Publisher``, ``ChangeQueue``,
-``FaultyPublisher``), comment bodies and the counter lock.
+``FaultyPublisher``), comment bodies and the counter lock.  The two
+longest sessions are in tests/test_torch_bridge_session.py.
 """
 
 import copy
@@ -42,10 +43,8 @@ from peritext_tpu_torch.bridge import (
 from peritext_tpu_torch.bridge import commands
 from peritext_tpu_torch.bridge.commands import (
     add_comment,
-    delete_range,
     set_link,
     toggle_bold,
-    toggle_italic,
     type_text,
 )
 from peritext_tpu_torch.bridge.pm import editor_doc_to_pm
@@ -215,37 +214,6 @@ class TestSync:
         assert "insert" in seen
 
 
-@pytest.mark.parametrize("backends", [("scalar", "scalar"), ("tpu", "tpu"), ("scalar", "tpu")])
-def test_random_editing_session_converges(backends):
-    rng = random.Random(42)
-    _, alice, bob = make_pair("seed text", backends=backends)
-    editors = [alice, bob]
-    for i in range(120):
-        ed = rng.choice(editors)
-        n = len(ed.view)
-        action = rng.randrange(4)
-        if action == 0 or n == 0:
-            type_text(ed, rng.randint(1, n + 1), rng.choice("abcdefgh"))
-        elif action == 1 and n >= 1:
-            start = rng.randint(1, n)
-            delete_range(ed, start, min(n + 1, start + rng.randint(1, 3)))
-        elif action == 2 and n >= 2:
-            start = rng.randint(1, n - 1)
-            toggle_bold(ed, start, rng.randint(start + 1, n))
-        elif n >= 2:
-            start = rng.randint(1, n - 1)
-            toggle_italic(ed, start, rng.randint(start + 1, n))
-        if i % 10 == 0:
-            alice.sync()
-            bob.sync()
-    alice.sync()
-    bob.sync()
-    assert alice.view == bob.view
-    assert_view_consistent(alice, bob)
-    for ed in editors:
-        assert ed.session is None or not ed.session.docs[0].fallback
-
-
 # ---------------------------------------------------------------------------
 # tests/test_bridge_tpu.py's seven patterns, on the port's device backend
 # ---------------------------------------------------------------------------
@@ -311,32 +279,6 @@ def test_tpu_map_ops_stay_on_device():
 def test_unknown_backend_rejected(name):
     with pytest.raises(ValueError):
         Editor("zoe", backend=name)
-
-
-def test_tpu_fuzz_session():
-    rng = random.Random(11)
-    _, alice, bob = make_pair(backends=("tpu", "tpu"))
-    editors = [alice, bob]
-    for _ in range(40):
-        ed = editors[rng.randrange(2)]
-        n = len(ed.view)
-        roll = rng.random()
-        if roll < 0.5 or n < 4:
-            type_text(ed, rng.randrange(1, n + 1) if n else 1, rng.choice("abcdef "))
-        elif roll < 0.75:
-            a = rng.randrange(1, n)
-            toggle_bold(ed, a, rng.randrange(a + 1, n + 1))
-        else:
-            a = rng.randrange(1, n)
-            ed.dispatch(Transaction().delete(a, rng.randrange(a + 1, n + 1)))
-        if rng.random() < 0.3:
-            alice.sync()
-            bob.sync()
-    alice.sync()
-    bob.sync()
-    alice.sync()
-    assert alice.view == bob.view
-    assert_view_consistent(alice, bob)
 
 
 def test_tpu_backend_defaults_to_cuda(monkeypatch):

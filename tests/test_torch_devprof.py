@@ -386,7 +386,10 @@ def test_streaming_sections_equal_the_reference(armed, stream_arrival, layout):
     kw = dict(num_docs=len(ref_arr), actors=ACTORS, layout=layout, **STREAM_CAPS)
     counters = ("streaming.block_applies", "streaming.group_applies", "streaming.ragged_applies")
     before = {c: GLOBAL_COUNTERS.get(c) for c in counters}
-    s = _feed(StreamingMerge(device="cpu", **kw), port_arr)
+    s = StreamingMerge(device="cpu", **kw)
+    batches, prep = [], s._prep_fused_batch
+    s._prep_fused_batch = lambda batch: batches.append(len(batch)) or prep(batch)
+    s = _feed(s, port_arr)
     applies = {c: GLOBAL_COUNTERS.get(c) - before[c] for c in counters}
     j = _feed(JaxStreamingMerge(**kw), ref_arr)
     assert s.read_all() == j.read_all() and s.rounds == j.rounds
@@ -412,8 +415,11 @@ def test_streaming_sections_equal_the_reference(armed, stream_arrival, layout):
         assert set(sites) <= {"apply_batch_paged", "apply_batch_paged_groups"}
         assert ours["occupancy_totals"]["rounds"] == applies["streaming.group_applies"] >= s.rounds
     else:
+        # the fused ragged form: one site call per committed batch, whose
+        # rounds apply inside it
         assert set(sites) == {"apply_batch_ragged"}
-        assert sites["apply_batch_ragged"]["dispatches"] == s.rounds
+        assert sites["apply_batch_ragged"]["dispatches"] == len(batches)
+        assert sum(batches) == s.rounds
     assert ours["memory"]["samples"] > 0 and ours["memory"]["available"] is False
 
 

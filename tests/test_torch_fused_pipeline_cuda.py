@@ -12,7 +12,16 @@ and the sessions that run them.
   counters whatever ran eagerly, was captured or replayed;
 * a reshard and a pool growth bump the graph epoch and recapture;
 * a capture that meets a host sync raises, and the cache keeps working;
-* a pinned upload is one copy on the lane's stream, waited on by events.
+* a pinned upload is one copy on the lane's stream, waited on by events;
+* the ragged form and the mesh forms (two virtual shards on the card, in
+  every layout): graphed, eager-fused and per-round arms byte-equal to a
+  CPU twin, every shard's cache capturing and replaying, the shards'
+  caches sharing one pool, launches equal to the counters;
+* a ragged session's replays stay equal to its eager twin while the host
+  allocates and frees pinned memory between drains (no graph holds a
+  host-to-device copy whose pinned source the allocator hands out again);
+* a session whose capture fails raises from ``drain()``: nothing retries
+  eagerly, no doc leaves the card.
 
 Every test here needs an NVIDIA card (``cuda`` marker) and skips without
 one.  The file imports nothing of JAX:
@@ -26,8 +35,11 @@ import torch
 
 from peritext_tpu_torch.core.doc import Doc
 from peritext_tpu_torch.obs import GLOBAL_COUNTERS, RecompileSentinel
+from peritext_tpu_torch.ops import ragged as ragged_mod
 from peritext_tpu_torch.ops.insert import insert_batch
+from peritext_tpu_torch.ops.ragged_insert import ragged_insert
 from peritext_tpu_torch.parallel.codec import encode_frame
+from peritext_tpu_torch.parallel.mesh import make_mesh
 from peritext_tpu_torch.parallel.staging import CopyLane
 from peritext_tpu_torch.parallel.streaming import StreamingMerge
 from peritext_tpu_torch.utils.graphs import GraphCache
@@ -36,7 +48,7 @@ pytestmark = pytest.mark.cuda
 
 DOCS, ROUNDS = 16, 12
 COUNTER = {"padded": "streaming.block_applies", "paged": "streaming.group_applies",
-           "static": "streaming.block_applies"}
+           "static": "streaming.block_applies", "ragged": "streaming.ragged_applies"}
 
 
 @pytest.fixture
@@ -82,7 +94,9 @@ def _session(device, layout="padded", fused=True, eager=False, **kw):
     s.fused_pipeline = fused
     s.FUSE_MAX_ROUNDS = 1
     if eager:
-        s._graphs = GraphCache("cpu")  # runs every form's body eagerly, on the card
+        # runs every form's body eagerly, on the card
+        s._graphs = GraphCache("cpu")
+        s._shard_graphs = [GraphCache("cpu") for _ in s._shard_graphs]
     return s
 
 
@@ -258,3 +272,100 @@ def test_pinned_upload_is_one_copy_on_its_stream(cuda):
         assert up.event is not None
         got = up.consume()
         assert got.device.type == "cuda" and torch.equal(got.cpu(), torch.from_numpy(flat + i))
+
+
+def _shard_mesh(cuda, n=2):
+    return make_mesh(devices=[torch.device("cuda", cuda.index or 0)] * n)
+
+
+@pytest.mark.parametrize("layout,shards", [("ragged", None), ("padded", 2), ("paged", 2),
+                                           ("ragged", 2)])
+def test_ragged_and_mesh_replays_equal_eager_twins(cuda, layout, shards):
+    frames = _frames()
+    mesh = None if shards is None else _shard_mesh(cuda, shards)
+    arms = {
+        "graphed": _session(cuda, layout, mesh=mesh),
+        "eager": _session(cuda, layout, eager=True, mesh=mesh),
+        "per_round": _session(cuda, layout, fused=False, mesh=mesh),
+        "cpu": _session("cpu", layout),
+    }
+    counter = COUNTER[layout]
+    launches = {}
+    for name, s in arms.items():
+        before = GLOBAL_COUNTERS.get(counter)
+        insert_batch.launches = ragged_insert.launches = 0
+        _drive(s, frames)
+        torch.cuda.synchronize()
+        kernel = ragged_insert if layout == "ragged" else insert_batch
+        launches[name] = (kernel.launches, int(GLOBAL_COUNTERS.get(counter) - before))
+    graphed = arms["graphed"]
+    caches = graphed._shard_graphs if mesh is not None else [graphed._graphs]
+    for cache in caches:
+        totals = _totals(cache.stats())
+        assert totals["captures"] > 0 and totals["hits"] > 0, cache.stats()
+    if mesh is not None:
+        assert len({id(c._pool) for c in caches}) == 1 and len(set(map(id, caches))) == shards
+    for name in ("graphed", "eager", "per_round"):
+        assert launches[name][0] == launches[name][1] > 0, (name, launches)
+    want = arms["cpu"]
+    want_patches = want.read_patches_all()
+    for name, s in arms.items():
+        assert s.rounds == want.rounds, name
+        assert s.read_all() == want.read_all(), name
+        assert s.digest() == want.digest(), name
+        if s is not want:
+            assert s.read_patches_all() == want_patches, name
+
+
+def test_ragged_replays_survive_pinned_host_churn(cuda):
+    """Between drains the host allocates, fills and frees pinned buffers of
+    the sizes a launch plan's uploads have (the caching host allocator
+    hands the same blocks out again); the graphed session's replays equal
+    the eager twin's state all the same."""
+    frames = _frames()
+    graphed = _session(cuda, "ragged")
+    eager = _session(cuda, "ragged", eager=True)
+    rng = np.random.default_rng(0)
+    for r in range(ROUNDS + 1):
+        for s in (graphed, eager):
+            _drive(s, frames, [r])
+        for size in (DOCS, DOCS * 2, 64, 256) * 8:
+            junk = torch.empty(size, dtype=torch.int64, pin_memory=True)
+            junk.copy_(torch.from_numpy(rng.integers(0, 1 << 30, size)))
+            junk.to(cuda, non_blocking=True)
+            del junk
+        torch.cuda.synchronize()
+        assert graphed.digest() == eager.digest(), r
+    assert _totals(graphed._graphs.stats())["hits"] > 0
+    assert graphed.read_all() == eager.read_all()
+
+
+@pytest.mark.parametrize("layout,shards", [("ragged", None), ("padded", 2)])
+def test_failed_session_capture_raises(cuda, monkeypatch, layout, shards):
+    """A host read of the delete targets inside the commit form: eagerly it
+    passes, and the first capture raises out of drain().  Nothing retries
+    eagerly, and no doc leaves the card."""
+    from peritext_tpu_torch.ops import kernel as kernel_mod
+
+    s = _session(cuda, layout, mesh=None if shards is None else _shard_mesh(cuda, shards))
+    frames = _frames()
+    _drive(s, frames, range(1))
+    target, name, index = ((ragged_mod, "_ragged_exists", 2) if layout == "ragged"
+                           else (kernel_mod, "_post_insert", 1))
+    original = getattr(target, name)
+
+    def syncing(*args, **kw):
+        if int(args[index].sum().item()) < 0:  # a host read: no graph can hold it
+            raise AssertionError("delete targets are never negative")
+        return original(*args, **kw)
+    monkeypatch.setattr(target, name, syncing)
+    with pytest.raises(RuntimeError):
+        _drive(s, frames, range(1, ROUNDS + 1))
+    torch.cuda.synchronize()
+    assert s.device.type == "cuda" and not any(d.fallback for d in s.docs)
+    # the failed capture left nothing in capture mode: the card's random
+    # generator still draws
+    assert torch.randint(0, 10, (4,), device=cuda).shape == (4,)
+    caches = s._shard_graphs if shards else [s._graphs]
+    assert all(_totals(c.stats())["captures"] == _totals(c.stats())["hits"] == 0
+               for c in caches)

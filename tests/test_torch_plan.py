@@ -240,7 +240,7 @@ def test_twin_merge_observed_config_equals_the_reference(stream_arrival, layout)
     assert _canon(propose(ours).to_json()) == _canon(jax_propose(ref).to_json())
 
 
-def test_single_round_drains_read_fused_depth_8_on_the_port_only(stream_arrival):
+def test_single_round_drains_read_fused_depth_1_in_both_packages(stream_arrival):
     """Every drain commits one round.  The port once read depth 8 here
     where the reference reads 1 (its commits had no single-round form);
     with the fused forms ported, both packages commit the round in the

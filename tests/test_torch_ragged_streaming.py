@@ -100,13 +100,15 @@ def test_ragged_round_widths_stay_at_the_caps(monkeypatch):
     from peritext_tpu_torch.store import session as session_mod
 
     seen = []
-    original = session_mod.RaggedStreamingMerge._commit_round_ragged
+    original = session_mod.RaggedStreamingMerge._ragged_bookkeeping
 
-    def recording(self, enc, widths):
-        seen.append(tuple(widths))
-        return original(self, enc, widths)
+    def recording(self, batch, *args):
+        seen.extend(tuple(widths) for _, widths in batch)
+        return original(self, batch, *args)
 
-    monkeypatch.setattr(session_mod.RaggedStreamingMerge, "_commit_round_ragged", recording)
+    # every committed round, of the fused form or the per-round one, is
+    # booked here with its widths
+    monkeypatch.setattr(session_mod.RaggedStreamingMerge, "_ragged_bookkeeping", recording)
     workloads = generate_workload(seed=3, num_docs=4, ops_per_doc=20)
     _, t, p = sessions_of(workloads, "ragged", True, rounds=2)
     assert seen and set(seen) == {t.round_caps}
@@ -157,18 +159,20 @@ def test_ragged_applies_equal_each_rounds_class_count(monkeypatch):
     non-empty doc classes of that round's plan (the kernel's launches on
     the card); a long doc past the warp window (1024 slots) makes a second
     class."""
-    from peritext_tpu_torch.store import session as session_mod
+    from peritext_tpu_torch.ops import ragged as ragged_mod
 
     classes = []
-    original = session_mod.apply_batch_ragged
+    original = ragged_mod.ragged_insert
 
+    # each round's apply, in the fused form or the per-round one, runs the
+    # ragged insert phase once
     def recording(*args, page_count_host, **kw):
         windows = page_count_host.shape[0]
-        assert windows == args[9][0].shape[0]  # every row rides the round
-        classes.append(len(ragged_teams(page_count_host, 64, args[8].shape[1], SMEM_BUDGET, 4)))
+        assert windows == args[10].shape[0]  # every row rides the round
+        classes.append(len(ragged_teams(page_count_host, 64, args[6].shape[1], SMEM_BUDGET, 4)))
         return original(*args, page_count_host=page_count_host, **kw)
 
-    monkeypatch.setattr(session_mod, "apply_batch_ragged", recording)
+    monkeypatch.setattr(ragged_mod, "ragged_insert", recording)
     workloads = [_port_workload(w) for w in generate_workload(seed=6, num_docs=5, ops_per_doc=20)]
     workloads.append(typed_doc(1200, 100))
     before = GLOBAL_COUNTERS.get("streaming.ragged_applies")
