@@ -166,6 +166,19 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    phase 6; the engine replay's eager, capture, single-pass and steady
    seconds of phase 5k beside the 51.6 ms of a host-enqueued pass; within
    50 s;
+5m. the capture audit (:data:`CAPTURE_AUDIT`): phases 5j to 5m run with
+   the capture audit armed (``testing/capture_audit.CaptureAudit`` on every
+   graph cache), so the first capture of each (form, site) runs under the
+   thread's profiler, which lists every package function run inside it;
+   5m drives, on A's fine arrival at A_frames' shape, each listed form the
+   earlier phases left uncaptured (the padded forms' digest twins, the
+   stacked form and its multi-tenant twin, the paged mesh form), each
+   session equal to A; then a ``capture audit`` line (per form and site,
+   the functions seen and those outside the set the traced-code rules
+   scan), which must cover every listed form with none outside; and the
+   port's analysis CLI (``python -m peritext_tpu_torch.analysis
+   peritext_tpu_torch``, PTL001-PTL007) in a subprocess, which must exit 0;
+   within 90 s;
 5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
@@ -473,6 +486,28 @@ BASELINE = dict(scalar=dict(docs=16, ops=256, seed=7, sweeps=3, reps=20), passes
 #: signatures repeat; phase 5j's fine mesh arm too), a forced reshard after
 #: ``reshard_after`` of them, and the phase's time limit
 FUSED_PIPE = dict(fine_rounds=24, reshard_after=8, seconds=50.0)
+#: phase 5m, the capture audit: every (form, site) a capture must have
+#: audited by the end of the phase (the padded forms flat, stacked,
+#: mesh_stacked and stacked_multi with the digest twins, the paged and the
+#: ragged forms, meshless and mesh, and the engine replay), with the
+#: session arms that capture each on A's fine arrival when phases 5j-5l
+#: did not (the engine's: phase 5k always captures it), and the phase's
+#: time limit
+CAPTURE_AUDIT = dict(
+    forms={("flat", "apply_batch_staged_rounds"): {},
+           ("flat", "_fused_rounds_digest"): dict(prefetch_digest=True),
+           ("stacked", "apply_batch_stacked_rounds"): dict(static_rounds=True),
+           ("stacked", "_stacked_rounds_digest"): dict(static_rounds=True, prefetch_digest=True),
+           ("stacked_multi", "apply_batch_stacked_rounds_multi"): dict(static_rounds=True,
+                                                                      fusion_rows=True),
+           ("mesh_stacked", "apply_batch_stacked_rounds.mesh"): dict(mesh=True),
+           ("mesh_stacked", "_stacked_rounds_digest"): dict(mesh=True, prefetch_digest=True),
+           ("paged", "apply_batch_paged_groups"): dict(layout="paged"),
+           ("paged", "apply_batch_paged_groups.mesh"): dict(layout="paged", mesh=True),
+           ("ragged", "apply_batch_ragged"): dict(layout="ragged"),
+           ("ragged", "apply_batch_ragged.mesh"): dict(layout="ragged", mesh=True),
+           ("engine", "apply_batch_compact_rounds"): None},
+    seconds=90.0)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -1062,8 +1097,10 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
     ``arm`` may name a ``layout`` (padded, paged, ragged), the
     ``fused_pipeline``/``static_rounds`` switches, a ``mesh`` (each
     synchronize then covers every card of the mesh, and the report adds
-    each card's peak memory) and an ``engine_capture`` list (the session's
-    ``_capture_rounds`` hook).  Both kernels' launch
+    each card's peak memory), an ``engine_capture`` list (the session's
+    ``_capture_rounds`` hook), ``prefetch_digest`` (the drain-end digest
+    chain the serving tier arms) and ``fusion_rows`` (a fusion window's
+    tenant rows, as ``serve.FusedMuxGroup`` sets them).  Both kernels' launch
     counts are set to 0 just before and read just after: the layout's
     kernel must have launched exactly as often as its commits counted
     (:data:`APPLY_COUNTER`), the other never.  A frame session must have
@@ -1101,6 +1138,8 @@ def run_stream_session(device, cfg, workloads, arrival, name, capture=None, wire
     )
     s.fused_pipeline = arm.get("fused_pipeline", True)
     s._capture_rounds = arm.get("engine_capture")
+    s.prefetch_digest = arm.get("prefetch_digest", False)
+    s.fusion_rows = arm.get("fusion_rows")
     undo = _arm_capture(capture, layout) if capture is not None else None
     stages = dict.fromkeys(("ingest", "schedule", "apply", "digest", "read_all",
                             "read_patches_all"), 0.0)
@@ -2370,6 +2409,66 @@ def run_fused_pipeline(device, ctx):
         raise AssertionError(f"fused pipeline: phase 5l took {seconds:.2f} s, over "
                              f"{FUSED_PIPE['seconds']} s")
     return launches, ragged, replayed
+
+
+def run_capture_audit(device, ctx, audit):
+    """Phase 5m (module doc), inside the audit window that phases 5j-5l
+    opened: the sessions that capture each listed (form, site) still
+    unaudited, the ``capture audit`` line and its checks, and the analysis
+    CLI.  Returns the K1 and the K3 launch counts of its sessions."""
+    cfg = STREAM
+    t_phase = time.perf_counter()
+    fine, fine_bytes = ctx["fine"]
+    launches, ragged, driven = {}, {}, []
+    for (form, site), arm in CAPTURE_AUDIT["forms"].items():
+        if (form, site) in audit.reports or arm is None:
+            continue
+        arm = dict(arm)
+        if arm.pop("mesh", False):
+            arm["mesh"] = phase_mesh()[0]
+        if arm.pop("fusion_rows", False):
+            half = cfg["docs"] // 2
+            arm["fusion_rows"] = ((0, half), half)  # two tenants, every row
+        name = f"audit_{form}_{site}".replace(".", "_")
+        s, out = run_stream_session(device, cfg, ctx["workloads"], fine, name,
+                                    wire_bytes=fine_bytes, **arm)
+        compare_arms(name, out, ctx["a"], "A_default")
+        if out["layout"] == "ragged":
+            ragged[name] = out["ragged_insert_launches"]
+        else:
+            launches[name] = out["rga_insert_launches"]
+        graphs = ([g.stats() for g in s._shard_graphs] if "mesh" in arm
+                  else s._graphs.stats())
+        driven.append(name)
+        log(f"capture audit: {name} equals A; graphs {json.dumps(graphs)}")
+        del s
+    summary = audit.summary()
+    log("capture audit", json.dumps({
+        "forms": {k: {"seen": v["seen"], "outside": len(v["outside"])}
+                  for k, v in summary.items()},
+        "driven_in_5m": driven, "captured_set": len(audit.captured)}))
+    missing = [f"{form}/{site}" for form, site in CAPTURE_AUDIT["forms"]
+               if (form, site) not in audit.reports]
+    outside = audit.outside()
+    if missing or outside:
+        raise AssertionError(f"capture audit: forms never captured {missing}; functions run "
+                             f"inside a capture outside the captured set (each a missing "
+                             f"capture-root marker) {outside}")
+    t0 = time.perf_counter()
+    lint = subprocess.run([sys.executable, "-m", "peritext_tpu_torch.analysis",
+                           "peritext_tpu_torch"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    log(f"capture audit: analysis CLI exit {lint.returncode} in "
+        f"{time.perf_counter() - t0:.2f} s: {lint.stdout.strip()} {lint.stderr.strip()}")
+    if lint.returncode != 0:
+        raise AssertionError(f"capture audit: python -m peritext_tpu_torch.analysis "
+                             f"peritext_tpu_torch exited {lint.returncode}")
+    seconds = time.perf_counter() - t_phase
+    log(f"capture audit: phase 5m {seconds:.2f} s")
+    if seconds > CAPTURE_AUDIT["seconds"]:
+        raise AssertionError(f"capture audit: phase 5m took {seconds:.2f} s, over "
+                             f"{CAPTURE_AUDIT['seconds']} s")
+    return launches, ragged
 
 
 def _record_ragged_replay(s, capture) -> None:
@@ -4219,13 +4318,22 @@ def run_all(device, jobs, ckpt_root) -> int:
                                                   ckpt_root / "planner")
     del planes_snap
     log(f"planner done at {time.perf_counter() - t_start:.1f} s")
-    mesh_paths, mesh_ragged_paths, captures_mesh = run_mesh(device, ctx,
-                                                            (workloads, cursors, slice_report))
-    log(f"mesh done at {time.perf_counter() - t_start:.1f} s")
-    engine_paths, capture_engine = run_baseline_engine(device, ctx)
-    log(f"baseline and engine done at {time.perf_counter() - t_start:.1f} s")
-    fused_paths, fused_ragged_paths, capture_fused_replay = run_fused_pipeline(device, ctx)
-    log(f"fused pipeline done at {time.perf_counter() - t_start:.1f} s")
+    from peritext_tpu_torch.testing.capture_audit import CaptureAudit, captured_set
+
+    t0 = time.perf_counter()
+    audit = CaptureAudit(captured_set())
+    log(f"capture audit: {len(audit.captured)} functions in the captured set, computed from "
+        f"the sources in {time.perf_counter() - t0:.2f} s")
+    with audit:
+        mesh_paths, mesh_ragged_paths, captures_mesh = run_mesh(
+            device, ctx, (workloads, cursors, slice_report))
+        log(f"mesh done at {time.perf_counter() - t_start:.1f} s")
+        engine_paths, capture_engine = run_baseline_engine(device, ctx)
+        log(f"baseline and engine done at {time.perf_counter() - t_start:.1f} s")
+        fused_paths, fused_ragged_paths, capture_fused_replay = run_fused_pipeline(device, ctx)
+        log(f"fused pipeline done at {time.perf_counter() - t_start:.1f} s")
+        audit_paths, audit_ragged_paths = run_capture_audit(device, ctx, audit)
+    log(f"capture audit done at {time.perf_counter() - t_start:.1f} s")
     sup = dict(workloads=ctx["workloads"], wire=ctx["wire"], digest=ctx["a"]["digest"],
                spans=ctx["a"]["spans"])
     del ctx
@@ -4386,6 +4494,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths.update(mesh_paths)
     rga_paths.update(engine_paths)
     rga_paths.update(fused_paths)
+    rga_paths.update(audit_paths)
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})
@@ -4397,6 +4506,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_paths["plan_replay"] = plan_launches["ragged"]
     ragged_paths.update(mesh_ragged_paths)
     ragged_paths.update(fused_ragged_paths)
+    ragged_paths.update(audit_ragged_paths)
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

@@ -11,14 +11,16 @@ that unit tests only probe after the fact:
 * deterministic merge regions must not read wall clocks or unseeded RNGs
   (PTL006);
 * the ragged modules take true counts as data and never call a width
-  bucket (PTL007).
+  bucket (PTL007);
+* code that runs inside a CUDA-graph capture (a graph cache's body, a
+  function marked as a capture root, what either reaches in its file) must
+  not branch on a captured tensor (PTL002), sync with or copy from the host
+  (PTL003), or key a capture by a per-call size (PTL004): the reference's
+  rules over jit-traced code, with the capture as the trace.
 
-The reference's PTL002-PTL004 lint jit-traced code (Python branches on a
-tracer, host syncs inside a traced program, per-doc shapes that recompile)
-and are not carried: torch traces and compiles nothing on the port's path.
-Their runtime counterpart is ``chip_smoke.py``'s ``device_time_ms``, which
-fails when a call waits for the card.  This package machine-checks the
-carried invariants over the AST, without loading the scanned code.
+This package machine-checks those invariants over the AST, without loading
+the scanned code.  The capture audit (testing/capture_audit.py) checks on a
+real capture that every function it runs is one the rules scan.
 
 Run it::
 

@@ -39,7 +39,7 @@ from .engine import all_rule_ids, rule_table, scan_paths
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m peritext_tpu_torch.analysis",
-        description="graftlint: determinism static analysis",
+        description="graftlint: determinism & capture-safety static analysis",
     )
     parser.add_argument("paths", nargs="*", default=["peritext_tpu_torch"],
                         help="files/directories to scan (default: peritext_tpu_torch)")

@@ -29,7 +29,7 @@ class LintConfig:
     """Project knobs shared by every rule."""
 
     #: directory names whose files are "merge/convergence scope" (PTL001,
-    #: PTL006)
+    #: PTL004's shape checks, PTL006)
     merge_scope_dirs: frozenset = frozenset({"core", "ops", "parallel", "store"})
     #: '/'-joined path suffixes of INDIVIDUAL merge-scope files living in
     #: otherwise out-of-scope directories.  plan/ is the canonical split:

@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.capture import captured
 from ..utils.nvcc import count_launch, load_library
 
 #: dynamic shared memory one block may take on Hopper: 227 KB per block,
@@ -216,6 +217,7 @@ def insert_batch_reference(elem_id, char, num_slots, overflow, ins_ref, ins_op,
     return elem, chars, n, ov
 
 
+@captured(static=("loop_slots", "smem_budget"))
 def insert_batch(elem_id, char, num_slots, overflow, ins_ref, ins_op, ins_char, *,
                  loop_slots: Optional[int] = None,
                  smem_budget: int = SMEM_BUDGET) -> InsertState:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..obs.devprof import GLOBAL_DEVPROF, note_launch, plan_static
+from ..utils.capture import captured
 from .encode import MARK_COLS, EncodedBatch
 from .insert import (
     SMEM_BUDGET,
@@ -87,6 +88,7 @@ def _append_rows(tables: Dict[str, torch.Tensor], count, rows: Dict[str, torch.T
     return out, new_count, overflow
 
 
+@captured
 def _post_insert(state: PackedDocs, del_target, marks, mark_count,
                  exists=None) -> PackedDocs:
     """Phases 2+3 (deletes, marks) for every doc, after the insert phase.
@@ -131,6 +133,7 @@ def _post_insert(state: PackedDocs, del_target, marks, mark_count,
     )
 
 
+@captured
 def _apply_maps(state: PackedDocs, maps: Dict[str, torch.Tensor], map_count) -> PackedDocs:
     """Phase 4: LWW upsert of map registers, every doc at once.
 
@@ -323,6 +326,7 @@ def apply_batch_paged_groups(pool_elem, pool_char, aux, group_inputs) -> None:
     _apply_groups(pool_elem, pool_char, aux, group_inputs)
 
 
+@captured
 def _apply_groups(pool_elem, pool_char, aux, group_inputs) -> None:
     for row_idx, page_rows, encoded_arrays in group_inputs:
         apply_batch_paged(pool_elem, pool_char, aux, row_idx, page_rows, encoded_arrays)
@@ -454,6 +458,7 @@ def note_form(site: str, tensors, run, plan, *, device: torch.device):
                        kernel_bytes=nbytes)
 
 
+@captured(static=("widths_seq", "loop_slots_seq"))
 def _compact_rounds_chain(state, rounds, widths_seq, loop_slots_seq) -> PackedDocs:
     for (counts, ins, dels, marks, maps), widths, loop_slots in zip(
             rounds, widths_seq, loop_slots_seq):
@@ -479,6 +484,8 @@ def apply_batch_compact_rounds(state: PackedDocs, rounds, *, widths_seq,
         device=state.elem_id.device)
 
 
+@captured(static=("widths_seq", "loop_slots_seq", "ins_lens", "del_lens",
+                   "mark_lens", "map_lens"))
 def _staged_rounds_chain(state, counts_all, ins_all, del_all, mark_all, map_all, widths_seq,
                          loop_slots_seq, ins_lens, del_lens, mark_lens, map_lens) -> PackedDocs:
     io = do = mo = po = 0
@@ -523,6 +530,7 @@ def _stacked_round(stacked, r: int):
             mark_count[r], {c: a[r] for c, a in maps.items()}, map_count[r])
 
 
+@captured(static=("loop_slots_seq",))
 def _stacked_rounds_chain(state, stacked, loop_slots_seq) -> PackedDocs:
     for r, loop_slots in enumerate(loop_slots_seq):
         state = _apply_batch(state, _stacked_round(stacked, r), loop_slots)
@@ -559,6 +567,7 @@ def _scatter_tenant_blocks(blocks: torch.Tensor, row_base: torch.Tensor, docs: i
     return out.index_add_(0, rows, flat)
 
 
+@captured(static=("loop_slots_seq",))
 def _stacked_multi_chain(state, stacked, row_base, loop_slots_seq) -> PackedDocs:
     docs = state.elem_id.shape[0]
     for r, loop_slots in enumerate(loop_slots_seq):

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..obs.devprof import GLOBAL_DEVPROF, note_launch, plan_static
+from ..utils.capture import captured
 from .insert import SMEM_BUDGET, num_sms
 from .kernel import PAGED_AUX_FIELDS, _apply_maps, _post_insert
 from .packed import PackedDocs
@@ -128,6 +129,7 @@ def _ragged_plan(page_count_host: np.ndarray, ins_counts_host: Optional[np.ndarr
     return teams, nbytes
 
 
+@captured(static=("page_count_host",))
 def _apply_batch_ragged(pool_elem, pool_char, aux, row_idx, owner, pos_base, prev_page,
                         page_count, page_table, encoded_arrays, ins_counts,
                         page_count_host, launch_plan=None) -> None:

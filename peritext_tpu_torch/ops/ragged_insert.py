@@ -31,6 +31,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.capture import captured
 from ..utils.nvcc import count_launch, load_library
 from .insert import SMEM_BUDGET, TeamLaunch, num_sms, plan_teams, require_host
 
@@ -186,6 +187,7 @@ class RaggedLaunchPlan(NamedTuple):
     scratch: int
 
     @property
+    @captured
     def num_rows(self) -> int:
         return sum(t.num_docs for t in self.launches)
 
@@ -193,6 +195,7 @@ class RaggedLaunchPlan(NamedTuple):
         """The plan's card tensors, in order (a graph's inputs)."""
         return tuple(r for r in self.rows if r is not None) + (self.offsets,)
 
+    @captured
     def with_tensors(self, tensors) -> "RaggedLaunchPlan":
         """This plan over ``tensors`` (as :meth:`tensors` orders them), e.g.
         a graph's own copies of them."""
@@ -223,6 +226,7 @@ def ragged_launch_plan(page_count_host: np.ndarray, page_size: int, gmax: int,
     return RaggedLaunchPlan(launches, rows, offsets, int(scratch))
 
 
+@captured(static=("smem_budget", "page_count_host", "launch_plan"))
 def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, page_table,
                   num_slots, overflow, ins_counts, ins_ref, ins_op, ins_char, *,
                   smem_budget: int = SMEM_BUDGET,
@@ -268,12 +272,8 @@ def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, 
     if b == 0:
         return n_out, ov_out
     if launch_plan is None:
-        if page_count_host is None:
-            page_count_host = page_count.cpu().numpy()
-        if np.shape(page_count_host) != (b,):
-            raise ValueError(f"page_count_host must have shape ({b},), "
-                             f"got {np.shape(page_count_host)}")
-        launch_plan = ragged_launch_plan(page_count_host, p, gmax, device, smem_budget)
+        launch_plan = _host_launch_plan(page_count, page_count_host, page_table.shape, p,
+                                        device, smem_budget)
     elif launch_plan.num_rows != b:
         raise ValueError(f"the launch plan covers {launch_plan.num_rows} docs, the batch {b}")
     # device-memory windows, one per doc of a class that runs that variant,
@@ -305,6 +305,27 @@ def ragged_insert(pool_elem, pool_char, owner, pos_base, prev_page, page_count, 
 
 
 ragged_insert.launches = 0
+
+
+def _host_launch_plan(page_count, page_count_host: Optional[np.ndarray], table_shape,
+                      page_size: int, device: torch.device,
+                      smem_budget: int) -> RaggedLaunchPlan:
+    """:func:`ragged_insert`'s own launch plan, when the caller gave none:
+    from ``page_count_host``, or from ``page_count`` read back from the
+    card.  Its uploads would be frozen by address into a CUDA graph (a
+    replay would read whatever the host allocator put there since), so a
+    call inside a capture raises: captured calls pass the plan built
+    beforehand (store/ragged.PlanCache)."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the ragged insert's launch plan is built with host copies, "
+                           "never inside a CUDA-graph capture: pass launch_plan")
+    b, gmax = table_shape
+    if page_count_host is None:
+        page_count_host = page_count.cpu().numpy()
+    if np.shape(page_count_host) != (b,):
+        raise ValueError(f"page_count_host must have shape ({b},), "
+                         f"got {np.shape(page_count_host)}")
+    return ragged_launch_plan(page_count_host, page_size, gmax, device, smem_budget)
 
 
 def _library() -> ctypes.CDLL:

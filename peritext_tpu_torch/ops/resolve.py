@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..schema import ALL_MARKS, MARK_INDEX
+from ..utils.capture import captured
 from .packed import (
     BK_BEFORE,
     BK_END_OF_TEXT,
@@ -90,6 +91,7 @@ def _row_isin(values: torch.Tensor, table: torch.Tensor, live: torch.Tensor) -> 
     return (table_keys[at] == value_keys).reshape(values.shape)
 
 
+@captured(static=("comment_capacity", "with_comments"))
 def resolve(state: PackedDocs, comment_capacity: int = 32,
             with_comments: bool = True) -> ResolvedDocs:
     """Batched resolution over the doc axis.

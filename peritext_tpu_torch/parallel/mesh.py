@@ -34,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.capture import captured
 from ..utils.interning import content_hash32
 from ..utils.platform import mesh_devices
 
@@ -293,6 +294,7 @@ def _masked_sum(on: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(on, x, 0).sum(dim=-1) & M32
 
 
+@captured
 def per_doc_text_digest(chars: torch.Tensor, visible: torch.Tensor) -> torch.Tensor:
     """(D,) uint32 (as int64) per-doc digest of visible text (char,
     position, pad)."""
@@ -317,6 +319,7 @@ def convergence_digest(
     return per_doc.sum() & M32
 
 
+@captured(static=("comment_type", "link_type"))
 def per_doc_format_digest(
     visible: torch.Tensor,
     lww_active: torch.Tensor,
@@ -370,6 +373,7 @@ def per_doc_format_digest(
     return acc & M32
 
 
+@captured
 def per_doc_register_digest(
     r_obj: torch.Tensor,
     r_key: torch.Tensor,

@@ -113,6 +113,7 @@ from ..ops.kernel import (
 from ..ops.packed import VK_DELETED, VK_STR, PackedDocs, empty_docs
 from ..ops.resolve import COMMENT_TYPE, LINK_TYPE, ResolvedDocs, resolve
 from ..schema import MARK_INDEX
+from ..utils.capture import captured
 from ..utils.device import pack_int32, resolve_device, unpack_int32, upload_int32
 from ..utils.graphs import GraphCache, GraphPool, idle_caches
 from ..utils.interning import Interner, OrderedActorTable
@@ -177,6 +178,7 @@ def _per_doc_full_digest(state, resolved, row_mask, sess_attr, sess_key,
     return torch.where(mask, per_doc & M32, 0)
 
 
+@captured
 def _resolve_block_digest(state: PackedDocs, comment_capacity: int, row_mask, *tables):
     """One block's span resolution (what every read path needs) plus its
     (D,) per-doc full-state hash vector: digest() and the reads share the
@@ -336,6 +338,7 @@ def _padded_args(t: Dict[str, torch.Tensor]):
             {c: t[f"map.{c}"] for c in MAP_STREAM_COLS}, t["map_count"])
 
 
+@captured
 def _write_resident(resident: Sequence[torch.Tensor], new: Sequence[torch.Tensor]) -> None:
     """Copy a commit's result into the resident buffers, in place (the
     port's form of the reference's donated state)."""

@@ -27,6 +27,7 @@ import torch
 
 from ..ops.kernel import PAGED_AUX_FIELDS, apply_batch_paged, paged_state_of
 from ..ops.packed import PackedDocs, empty_docs
+from ..utils.capture import captured
 from ..utils.device import resolve_device, upload_int32
 from ..utils.shapes import next_pow2
 from .alloc import PageAllocator, PoolExhausted
@@ -70,6 +71,7 @@ def group_stream_named(enc, rows, b: int) -> Dict[str, np.ndarray]:
     return arrays
 
 
+@captured
 def group_stream_args(t: Dict[str, torch.Tensor], prefix: str = ""):
     """The ``apply_batch`` 8-tuple from a group's tensors by name (names
     as :func:`group_stream_named` gives them, under ``prefix``)."""

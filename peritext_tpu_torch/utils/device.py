@@ -13,6 +13,8 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from .capture import captured
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device to run on: ``device`` if given, else ``cuda``.  Raises
@@ -37,6 +39,7 @@ def pack_int32(arrays: Dict[str, np.ndarray]):
     return flat, layout
 
 
+@captured
 def unpack_int32(buf: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
     """Views of a packed buffer by name, shaped as ``layout`` says, at its
     static offsets."""

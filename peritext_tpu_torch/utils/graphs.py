@@ -50,8 +50,15 @@ card is a captured ``torch.cuda.CUDAGraph``, keyed by the same statics.
   kernel logger (``obs.RecompileSentinel`` counts it, the port's
   counterpart of a compile); :meth:`GraphCache.stats` counts eager runs,
   captures, replays and hits per form.
+* **Audit.** With :attr:`GraphCache.audit` set (the capture audit,
+  testing/capture_audit.py; only tests and the card smoke set it), a
+  capture, and on the CPU each run, calls ``audit(key, form, body,
+  inputs)`` in place of ``body(*inputs)``.  Unset, it costs one branch.
 
 On the CPU nothing is captured: :meth:`GraphCache.run` runs ``body``.
+Every ``body`` is a captured function of the traced-code rules
+(analysis/astutil.py); what it reaches in another module carries the
+capture-root marker, :func:`captured` (utils/capture.py).
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
+from .capture import CAPTURE_ROOTS, captured  # noqa: F401  (re-exported beside the cache)
 from .nvcc import add_launches, launch_tally
 
 #: graphs one session keeps, least recently used out first.  A signature is
@@ -140,6 +148,10 @@ class GraphCache:
     ``device`` (module doc), capturing into ``pool`` (a :class:`GraphPool`
     shared with other caches on the card; a pool of its own by default)."""
 
+    #: the capture audit's hook (module doc): None, or a callable
+    #: ``audit(key, form, body, inputs)`` that runs ``body(*inputs)``
+    audit = None
+
     def __init__(self, device, pool: "GraphPool" = None) -> None:
         self.device = torch.device(device)
         self.epoch = 0
@@ -192,7 +204,8 @@ class GraphCache:
         the resident tensors ``body`` reads or writes in place."""
         if self.device.type != "cuda":
             self._count(form, "eager")
-            return body(*inputs)
+            return (body(*inputs) if GraphCache.audit is None
+                    else GraphCache.audit(key, form, body, inputs))
         sig = _binds_signature(binds)
         if sig != self._binds:
             if self._binds:
@@ -255,7 +268,7 @@ class GraphCache:
         signature's mean eager run update the cost ratio the idle
         estimates use (the largest seen)."""
         t0 = time.perf_counter()
-        entry = self._capture(form, body, inputs)
+        entry = self._capture(key[2], form, body, inputs)
         seconds = time.perf_counter() - t0
         runs, eager = self._seen.pop(key, (0, 0.0))
         if runs and eager > 0:
@@ -265,7 +278,8 @@ class GraphCache:
             self._graphs.popitem(last=False)
         return entry
 
-    def _capture(self, form: str, body: Callable, inputs: Sequence[torch.Tensor]) -> _Graph:
+    def _capture(self, key, form: str, body: Callable,
+                 inputs: Sequence[torch.Tensor]) -> _Graph:
         device = self.device
         current = torch.cuda.current_stream(device)
         # the graph's own input buffers, outside the pool: they live as long
@@ -284,7 +298,8 @@ class GraphCache:
                 launch_tally() as tally:
             graph.capture_begin(pool=pool.handle, capture_error_mode="thread_local")
             try:
-                outputs = body(*static)
+                outputs = (body(*static) if GraphCache.audit is None
+                           else GraphCache.audit(key, form, body, static))
             except BaseException:  # graftlint: boundary(a failed capture is ended, then the body's own failure propagates unchanged)
                 self._abandon(graph)
                 raise

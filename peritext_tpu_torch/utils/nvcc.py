@@ -24,6 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
+from .capture import captured
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -99,6 +101,7 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
     return paths
 
 
+@captured
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
     Raises :class:`KernelBuildError` if it cannot be built or loaded."""
@@ -121,6 +124,7 @@ def load_library(name: str) -> ctypes.CDLL:
 _capturing = threading.local()
 
 
+@captured
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, the launch count a kernel wrapper
     keeps, under a lock: an editor's change queue launches from its timer

@@ -1,12 +1,16 @@
 """The port's linter (peritext_tpu_torch/analysis) against the reference
 package's (peritext_tpu/analysis), on the reference's corpus, read-only.
 
-The port carries PTL001, PTL005, PTL006 and PTL007 (and the PTL000
-parse-error finding); PTL002-PTL004 lint jit-traced code and are not
-carried.  For every carried rule the two give the same findings (rule,
-path, line, column, message, context), and the two CLIs the same exit code
-and output on the same input, the reference restricted to the carried
-rules.  The port's self-scan is clean modulo its own baseline,
+The port carries all seven rules (and the PTL000 parse-error finding).
+PTL001 and PTL005-PTL007 are ported unchanged: on the reference's corpus
+the two give the same findings (rule, path, line, column, message,
+context), and the two CLIs the same exit code and output on the same
+input, the reference restricted to those four.  PTL002-PTL004 lint the
+port's CUDA-graph-captured code (graph-cache bodies and marked capture
+roots), of which JAX code has none: on the reference's corpus they find
+nothing; tests/test_torch_capture_lint.py holds them against the
+reference's on the torch twin of its corpus.  The port's self-scan is
+clean modulo its own baseline,
 ``peritext_tpu_torch/graftlint_baseline.json``, every entry live and
 justified.  The port reads and writes no other default baseline: an
 update from outside the package exits 2 and leaves the JAX package's
@@ -38,9 +42,12 @@ from peritext_tpu_torch.analysis.baseline import save_baseline
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "peritext_tpu_torch"
 CORPUS = ROOT / "tests" / "graftlint_corpus"
-CARRIED = ["PTL001", "PTL005", "PTL006", "PTL007"]
-NOT_CARRIED = ["PTL002", "PTL003", "PTL004"]
-REF_RULES = ["--rules", ",".join(CARRIED)]
+TWINS = ROOT / "tests" / "graftlint_corpus_torch"
+CARRIED = ["PTL001", "PTL002", "PTL003", "PTL004", "PTL005", "PTL006", "PTL007"]
+#: the rules of captured code, held against the reference on the torch twin
+TRACED = ["PTL002", "PTL003", "PTL004"]
+UNCHANGED = [rule for rule in CARRIED if rule not in TRACED]
+REF_RULES = ["--rules", ",".join(UNCHANGED)]
 
 
 def _key(f):
@@ -48,14 +55,16 @@ def _key(f):
 
 
 def _ref_scan(path, root):
-    """The reference's findings of the carried rules and PTL000."""
-    return [f for f in jax_scan_paths([path], root=root) if f.rule not in NOT_CARRIED]
+    """The reference's findings of the rules ported unchanged and PTL000."""
+    return [f for f in jax_scan_paths([path], root=root) if f.rule not in TRACED]
 
 
 @pytest.mark.parametrize("corpus", ["bad", "clean"])
 def test_corpus_findings_equal_reference(corpus):
     got = scan_paths([CORPUS / corpus], root=ROOT)
     want = _ref_scan(CORPUS / corpus, ROOT)
+    # JAX code has no graph-cache body and no capture root
+    assert [f for f in got if f.rule in TRACED] == []
     assert [_key(f) for f in got] == [_key(f) for f in want]
     if corpus == "clean":
         assert got == []
@@ -63,7 +72,8 @@ def test_corpus_findings_equal_reference(corpus):
 
 @pytest.mark.parametrize("rule", CARRIED)
 def test_every_carried_rule_has_a_true_positive(rule):
-    assert any(f.rule == rule for f in scan_paths([CORPUS / "bad"], root=ROOT))
+    corpus = TWINS if rule in TRACED else CORPUS
+    assert any(f.rule == rule for f in scan_paths([corpus / "bad"], root=ROOT))
 
 
 def test_parse_error_finding_equals_reference(tmp_path):
@@ -87,14 +97,18 @@ def test_ragged_insert_is_a_ragged_module(tmp_path):
 
 
 def test_rule_table_lists_exactly_the_carried_rules():
-    assert all_rule_ids() == CARRIED
-    assert [row["id"] for row in rule_table()] == CARRIED
-    assert all(row["summary"] and row["rationale"] for row in rule_table())
-    assert not set(NOT_CARRIED) & set(all_rule_ids())  # the pinned deviation
     from peritext_tpu.analysis import rule_table as jax_rule_table
 
+    assert all_rule_ids() == CARRIED
+    assert [row["id"] for row in rule_table()] == [row["id"] for row in jax_rule_table()]
+    assert all(row["summary"] and row["rationale"] for row in rule_table())
+    # the four rules ported unchanged keep the reference's words; the rules
+    # of captured code speak of graph captures
     ref = {row["id"]: row for row in jax_rule_table()}
-    assert rule_table() == [ref[rule] for rule in CARRIED]
+    ours = {row["id"]: row for row in rule_table()}
+    assert [ours[rule] for rule in UNCHANGED] == [ref[rule] for rule in UNCHANGED]
+    assert all("capture" in ours[rule]["summary"] and ours[rule]["scope"] == ref[rule]["scope"]
+               for rule in TRACED)
 
 
 def _cli(fn, argv, capsys):
