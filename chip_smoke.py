@@ -28,15 +28,17 @@ Phases (any failure exits non-zero; no phase's error is passed over):
 5. streaming: ``StreamingMerge(device="cuda")`` (BASELINE config 5, the
    reference's streaming bench row: 2048 fuzz docs x 192 ops, 4 shuffled
    arrival rounds; per round ingest, then ``drain()``; then ``digest()``,
-   ``read_all()`` and ``read_patches_all()``).  An untimed warm-up session, then session A in
-   three object-ingest arms (default, ``fused_pipeline=False``,
+   ``read_all()`` and ``read_patches_all()``).  An untimed warm-up session
+   (by frames), then session A in three object-ingest arms (default,
+   ``fused_pipeline=False``,
    ``static_rounds=True``) that must agree, and its frame arm (the
    reference bench's default wire path: each round's batch of a doc as one
    v2 wire frame, one ``ingest_frames`` call per round, parsed and
    scheduled by the native library, which must have served it), which
    must equal A on every doc; B, A's workload in read blocks of 512 docs,
-   must equal A; C, 10240 docs in two blocks of 8192, in an object and a
-   frame arm that must agree.  Each session's insert launches, counted
+   must equal A; C, 10240 docs in two blocks of 8192 by frames (C_frames),
+   and its object arm on its first 5120 docs in two blocks of 4096, which
+   must agree with C_frames on those docs.  Each session's insert launches, counted
    from 0 over its run, must equal its applies (one per touched block of
    every committed round); A, C and their frame arms must keep digest() ==
    digest(refresh=True) == the sum of doc_digest(), and a seeded sample of
@@ -49,7 +51,7 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    blocks), equal to A, its digest unchanged by the reshard; C's frame arm
    in the ragged layout at full width (16384 rows), equal to C_frames;
    and the long-tail session (the reference bench's ``longdoc`` shape:
-   1024 docs x 8 ops and one essay of 4096 ops, slots 8192, by frames in
+   1024 docs x 8 ops and one essay of 3072 ops, slots 8192, by frames in
    4 rounds) in all three layouts, paged and ragged equal to padded on
    every doc, the essay overflowed and replayed on the host in each.  A paged session launches the insert kernel once per (round,
    page group) (``streaming.group_applies``) and never the ragged one; a
@@ -267,6 +269,28 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    scalar oracle; each path's launches counted from 0 over its run (a
    session's K1 launches equal its block applies); one chaos drain under
    ``obs.profile_trace``, whose trace must hold an insert-kernel event;
+5n. demos (:data:`DEMOS`), the port's own front doors, each loaded from
+   its file in ``demos/``: (a) config 5b through ``torch_scale_demo.run``
+   at 100,000 docs x 226 ops (the JAX demo's defaults; 13 read blocks,
+   106,496 rows), padded, every assertion of the demo holding (the async
+   digest equals the sync one, every ``read_all`` doc equals the oracle,
+   no fallback, no overflow), its frames parsed and scheduled by the
+   native library, K1 launches = ``streaming.block_applies`` (13 blocks x
+   2 rounds); per round the ingest, drain and digest seconds, the wall and
+   end-to-end ops/s, the sweeps, the peak memory; (b) the same demo at
+   16,384 docs (two read blocks) padded, paged and ragged, one digest, K1
+   launches = the block or group applies, K3 = the ragged applies; (c)
+   ``web/torch_server.Handler`` on 127.0.0.1:0 over
+   ``Session(backend="tpu")``: tests/test_web_demo.py's requests and
+   ``web_cycles`` edit-and-sync cycles, every answer equal to a scalar
+   session's, the page the file on disk, both panes converged, K1 = block
+   applies = the editors' rounds, each route's latency p50/p99; then
+   ``web/torch_essay_server`` with ``backend="tpu"`` playing the whole
+   essay trace through ``/step``, both editors equal to a scalar session's
+   essay, steps/s; (d) ``torch_multihost_demo.run``: three TCP hosts
+   converge to one digest; (e) ``torch_two_editors --backend tpu`` on the
+   card prints what ``--device cpu`` prints; each part's launches counted
+   from 0;
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
@@ -282,8 +306,10 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    the first round of the ragged restore, the fused ragged lane's round in
    the sparse window and the first call of the ragged differential; and
    each the captured round of a mesh shard of phase 5j; for the insert
-   kernel also the third replayed round of phase 5k; for the ragged one
-   also the first round of a replayed ragged batch of phase 5l)
+   kernel also the third replayed round of phase 5k and the first block
+   round of 5n's 100,000-doc session; for the ragged one also the first
+   round of a replayed ragged batch of phase 5l and the first round of 5n's
+   ragged demo)
    and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
@@ -342,13 +368,14 @@ LONG_DOC_RAGGED = dict(docs=64, slots=32768, inserts=4096, seed=2)
 #: from seed 90001; slots: the power of two covering the bench's 8192-op
 #: essay; marks: 8192 / 4) moved to streaming: 4 shuffled arrival rounds by
 #: v2 frames; the round widths are session A's, which every change fits
-#: (checked).  One cut, for the time limit: the essay has 4096 ops, not
-#: 8192 (the capacities stay the bench's).  It overflows at these
-#: capacities (more mark ops and comment ids than the tables hold; checked
-#: in every layout), so every session replays it on the host, a cost that
-#: grows faster than the essay: at 8192 ops 118 s a session on an H100
-#: machine's host, at 6144 ops 45-56 s, at 4096 ops 15-29 s
-LONGTAIL = dict(docs=1024, ops=8, seed=1, essay_ops=4096, essay_seed=90001, rounds=4,
+#: (checked).  One cut, for the time limit: the essay has 3072 ops, not
+#: 8192 (the capacities stay the bench's; 4096 before phase 5n).  It
+#: overflows at these capacities (more mark ops and comment ids than the
+#: tables hold; checked in every layout), so every session replays it on
+#: the host, a cost that grows faster than the essay: at 8192 ops 118 s a
+#: session on an H100 machine's host, at 6144 ops 45-56 s, at 4096 ops
+#: 12.8-29 s
+LONGTAIL = dict(docs=1024, ops=8, seed=1, essay_ops=3072, essay_seed=90001, rounds=4,
                 slot_capacity=8192, mark_capacity=2048, tomb_capacity=8192,
                 comment_capacity=64, page_size=64, round_caps=(256, 128, 128, 16), sample=64)
 #: the streaming sessions: BASELINE config 5 as the reference's streaming
@@ -356,10 +383,13 @@ LONGTAIL = dict(docs=1024, ops=8, seed=1, essay_ops=4096, essay_seed=90001, roun
 #: model; slots 384, marks 96, round widths 256/128/128/16), by object
 #: ingest and by the bench's default wire path (v2 frames); B the same with
 #: read blocks of 512 docs; C 10240 docs at the default block of 8192 (two
-#: blocks, 16384 rows)
+#: blocks, 16384 rows), its object arm cut to its first ``c_object_docs``
+#: docs in two blocks of ``c_object_read_chunk`` (for phase 5n: 25.1-29.1 s
+#: at 10240 docs on an H100 machine's host, the object schedule 92% of it)
 STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capacity=384,
               mark_capacity=96, comment_capacity=32, round_caps=(256, 128, 128, 16),
-              sample=64, b_read_chunk=512, c_docs=10240, wire="v2")
+              sample=64, b_read_chunk=512, c_docs=10240, c_object_docs=5120,
+              c_object_read_chunk=4096, wire="v2")
 
 
 #: the bridge phase's fuzzed editing session: three ``"tpu"`` editors and
@@ -373,18 +403,23 @@ STREAM = dict(docs=2048, ops=192, seed=0, rounds=4, slot_capacity=384, tomb_capa
 #: mix need: about 3800 characters inserted, 480 mark ops) and 2048
 #: tombstone rows (about 1000 characters deleted; the reference's default
 #: of 128 would overflow).  Cut from 3000 transactions for the time limit
-#: (to 1500, then to 1000 to make room for phase 5i): every read decodes
-#: the whole document, so the session's cost grows faster than its length
-#: (256-315 s at 3000 on an H100 machine).
+#: (to 1500, then to 1000 to make room for phase 5i, then to 500 for phase
+#: 5n): every read decodes the whole document, so the session's cost grows
+#: faster than its length (256-315 s at 3000 on an H100 machine, 61.9 s at
+#: 1000).
 #: ``capture_at`` is the transaction whose insert call is held against the
 #: plain version
-BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=1000, sync_every=20, seed=3,
-              initial_words=40, comment_ids=24, urls=8, capture_at=750,
+BRIDGE = dict(editors=("e0", "e1", "e2"), transactions=500, sync_every=20, seed=3,
+              initial_words=40, comment_ids=24, urls=8, capture_at=375,
               backend_config=dict(slot_capacity=4096, mark_capacity=512, tomb_capacity=2048))
 #: durability: the sessions checkpointed where they end and restored in
-#: the durability phase, and the crash campaign's seeds and size
+#: the durability phase, the crash campaign's seeds and size, and the docs
+#: of the padded slice a faulted CPU batch of the guarded merge replays
+#: through the oracle (cut from all 1024 for phase 5n: 16.3 s at 1024 on an
+#: H100 machine's host; the card's guarded merges keep all 1024)
 DURABLE = ("C_frames", "C_frames_ragged", "A_paged_frames")
 CRASH = dict(seeds=(11, 12), docs=64, ops=120)
+GUARDED_CPU_DOCS = 256
 #: phase 5e, the serving tier: ``row`` is the reference bench's
 #: ``serve_sustained`` row at its own shape (``bench.py --mode serve``
 #: defaults: 64 docs x 96 ops, workload seed 11; each doc's changes in v2
@@ -508,6 +543,17 @@ CAPTURE_AUDIT = dict(
            ("ragged", "apply_batch_ragged.mesh"): dict(layout="ragged", mesh=True),
            ("engine", "apply_batch_compact_rounds"): None},
     seconds=90.0)
+#: phase 5n, the port's demos (``demos/torch_*.py``): ``scale`` is BASELINE
+#: config 5b through ``demos/torch_scale_demo.py`` at the JAX demo's defaults
+#: (``demos/scale_demo.py``: 100,000 docs, each one fuzz session of 220 ops
+#: asked for, 226 made, seed 200, in two arrival rounds of v2 frames; slots
+#: 512, marks 160, tombstones 192, round widths 192/96/96), padded, in read
+#: blocks of 8192 (13 blocks, 106,496 rows); ``arm_docs`` the same demo's padded, paged and ragged runs at two
+#: read blocks; ``web_cycles`` edit-and-sync cycles sent to the two-editor
+#: server after tests/test_web_demo.py's requests; ``essay_step`` the trace
+#: events a ``/step`` request of the essay server asks for
+DEMOS = dict(scale=dict(docs=100_000, ops=220, seed=200), arm_docs=16_384, web_cycles=40,
+             essay_step=20)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -558,19 +604,38 @@ def _essay(seed: int, ops: int):
     return workloads, _oracle_doc(workloads[0])
 
 
+class Generation:
+    """``generate_workload(seed, docs, ops)`` started in up to ``workers``
+    worker processes (doc d is drawn from seed + d alone, so chunks of docs
+    are independent; the result is the same list).  ``result()`` waits for
+    it and ends the pool; ``close()`` ends the pool, cancelling the chunks
+    not started."""
+
+    def __init__(self, seed: int, docs: int, ops: int, workers: int = 8) -> None:
+        import multiprocessing
+        import os
+        from concurrent.futures import ProcessPoolExecutor
+
+        workers = max(1, min(workers, os.cpu_count() or 1, docs // 64))
+        step = -(-docs // (4 * workers))
+        self._pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+        self._futures = [self._pool.submit(_generate_chunk, (seed + lo, min(step, docs - lo), ops))
+                         for lo in range(0, docs, step)]
+
+    def result(self):
+        try:
+            return [w for f in self._futures for w in f.result()]
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
 def generate(seed: int, docs: int, ops: int):
     """``generate_workload(seed, docs, ops)``, built in worker processes
-    (doc d is drawn from seed + d alone, so chunks of docs are independent;
-    the result is the same list).  The pool ends with the call."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
-
-    workers = max(1, min(8, os.cpu_count() or 1, docs // 64))
-    step = -(-docs // (4 * workers))
-    chunks = [(seed + lo, min(step, docs - lo), ops) for lo in range(0, docs, step)]
-    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        return [w for part in pool.map(_generate_chunk, chunks) for w in part]
+    (:class:`Generation`); the pool ends with the call."""
+    return Generation(seed, docs, ops).result()
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1294,6 +1359,20 @@ def compare_arms(name, other, base, base_name) -> None:
             raise AssertionError(f"streaming: {name} {key} differ from {base_name}")
 
 
+def compare_prefix(name, s, other, base, base_name) -> None:
+    """Session ``s`` (report ``other``) holds ``base``'s documents as its
+    first docs: their spans, patches and fallback, and the sum of their
+    ``doc_digest`` equal to ``base``'s digest."""
+    n = len(base["spans"])
+    for key in ("spans", "patches"):
+        if other[key][:n] != base[key]:
+            raise AssertionError(f"streaming: {name} {key} differ from {base_name}")
+    if [d for d in other["fallback"] if d < n] != base["fallback"]:
+        raise AssertionError(f"streaming: {name} fallback differs from {base_name}")
+    if sum(s.doc_digest(d) for d in range(n)) & 0xFFFFFFFF != base["digest"]:
+        raise AssertionError(f"streaming: {name}'s first {n} doc digests differ from {base_name}")
+
+
 def run_streaming(device, ckpts):
     """The streaming slice: an untimed warm-up session, then sessions A
     (three object arms and a frame arm), B (block-chunked) and C (scale,
@@ -1313,9 +1392,26 @@ def run_streaming(device, ckpts):
     log(f"streaming: generated {cfg['docs']} docs x {cfg['ops']} ops and their "
         f"{cfg['wire']} frames ({wire_bytes} bytes) in {time.perf_counter() - t0:.1f} s")
     sample = sorted(random.Random(cfg["seed"]).sample(range(cfg["docs"]), cfg["sample"]))
+    # C's other docs are made in six worker processes while A's and B's
+    # sessions run (they leave the host's other cores idle)
+    more_job = Generation(cfg["seed"] + cfg["docs"], cfg["c_docs"] - cfg["docs"], cfg["ops"],
+                          workers=6)
+    try:
+        return _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sample,
+                              more_job)
+    finally:
+        more_job.close()
+
+
+def _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sample, more_job):
+    """:func:`run_streaming` once A's workload is made and C's is being made."""
+    from peritext_tpu_torch.testing.arrival import build_arrival
+
     # the first session on the card pays its cold start (kernel modules,
-    # allocator growth); the timed arms run warm
-    run_stream_session(device, cfg, workloads, arrival, "warm_up")
+    # allocator growth); the timed arms run warm.  It ingests by frames:
+    # by objects it took 14.1 s on an H100 machine, 10.6 s of it the object
+    # schedule, which the object arms below time themselves
+    run_stream_session(device, cfg, workloads, wire, "warm_up", wire_bytes=wire_bytes)
     capture = {}
     arms = {}
     for arm, kw in (("A_default", {}), ("A_fused_pipeline_off", dict(fused_pipeline=False)),
@@ -1346,21 +1442,29 @@ def run_streaming(device, ckpts):
     del s_a, s_b
 
     t0 = time.perf_counter()
-    more = generate(cfg["seed"] + cfg["docs"], cfg["c_docs"] - cfg["docs"], cfg["ops"])
+    more = more_job.result()
     workloads_c = workloads + more
-    arrival_c = build_arrival(workloads_c, cfg["rounds"], cfg["seed"])
-    log(f"streaming: generated {len(more)} more docs in {time.perf_counter() - t0:.1f} s")
-    s_c, c = run_stream_session(device, cfg, workloads_c, arrival_c, "C_scale")
+    log(f"streaming: {len(more)} more docs generated while A and B ran; waited "
+        f"{time.perf_counter() - t0:.1f} s for them")
+    # C's object arm: its first docs in two read blocks (the constant's cut)
+    n_obj = cfg["c_object_docs"]
+    s_c, c = run_stream_session(device, dict(cfg, read_chunk=cfg["c_object_read_chunk"]),
+                                workloads_c[:n_obj],
+                                build_arrival(workloads_c[:n_obj], cfg["rounds"], cfg["seed"]),
+                                "C_scale")
     sample_c = sorted(random.Random(cfg["seed"] + 1).sample(range(len(workloads_c)), cfg["sample"]))
     oracle_c = {}
-    check_stream_session("C_scale", s_c, c, workloads_c, cfg, sample_c, oracle_c)
+    check_stream_session("C_scale", s_c, c, workloads_c[:n_obj], cfg,
+                         sorted(random.Random(cfg["seed"] + 1).sample(range(n_obj), cfg["sample"])),
+                         oracle_c)
     del s_c
     wire_c, wire_bytes_c = build_arrival(workloads_c, cfg["rounds"], cfg["seed"], as_frames=True,
                                          wire=cfg["wire"])
     s_cf, cf = run_stream_session(device, cfg, workloads_c, wire_c, "C_frames",
                                   wire_bytes=wire_bytes_c)
-    compare_arms("C_frames", cf, c, "C_scale")
-    log(f"streaming: C_frames equals C_scale on all {len(workloads_c)} docs")
+    compare_prefix("C_frames", s_cf, cf, c, "C_scale")
+    log(f"streaming: C_frames equals C_scale on its {n_obj} docs (read_all, read_patches_all, "
+        "fallback, the sum of their digests)")
     check_stream_session("C_frames", s_cf, cf, workloads_c, cfg, sample_c, oracle_c)
     checkpoint_session(ckpts, "C_frames", s_cf, cf)
     del s_cf
@@ -2954,24 +3058,25 @@ def run_guarded(workloads, cursors, clean):
             else:
                 raise AssertionError(f"guarded merge: {name} on the card did not raise the fault")
         before = GLOBAL_COUNTERS.get("merge.guarded_fallbacks")
+        n = GUARDED_CPU_DOCS
         t0 = time.perf_counter()
-        degraded = DocBatch(guard=True, device="cpu", **kw).merge(workloads, cursors)
+        degraded = DocBatch(guard=True, device="cpu", **kw).merge(workloads[:n], cursors[:n])
         seconds = time.perf_counter() - t0
         if GLOBAL_COUNTERS.get("merge.guarded_fallbacks") != before + 1:
             raise AssertionError("guarded merge: merge.guarded_fallbacks did not count the fault")
-        if degraded.fallback_docs != list(range(len(workloads))) or \
+        if degraded.fallback_docs != list(range(n)) or \
                 degraded.stats.extras.get("guarded_fallback") != 1.0:
             raise AssertionError("guarded merge: the faulted merge did not degrade the batch")
         for field in ("spans", "roots", "cursor_positions"):
-            if getattr(degraded, field) != getattr(clean, field):
+            if getattr(degraded, field) != getattr(clean, field)[:n]:
                 raise AssertionError(f"guarded merge: degraded {field} differ from the clean merge")
     finally:
         kernel_mod.insert_batch = real
     log(f"durability: guarded merge of {len(workloads)} docs launched rga_insert {launches} "
         f"time(s) and equals the unguarded merge; one injected failure raised on the card, "
-        f"guarded and unguarded; on a CPU batch it degraded all {len(workloads)} docs to the "
-        f"oracle in {seconds:.3f} s ({degraded.stats.extras['guarded_error']}), equal in spans, "
-        "roots and cursors")
+        f"guarded and unguarded; on a CPU batch of its first {n} docs it degraded all {n} to "
+        f"the oracle in {seconds:.3f} s ({degraded.stats.extras['guarded_error']}), equal in "
+        "spans, roots and cursors")
     return launches
 
 
@@ -4175,6 +4280,337 @@ def run_chaos_phase(device, trace_dir):
     return dict(paths=reports, seconds=total), paths, captures
 
 
+# ---------------------------------------------------------------------------
+# the port's demos
+# ---------------------------------------------------------------------------
+
+
+def _demo(name):
+    """A demo of ``demos/`` (``web/...`` for the browser servers), loaded
+    from its file as a user runs it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_demo_{name.replace('/', '_')}",
+                                                  ROOT / "demos" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_scale_arm(scale, name, device, docs, layout, capture=None):
+    """``demos/torch_scale_demo.run`` at ``docs`` docs in ``layout``, every
+    assertion of the demo holding, with the launch counts set to 0 just
+    before and read just after: the layout's kernel once per commit its
+    counter counts (:data:`APPLY_COUNTER`), the other never; the frames
+    parsed and scheduled by the native library.  ``capture`` asks for the
+    kernel inputs of the run's first launch (:func:`_arm_capture`).
+    Prints per arrival round the ingest, drain and digest seconds, then the
+    wall and end-to-end ops/s, the sweeps and the peak memory."""
+    import torch
+
+    from peritext_tpu_torch import native
+
+    cfg = DEMOS["scale"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native_calls = dict(native.calls)
+    undo = None
+    if capture is not None:
+        capture["armed"] = True
+        undo = _arm_capture(capture, layout)
+    start = _phase_counts()
+    t0 = time.perf_counter()
+    try:
+        out = scale.run(docs, cfg["ops"], cfg["seed"], str(device), layout=layout)
+    finally:
+        if undo is not None:
+            undo()
+    seconds = time.perf_counter() - t0
+    delta = _phase_delta(start)
+    s = out.pop("session")
+    native_delta = {k: v - native_calls.get(k, 0) for k, v in native.calls.items()
+                    if v != native_calls.get(k, 0)}
+    kernel = "ragged_insert" if layout == "ragged" else "rga_insert"
+    counter = APPLY_COUNTER[layout].split(".")[1]
+    report = dict(session=name, layout=layout, docs=docs, padded_docs=s._padded_docs,
+                  blocks=s._n_blocks(), rounds=s.rounds, ops=out["total_ops"],
+                  arrival_rounds=out["rounds"], wall_seconds=out["wall"],
+                  ops_per_second=out["total_ops"] / out["wall"], final_wait=out["final_wait"],
+                  read_all_seconds=out["read_all_seconds"],
+                  read_patches_all_seconds=out["read_patches_seconds"], patches=out["patches"],
+                  run_seconds=seconds, launches=delta, counters=out["counters"],
+                  native_calls=native_delta, overflow_docs=s.overflow_count(),
+                  fallback_docs=sum(1 for d in s.docs if d.fallback),
+                  peak_memory_bytes=torch.cuda.max_memory_allocated(), digest=out["digest"])
+    del s, out
+    log("demo scale", json.dumps(report))
+    for r, rnd in enumerate(report["arrival_rounds"]):
+        log(f"demo {name}: round {r}: ingest {rnd['ingest']:.3f} s, drain {rnd['drain']:.3f} s, "
+            f"digest scheduled in {rnd['digest']:.3f} s, waited {rnd['digest_wait']:.3f} s")
+    log(f"demo {name}: {docs} docs x {report['ops'] // docs} ops ({report['ops']} ops, "
+        f"{report['padded_docs']} rows, {report['blocks']} read blocks) converged in "
+        f"{report['wall_seconds']:.3f} s, {report['ops_per_second'] / 1e6:.3f} M ops/s end to end "
+        f"(host ingest included); span sweep {report['read_all_seconds']:.3f} s, patch sweep "
+        f"{report['read_patches_all_seconds']:.3f} s; peak memory {report['peak_memory_bytes']} "
+        f"bytes; {delta[kernel]} {kernel} launches = {counter} {delta[counter]}")
+    other = "rga_insert" if layout == "ragged" else "ragged_insert"
+    if delta[kernel] == 0 or delta[kernel] != delta[counter] or delta[other]:
+        raise AssertionError(f"demo {name}: launches {delta} (one {kernel} launch per "
+                             f"{APPLY_COUNTER[layout]})")
+    if not (native_delta.get("parse_frames") and native_delta.get("schedule_split_batch")):
+        raise AssertionError(f"demo {name}: the frames were not parsed and scheduled by the "
+                             f"native library (native calls {native_delta})")
+    if report["overflow_docs"] or report["fallback_docs"]:
+        raise AssertionError(f"demo {name}: {report['overflow_docs']} overflowed, "
+                             f"{report['fallback_docs']} fallback docs")
+    if capture is not None and "args" not in capture:
+        raise AssertionError(f"demo {name}: no kernel call was captured")
+    return report
+
+
+def _serve_demo(mod, session):
+    """``mod.Handler`` over ``session`` on 127.0.0.1:0 in a thread; returns
+    the server and its URL."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    mod.SESSION = session
+    server = ThreadingHTTPServer(("127.0.0.1", 0), mod.Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_port}"
+
+
+def _http(url, path, payload=None):
+    """(status, body bytes, ms) of one request; a POST when ``payload`` is given."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url + path, data=data),
+                                    timeout=120) as res:
+            status, body = res.status, res.read()
+    except urllib.error.HTTPError as err:
+        status, body = err.code, err.read()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def web_requests():
+    """tests/test_web_demo.py's requests (page, state, an edit and a mark on
+    the two editors, a sync, a bad op), then :data:`DEMOS` ``web_cycles``
+    cycles of an insert by alice, a mark by bob and a sync, then the state."""
+    def ops(editor, *steps):
+        return {"editor": editor, "ops": [dict(step, path=["text"]) for step in steps]}
+
+    seq = [("/", None), ("/state", None),
+           ("/op", ops("alice", {"action": "insert", "index": 0, "values": list("Yo ")})),
+           ("/op", ops("bob", {"action": "addMark", "startIndex": 0, "endIndex": 3,
+                               "markType": "strong"})),
+           ("/sync", {}), ("/op", {"editor": "alice", "ops": [{"bogus": 1}]})]
+    marks = ("strong", "em", "link", "comment")
+    for c in range(DEMOS["web_cycles"]):
+        mark = marks[c % len(marks)]
+        step = {"action": "addMark", "startIndex": c % 5, "endIndex": c % 5 + 6,
+                "markType": mark}
+        if mark == "link":
+            step["attrs"] = {"url": f"https://example.org/{c}"}
+        elif mark == "comment":
+            step["attrs"] = {"id": f"c{c}"}
+        seq += [("/op", ops("alice", {"action": "insert", "index": 2 * c % 7,
+                                      "values": list(WORDS[c] + " ")})),
+                ("/op", ops("bob", step)), ("/sync", {})]
+    return seq + [("/state", None)]
+
+
+def run_web_demos(device):
+    """The two browser servers through HTTP on the card.  (a)
+    ``torch_server.Handler`` over ``Session(backend="tpu")`` and, as the
+    oracle, over a scalar session: :func:`web_requests` to both, every answer
+    equal (the page the file on disk), each editor's view its CRDT render,
+    K1 launches = block applies = the editors' committed rounds, each
+    route's latency p50/p99.  (b) ``torch_essay_server`` with
+    ``backend="tpu"`` plays the whole essay trace once through ``/step``:
+    both editors converge, equal to a scalar essay session's, launches as
+    (a); steps/s."""
+    dev = None if device.type == "cuda" else str(device)  # None: the servers' default, cuda
+    server_mod = _demo("web/torch_server")
+    essay_mod = _demo("web/torch_essay_server")
+    page = (ROOT / "demos" / "web" / "index.html").read_bytes()
+    report = {}
+
+    start = _phase_counts()
+    t0 = time.perf_counter()
+    session = server_mod.Session(backend="tpu", device=dev)
+    oracle = server_mod.Session(backend="scalar")
+    srv, url = _serve_demo(server_mod, session)
+    try:
+        answers, ms = [], {}
+        for path, payload in web_requests():
+            status, body, took = _http(url, path, payload)
+            answers.append((status, body))
+            ms.setdefault(path, []).append(took)
+        server_mod.SESSION = oracle
+        want = [_http(url, path, payload)[:2] for path, payload in web_requests()]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    delta = _phase_delta(start)
+    if answers[0] != (200, page) or want[0] != (200, page):
+        raise AssertionError("demo web: / did not serve demos/web/index.html")
+    # the JSON answers compared as values: a span's marks may list in another
+    # order on another replica (the reference's convergence check is dict
+    # equality too)
+    for i, (got, exp) in enumerate(zip(answers[1:], want[1:]), 1):
+        if (got[0], json.loads(got[1])) != (exp[0], json.loads(exp[1])):
+            raise AssertionError(f"demo web: answer {i} {web_requests()[i][0]} differs from the "
+                                 f"scalar session's: {got!r} != {exp!r}")
+    final = json.loads(answers[-1][1])
+    if final["alice"]["spans"] != final["bob"]["spans"] or final["alice"]["pending"]:
+        raise AssertionError("demo web: the two panes did not converge")
+    editors = list(session.editors.values())
+    _check_editors("demo web", editors)
+    rounds = [ed.session.rounds for ed in editors]
+    _check_padded_launches("demo web", delta)
+    if sum(rounds) != delta["block_applies"]:
+        raise AssertionError(f"demo web: rounds {rounds}, launches {delta}")
+    report["web"] = dict(requests=len(answers), seconds=time.perf_counter() - t0,
+                         latency_ms={p: _quantiles(v) for p, v in ms.items()}, rounds=rounds,
+                         launches=delta, chars=len(editors[0].view))
+    log("demo web", json.dumps(report["web"]))
+    log(f"demo web: {len(answers)} requests to torch_server on the card equal a scalar "
+        f"session's answers; both panes converged ({len(editors[0].view)} characters); "
+        f"K1 launches {delta['rga_insert']} = block applies = the editors' rounds {rounds}; "
+        + ", ".join(f"{p} p50 {q['p50']:.3f} ms p99 {q['p99']:.3f} ms"
+                    for p, q in report["web"]["latency_ms"].items()))
+
+    start = _phase_counts()
+    essay = essay_mod.EssaySession(backend="tpu", device=dev)
+    srv, url = _serve_demo(essay_mod, essay)
+    try:
+        state = json.loads(_http(url, "/restart", {})[1])
+        total = state["progress"]["total"]
+        t0 = time.perf_counter()
+        step_ms = []
+        while state["progress"]["event"] < total:
+            n = min(DEMOS["essay_step"], total - state["progress"]["event"])
+            status, body, took = _http(url, "/step", {"n": n})
+            if status != 200:
+                raise AssertionError(f"demo essay: /step answered {status}: {body[:200]!r}")
+            state = json.loads(body)
+            step_ms.append(took)
+        seconds = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    delta = _phase_delta(start)
+    scalar = essay_mod.EssaySession(backend="scalar")
+    while scalar.pos < total:
+        scalar.step(min(200, total - scalar.pos))  # a step takes at most 200 events
+    texts = {n: "".join(s["text"] for s in e["spans"]) for n, e in state["editors"].items()}
+    if not state["converged"] or texts["alice"] != texts["bob"] or \
+            state["editors"] != scalar.state()["editors"]:
+        raise AssertionError("demo essay: the editors did not converge to the scalar session's "
+                             "essay")
+    editors = list(essay.editors.values())
+    _check_editors("demo essay", editors)
+    rounds = [ed.session.rounds for ed in editors]
+    _check_padded_launches("demo essay", delta)
+    if sum(rounds) != delta["block_applies"]:
+        raise AssertionError(f"demo essay: rounds {rounds}, launches {delta}")
+    report["essay"] = dict(events=total, requests=len(step_ms), seconds=seconds,
+                           steps_per_second=total / seconds, step_request_ms=_quantiles(step_ms),
+                           chars=len(texts["alice"]), rounds=rounds, launches=delta)
+    log("demo essay", json.dumps(report["essay"]))
+    log(f"demo essay: the {total}-event essay through /step on the card in {seconds:.3f} s "
+        f"({total / seconds:.1f} steps/s); both editors hold the scalar session's "
+        f"{len(texts['alice'])} characters; K1 launches {delta['rga_insert']} = the editors' "
+        f"rounds {rounds}")
+    return report
+
+
+def run_demos(device):
+    """Phase 5n (:data:`DEMOS`): the port's demos on the card.  Returns the
+    report, each kernel's launches by path and the captured kernel inputs
+    (K1 of the 5b session's first block round, K3 of the ragged arm's)."""
+    import contextlib
+    import io
+
+    import torch
+
+    t_phase = time.perf_counter()
+    cfg = DEMOS
+    scale = _demo("torch_scale_demo")
+    captures = {"padded": {}, "ragged": {}}
+    reports = {}
+    paths = {"rga_insert": {}, "ragged_insert": {}}
+
+    # 5b: the JAX demo's defaults at 100,000 docs, padded
+    r = reports["scale_5b"] = run_scale_arm(scale, "scale_5b", device, cfg["scale"]["docs"],
+                                            "padded", captures["padded"])
+    paths["rga_insert"]["demo_scale_5b"] = r["launches"]["rga_insert"]
+    log(f"demo scale_5b: K1 launches {r['launches']['rga_insert']} = streaming.block_applies "
+        f"{r['launches']['block_applies']} ({r['blocks']} blocks x {r['rounds']} rounds "
+        f"predicted {r['blocks'] * r['rounds']})")
+
+    # the three layouts at two read blocks
+    digests = {}
+    for layout in ("padded", "paged", "ragged"):
+        name = f"scale_{cfg['arm_docs']}_{layout}"
+        r = reports[name] = run_scale_arm(scale, name, device, cfg["arm_docs"], layout,
+                                          captures["ragged"] if layout == "ragged" else None)
+        kernel = "ragged_insert" if layout == "ragged" else "rga_insert"
+        paths[kernel][f"demo_{name}"] = r["launches"][kernel]
+        digests[layout] = r["digest"]
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"demo scale arms: digests differ by layout {digests}")
+    log(f"demo scale arms: padded, paged and ragged at {cfg['arm_docs']} docs share digest "
+        f"{digests['padded']:#010x}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    web = run_web_demos(device)
+    reports.update(web)
+    paths["rga_insert"]["demo_web"] = web["web"]["launches"]["rga_insert"]
+    paths["rga_insert"]["demo_essay_web"] = web["essay"]["launches"]["rga_insert"]
+
+    start = _phase_counts()
+    hosts = _demo("torch_multihost_demo").run(str(device))
+    delta = _phase_delta(start)
+    if len(set(hosts["digests"])) != 1:
+        raise AssertionError(f"demo multihost: digests {hosts['digests']}")
+    _check_padded_launches("demo multihost", delta)
+    reports["multihost"] = dict(hosts, launches=delta)
+    paths["rga_insert"]["demo_multihost"] = delta["rga_insert"]
+    log(f"demo multihost: 3 hosts converged to {hosts['digests'][0]:#010x} in "
+        f"{hosts['rounds']} gossip rounds, {hosts['seconds']:.3f} s; launches {json.dumps(delta)}")
+
+    two = _demo("torch_two_editors")
+    start = _phase_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as card_out:
+        two.main(["--backend", "tpu", "--device", str(device)])
+    seconds = time.perf_counter() - t0
+    delta = _phase_delta(start)
+    with contextlib.redirect_stdout(io.StringIO()) as cpu_out:
+        two.main(["--backend", "tpu", "--device", "cpu"])
+    if card_out.getvalue() != cpu_out.getvalue():
+        raise AssertionError("demo two_editors: the card's output differs from the CPU's:\n"
+                             f"{card_out.getvalue()}\n---\n{cpu_out.getvalue()}")
+    _check_padded_launches("demo two_editors", delta)
+    reports["two_editors"] = dict(seconds=seconds, lines=len(card_out.getvalue().splitlines()),
+                                  launches=delta)
+    paths["rga_insert"]["demo_two_editors"] = delta["rga_insert"]
+    log(f"demo two_editors: --backend tpu on the card prints the CPU run's "
+        f"{reports['two_editors']['lines']} lines; {seconds:.3f} s; launches {json.dumps(delta)}")
+
+    seconds = time.perf_counter() - t_phase
+    log(f"demos: phase 5n {seconds:.1f} s")
+    return reports, paths, captures
+
+
 def main_path_insert_args(batch, workloads):
     """The insert kernel's inputs exactly as the padded slice's merge gives them."""
     from peritext_tpu_torch.ops.kernel import encoded_arrays_of
@@ -4382,6 +4818,10 @@ def run_all(device, jobs, ckpt_root) -> int:
     _, chaos_paths, captures_chaos = run_chaos_phase(device, ckpt_root / "traces")
     log(f"chaos done at {time.perf_counter() - t_start:.1f} s "
         f"(phase 5g {time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, demo_paths, captures_demo = run_demos(device)
+    log(f"demos done at {time.perf_counter() - t_start:.1f} s")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
@@ -4421,6 +4861,8 @@ def run_all(device, jobs, ckpt_root) -> int:
     del mesh_args
     rows.append(check_insert("engine_replay_round", capture_engine.pop("args"),
                              loop_slots=capture_engine["loop_slots"]))
+    rows.append(check_insert("demo_scale_5b_block_round", captures_demo["padded"].pop("args"),
+                             loop_slots=captures_demo["padded"]["loop_slots"]))
     del capture, capture_frames, capture_paged, capture_bridge, capture_serve, capture_fleet
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
@@ -4446,6 +4888,7 @@ def run_all(device, jobs, ckpt_root) -> int:
         ragged_rows += check_ragged("mesh_ragged_round", mesh_args)
     del mesh_args
     ragged_rows += check_ragged("fused_replayed_ragged_round", capture_fused_replay.pop("args"))
+    ragged_rows += check_ragged("demo_scale_ragged_round", captures_demo["ragged"].pop("args"))
     del captures_fused, captures_chaos, captures_plan
     ragged_rows += check_ragged("batch_8k_ragged", ragged_args(
         device, BATCH_8K["slots"],
@@ -4495,6 +4938,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths.update(engine_paths)
     rga_paths.update(fused_paths)
     rga_paths.update(audit_paths)
+    rga_paths.update(demo_paths["rga_insert"])
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})
@@ -4507,6 +4951,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_paths.update(mesh_ragged_paths)
     ragged_paths.update(fused_ragged_paths)
     ragged_paths.update(audit_ragged_paths)
+    ragged_paths.update(demo_paths["ragged_insert"])
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

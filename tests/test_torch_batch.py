@@ -192,3 +192,40 @@ def test_sources_import_no_jax_or_reference():
             if "import" in line:
                 assert not reference.search(line), f"{path}: {line}"
                 assert not jax.search(line), f"{path}: {line}"
+
+
+#: the port's demos: the seven files beside their JAX twins in demos/
+TORCH_DEMOS = ("torch_scale_demo", "torch_two_editors", "torch_essay_content",
+               "torch_essay_demo", "torch_multihost_demo", "web/torch_server",
+               "web/torch_essay_server")
+
+
+def test_demos_import_no_jax_or_reference():
+    """The port's demos keep the rule too: importing each (and what its
+    entry points import lazily) loads neither jax nor the reference
+    package, and no line of theirs that imports names either."""
+    code = (
+        "import sys\n"
+        "sys.path[:0] = ['demos', 'demos/web']\n"
+        "import torch_scale_demo, torch_two_editors, torch_essay_content, torch_essay_demo\n"
+        "import torch_multihost_demo, torch_server, torch_essay_server\n"
+        "import peritext_tpu_torch.api.batch, peritext_tpu_torch.parallel.codec\n"
+        "import peritext_tpu_torch.testing.fuzz, peritext_tpu_torch.core.opids\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'peritext_tpu' or m.startswith('peritext_tpu.'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+    files = sorted((ROOT / "demos").glob("torch_*.py")) + \
+        sorted((ROOT / "demos" / "web").glob("torch_*.py"))
+    assert {p.relative_to(ROOT / "demos").with_suffix("").as_posix() for p in files} == \
+        set(TORCH_DEMOS)
+    reference = re.compile(r"\bperitext_tpu\b(?!_torch)")
+    jax = re.compile(r"\bjax\b")
+    for path in files:
+        for line in path.read_text().splitlines():
+            if "import" in line:
+                assert not reference.search(line), f"{path}: {line}"
+                assert not jax.search(line), f"{path}: {line}"
