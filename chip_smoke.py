@@ -29,9 +29,10 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    reference's streaming bench row: 2048 fuzz docs x 192 ops, 4 shuffled
    arrival rounds; per round ingest, then ``drain()``; then ``digest()``,
    ``read_all()`` and ``read_patches_all()``).  An untimed warm-up session
-   (by frames), then session A in three object-ingest arms (default,
-   ``fused_pipeline=False``,
-   ``static_rounds=True``) that must agree, and its frame arm (the
+   (by frames), then session A in two object-ingest arms (default and
+   ``fused_pipeline=False``; phase 5m's stacked arms drive the
+   ``static_rounds=True`` commit form, by frames) that must agree, and its
+   frame arm (the
    reference bench's default wire path: each round's batch of a doc as one
    v2 wire frame, one ``ingest_frames`` call per round, parsed and
    scheduled by the native library, which must have served it), which
@@ -177,10 +178,9 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    stacked form and its multi-tenant twin, the paged mesh form), each
    session equal to A; then a ``capture audit`` line (per form and site,
    the functions seen and those outside the set the traced-code rules
-   scan), which must cover every listed form with none outside; and the
-   port's analysis CLI (``python -m peritext_tpu_torch.analysis
-   peritext_tpu_torch``, PTL001-PTL007) in a subprocess, which must exit 0;
-   within 90 s;
+   scan), which must cover every listed form with none outside; within
+   90 s (the port's analysis CLI, static and host-only, is held by
+   ``tests/test_torch_analysis.py``, not run here);
 5c. bridge: the editor bridge's device backend, ``Editor(backend="tpu")``
    on ``cuda`` (each transaction one ``ingest``, ``drain()`` and
    ``read_patches``): the nine ``tests/pm_fixtures`` sessions through two
@@ -291,6 +291,18 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    converge to one digest; (e) ``torch_two_editors --backend tpu`` on the
    card prints what ``--device cpu`` prints; each part's launches counted
    from 0;
+5o. scripts (:data:`SCRIPTS`): the JAX side's measurement scripts as the
+   port's ``scripts/torch_*.py``, each loaded from its file and run through
+   its ``main`` on ``cuda`` at the smallest size that still launches K1:
+   dispatch latency, apply phase cost and its floor probe, roofline,
+   engine profile, engine A/B, ingest profile, weak scaling at 1, 2 and 4
+   virtual shards on the card, and two chaos seeds at their defaults; every
+   exit code 0, the engine profile's and the engine A/B's replay digests
+   equal to their sessions' and to each other, the weak-scaling probe
+   digest one value at every size, both chaos seeds clean; each script's
+   K1 launches counted from 0 (each > 0; the ingest profile's = its block
+   applies) and, for phase 6, the insert inputs of the engine profile's
+   first replayed round;
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
@@ -309,7 +321,8 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    kernel also the third replayed round of phase 5k and the first block
    round of 5n's 100,000-doc session; for the ragged one also the first
    round of a replayed ragged batch of phase 5l and the first round of 5n's
-   ragged demo)
+   ragged demo; for the insert kernel also the engine profile's first
+   replayed round in phase 5o)
    and at larger shapes: for the insert
    kernel the ``batch_8k`` bench shape (8192 docs x 384 slots x
    179 inserts, with and without ``loop_slots``), the forced global-memory
@@ -554,6 +567,26 @@ CAPTURE_AUDIT = dict(
 #: events a ``/step`` request of the essay server asks for
 DEMOS = dict(scale=dict(docs=100_000, ops=220, seed=200), arm_docs=16_384, web_cycles=40,
              essay_step=20)
+#: phase 5o, the port's twins of the JAX side's measurement scripts
+#: (``scripts/torch_*.py``), each at the smallest size that still launches
+#: K1 on the card (its ``main``'s arguments; ``--device cuda`` is added), and
+#: the phase's time limit.  The engine profile and the engine A/B share a
+#: session shape (slots 384, marks 96, round widths 256/128/128), so their
+#: digests are one value
+SCRIPTS = dict(
+    runs={"dispatch_latency": ("torch_dispatch_latency", ["--docs", "256", "--slots", "128"]),
+          "apply_phase_cost": ("torch_apply_phase_cost", ["--docs", "256", "--slots", "128"]),
+          "apply_phase_floor": ("torch_apply_phase_cost",
+                                ["--floor", "--docs", "256", "--slots", "128"]),
+          "roofline": ("torch_roofline", ["--copy-docs", "256", "512", "1024", "--docs", "512"]),
+          "engine_profile": ("torch_engine_profile",
+                             ["--docs", "64", "--rounds", "2", "--ops-per-doc", "48"]),
+          "engine_ab": ("torch_engine_ab", ["--docs", "64", "--rounds", "2", "--ops-per-doc", "48"]),
+          "ingest_profile": ("torch_ingest_profile", ["1024"]),
+          "weak_scaling": ("torch_weak_scaling", ["--docs-per-device", "16", "--ops-per-doc", "24",
+                                                  "--sizes", "1", "2", "4"]),
+          "chaos_soak": ("torch_chaos_soak", ["--seeds", "2"])},
+    seconds=45.0)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -634,7 +667,10 @@ class Generation:
 
 def generate(seed: int, docs: int, ops: int):
     """``generate_workload(seed, docs, ops)``, built in worker processes
-    (:class:`Generation`); the pool ends with the call."""
+    (:class:`Generation`; the pool ends with the call), or in this process
+    below 512 docs, where starting the workers costs more than they save."""
+    if docs < 512:
+        return _generate_chunk((seed, docs, ops))
     return Generation(seed, docs, ops).result()
 
 
@@ -686,6 +722,86 @@ def device_time_ms(fn, reps: int, warmup: int = 2) -> float:
             return marks[1].elapsed_time(marks[2]) / reps
         spin *= 2 * host_ms / max(spin_ms, 1e-3)
     raise AssertionError(f"the host never got ahead of the card ({host_ms:.3f} ms to enqueue)")
+
+
+def device_events(prof):
+    """The device events (kernels, copies) of a ``torch.profiler`` run,
+    less the device-side copies of user annotations (a
+    ``record_function`` range is projected onto the stream it covers)."""
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and getattr(e, "activity_type", None) != "gpu_user_annotation"]
+
+
+def traced_device_ms(prof) -> float:
+    """The summed duration of a ``torch.profiler`` run's device events, in
+    ms: the card's busy time."""
+    return sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e3
+
+
+class DeviceBusy:
+    """Device busy ms per call of several calls, from ONE ``torch.profiler``
+    session (a session's start and its parse cost seconds): inside the
+    ``with`` block, :meth:`measure` launches a marker (a one-cycle spin
+    kernel) and then runs a call ``reps`` times between two CUDA events,
+    ending in a synchronize; after the block, ``ms[name]`` is the summed
+    duration of the device events between that measurement's marker and
+    the next on the device's own clock, over ``reps``.  For calls of many
+    kernels, whose launches overrun the launch queue a spin kernel can hold
+    the host ahead of (:func:`device_time_ms` would wait for the card).
+    Where the session traced fewer markers than measurements (seen late in
+    this script's own run, after its earlier phases; not in a fresh
+    process), ``ms[name]`` is the span between the CUDA events over
+    ``reps`` instead, and ``source`` says so."""
+
+    MARKER = "spin_kernel"
+
+    def __init__(self) -> None:
+        self.ms = {}
+        self.source = "device busy, torch.profiler"
+        self._order = []
+        self._prof = None
+
+    def __enter__(self) -> "DeviceBusy":
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        return self
+
+    def measure(self, name: str, fn, reps: int) -> None:
+        import torch
+
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        torch.cuda._sleep(1)
+        events[0].record()
+        for _ in range(reps):
+            fn()
+        events[1].record()
+        torch.cuda.synchronize()
+        self._order.append((name, reps, events))
+
+    def __exit__(self, *exc) -> None:
+        self._prof.__exit__(*exc)
+        if exc[0] is not None:
+            return
+        events = sorted(device_events(self._prof), key=lambda e: e.time_range.start)
+        at = [i for i, e in enumerate(events) if self.MARKER in e.name]
+        if len(at) != len(self._order):
+            self.source = (f"device span, CUDA events: torch.profiler traced {len(events)} "
+                           f"device events, {len(at)} of {len(self._order)} markers")
+            self.ms = {name: ev[0].elapsed_time(ev[1]) / reps for name, reps, ev in self._order}
+            return
+        for k, (name, reps, _) in enumerate(self._order):
+            end = at[k + 1] if k + 1 < len(at) else len(events)
+            ms = sum(e.time_range.elapsed_us() for e in events[at[k] + 1:end]) / 1e3
+            if ms <= 0:
+                raise AssertionError(f"torch.profiler recorded no device time in {name}")
+            self.ms[name] = ms / reps
 
 
 def replay_ops(elem, num_slots, ins_ref, ins_op, s_loop) -> int:
@@ -1373,34 +1489,29 @@ def compare_prefix(name, s, other, base, base_name) -> None:
         raise AssertionError(f"streaming: {name}'s first {n} doc digests differ from {base_name}")
 
 
-def run_streaming(device, ckpts):
+def run_streaming(device, ckpts, jobs):
     """The streaming slice: an untimed warm-up session, then sessions A
-    (three object arms and a frame arm), B (block-chunked) and C (scale,
+    (two object arms and a frame arm), B (block-chunked) and C (scale,
     an object and a frame arm), each checked; returns the K1 captures of a
     mid-session round of A's object and frame arms, the per-session
     reports, and what the layouts phase reuses (workloads, arrivals,
     samples, oracle docs, A_default's and C_frames' results).  C_frames is
-    checkpointed where it ends, into ``ckpts``."""
+    checkpointed where it ends, into ``ckpts``.  A's workload and C's other
+    docs come from ``jobs["stream"]`` and ``jobs["stream_more"]``
+    (:class:`Generation`, started with the script)."""
     from peritext_tpu_torch.testing.arrival import build_arrival
 
     cfg = STREAM
     t0 = time.perf_counter()
-    workloads = generate(cfg["seed"], cfg["docs"], cfg["ops"])
+    workloads = jobs["stream"].result()
     arrival = build_arrival(workloads, cfg["rounds"], cfg["seed"])
     wire, wire_bytes = build_arrival(workloads, cfg["rounds"], cfg["seed"], as_frames=True,
                                      wire=cfg["wire"])
-    log(f"streaming: generated {cfg['docs']} docs x {cfg['ops']} ops and their "
-        f"{cfg['wire']} frames ({wire_bytes} bytes) in {time.perf_counter() - t0:.1f} s")
+    log(f"streaming: {cfg['docs']} docs x {cfg['ops']} ops and their {cfg['wire']} frames "
+        f"({wire_bytes} bytes) ready in {time.perf_counter() - t0:.1f} s")
     sample = sorted(random.Random(cfg["seed"]).sample(range(cfg["docs"]), cfg["sample"]))
-    # C's other docs are made in six worker processes while A's and B's
-    # sessions run (they leave the host's other cores idle)
-    more_job = Generation(cfg["seed"] + cfg["docs"], cfg["c_docs"] - cfg["docs"], cfg["ops"],
-                          workers=6)
-    try:
-        return _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sample,
-                              more_job)
-    finally:
-        more_job.close()
+    return _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sample,
+                          jobs["stream_more"])
 
 
 def _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sample, more_job):
@@ -1414,15 +1525,13 @@ def _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sam
     run_stream_session(device, cfg, workloads, wire, "warm_up", wire_bytes=wire_bytes)
     capture = {}
     arms = {}
-    for arm, kw in (("A_default", {}), ("A_fused_pipeline_off", dict(fused_pipeline=False)),
-                    ("A_static_rounds", dict(static_rounds=True))):
+    for arm, kw in (("A_default", {}), ("A_fused_pipeline_off", dict(fused_pipeline=False))):
         arms[arm] = run_stream_session(
             device, cfg, workloads, arrival, arm,
             capture=capture if arm == "A_fused_pipeline_off" else None, **kw)
     s_a, a = arms["A_default"]
-    for arm in ("A_fused_pipeline_off", "A_static_rounds"):
-        compare_arms(arm, arms[arm][1], a, "A_default")
-    log("streaming: the three arms of A agree (read_all, read_patches_all, digest, fallback)")
+    compare_arms("A_fused_pipeline_off", arms["A_fused_pipeline_off"][1], a, "A_default")
+    log("streaming: the two arms of A agree (read_all, read_patches_all, digest, fallback)")
     oracle_a = {}
     check_stream_session("A_default", s_a, a, workloads, cfg, sample, oracle_a)
     capture_frames = {}
@@ -1444,7 +1553,7 @@ def _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sam
     t0 = time.perf_counter()
     more = more_job.result()
     workloads_c = workloads + more
-    log(f"streaming: {len(more)} more docs generated while A and B ran; waited "
+    log(f"streaming: {len(more)} more docs generated since the script started; waited "
         f"{time.perf_counter() - t0:.1f} s for them")
     # C's object arm: its first docs in two read blocks (the constant's cut)
     n_obj = cfg["c_object_docs"]
@@ -2518,8 +2627,8 @@ def run_fused_pipeline(device, ctx):
 def run_capture_audit(device, ctx, audit):
     """Phase 5m (module doc), inside the audit window that phases 5j-5l
     opened: the sessions that capture each listed (form, site) still
-    unaudited, the ``capture audit`` line and its checks, and the analysis
-    CLI.  Returns the K1 and the K3 launch counts of its sessions."""
+    unaudited, and the ``capture audit`` line and its checks.  Returns the
+    K1 and the K3 launch counts of its sessions."""
     cfg = STREAM
     t_phase = time.perf_counter()
     fine, fine_bytes = ctx["fine"]
@@ -2558,15 +2667,6 @@ def run_capture_audit(device, ctx, audit):
         raise AssertionError(f"capture audit: forms never captured {missing}; functions run "
                              f"inside a capture outside the captured set (each a missing "
                              f"capture-root marker) {outside}")
-    t0 = time.perf_counter()
-    lint = subprocess.run([sys.executable, "-m", "peritext_tpu_torch.analysis",
-                           "peritext_tpu_torch"], cwd=ROOT, capture_output=True, text=True,
-                          timeout=300)
-    log(f"capture audit: analysis CLI exit {lint.returncode} in "
-        f"{time.perf_counter() - t0:.2f} s: {lint.stdout.strip()} {lint.stderr.strip()}")
-    if lint.returncode != 0:
-        raise AssertionError(f"capture audit: python -m peritext_tpu_torch.analysis "
-                             f"peritext_tpu_torch exited {lint.returncode}")
     seconds = time.perf_counter() - t_phase
     log(f"capture audit: phase 5m {seconds:.2f} s")
     if seconds > CAPTURE_AUDIT["seconds"]:
@@ -4285,16 +4385,21 @@ def run_chaos_phase(device, trace_dir):
 # ---------------------------------------------------------------------------
 
 
-def _demo(name):
-    """A demo of ``demos/`` (``web/...`` for the browser servers), loaded
-    from its file as a user runs it."""
+def _load(folder, name):
+    """A script of ``folder`` (``demos``, ``demos/web``, ``scripts``),
+    loaded from its file as a user runs it."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(f"chip_smoke_demo_{name.replace('/', '_')}",
-                                                  ROOT / "demos" / f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"chip_smoke_{folder}_{name}".replace("/", "_"), ROOT / folder / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _demo(name):
+    """A demo of ``demos/`` (``web/...`` for the browser servers)."""
+    return _load("demos", name)
 
 
 def run_scale_arm(scale, name, device, docs, layout, capture=None):
@@ -4611,6 +4716,89 @@ def run_demos(device):
     return reports, paths, captures
 
 
+def _hex_after(line, word):
+    """The hex number printed after ``word`` in ``line``."""
+    import re
+
+    return int(re.search(word + r" (0x[0-9a-f]+)", line).group(1), 16)
+
+
+def run_scripts(device):
+    """Phase 5o (:data:`SCRIPTS`): each script's ``main`` on ``device``.
+    Returns each script's K1 launches and the insert inputs of the engine
+    profile's first replayed round."""
+    import ast
+    import contextlib
+    import io
+    import re
+
+    t_phase = time.perf_counter()
+    outputs, paths, record = {}, {}, {}
+    for key, (name, argv) in SCRIPTS["runs"].items():
+        mod = _load("scripts", name)
+        undo = None
+        if key == "engine_profile":
+            # the live session commits one apply per arrival round (capture
+            # arms whole-batch rounds); the next insert call is the first
+            # replayed round's
+            rounds = int(argv[argv.index("--rounds") + 1])
+            record, undo = _record_insert_call(rounds)
+        start = _phase_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = mod.main([*argv, "--device", str(device)])
+        finally:
+            if undo is not None:
+                undo()
+        seconds = time.perf_counter() - t0
+        delta = _phase_delta(start)
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            log(f"  | {key}: {line}")
+        if rc != 0:
+            raise AssertionError(f"scripts: {name} {' '.join(argv)} exited {rc}")
+        if not lines or not lines[0].startswith("device: ") or "cpu" in lines[0]:
+            raise AssertionError(f"scripts: {name} did not name the card first: {lines[:1]}")
+        if delta["rga_insert"] == 0 or delta["ragged_insert"]:
+            raise AssertionError(f"scripts: {name} launched {delta} (K1 only, at least once)")
+        outputs[key] = lines
+        paths[f"script_{key}"] = delta["rga_insert"]
+        log(f"scripts: {key} exit 0 in {seconds:.2f} s; launches {json.dumps(delta)}")
+
+    line = lambda key, prefix: next(x for x in outputs[key] if x.startswith(prefix))  # noqa: E731
+    engine = line("engine_profile", "engine replay:")
+    digests = {"engine_profile": _hex_after(engine, "digest"),
+               "engine_profile_session": _hex_after(engine, "session"),
+               "engine_ab": _hex_after(line("engine_ab", "digests:"), "session")}
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"scripts: engine digests differ {digests}")
+    staged = ast.literal_eval(line("engine_profile", "{'docs'"))["staged_rounds"]
+    if staged != rounds or "args" not in record:
+        raise AssertionError(f"scripts: the engine profile's session staged {staged} rounds "
+                             f"(want {rounds}), or no replayed round was recorded")
+    summary = json.loads(outputs["weak_scaling"][-1])
+    sizes = [json.loads(x)["mesh_devices"] for x in outputs["weak_scaling"]
+             if x.startswith('{"mesh_devices"')]
+    if not summary["digest_equal_across_mesh_sizes"] or sizes != [1, 2, 4]:
+        raise AssertionError(f"scripts: weak scaling sizes {sizes}, summary {summary}")
+    if not any(x.startswith("2/2 campaigns clean") for x in outputs["chaos_soak"]):
+        raise AssertionError("scripts: the two chaos seeds were not clean")
+    ingest = line("ingest_profile", "K1 launches")
+    k1, applies = map(int, re.match(r"K1 launches (\d+), block applies (\d+)", ingest).groups())
+    if not k1 == applies == paths["script_ingest_profile"]:
+        raise AssertionError(f"scripts: ingest profile {ingest!r}, counted "
+                             f"{paths['script_ingest_profile']} (K1 = block applies)")
+    seconds = time.perf_counter() - t_phase
+    log(f"scripts: engine digests {digests['engine_ab']:#010x} (profile replay = session = "
+        f"engine A/B), weak-scaling probe digest {summary['probe_digest']:#010x} at 1, 2 and 4 "
+        f"virtual shards; K1 launches {json.dumps(paths)}; phase 5o {seconds:.2f} s")
+    if seconds > SCRIPTS["seconds"]:
+        raise AssertionError(f"scripts: phase 5o took {seconds:.2f} s, over "
+                             f"{SCRIPTS['seconds']} s")
+    return paths, record
+
+
 def main_path_insert_args(batch, workloads):
     """The insert kernel's inputs exactly as the padded slice's merge gives them."""
     from peritext_tpu_torch.ops.kernel import encoded_arrays_of
@@ -4688,14 +4876,25 @@ def main() -> int:
     import tempfile
 
     pool = multiprocessing.get_context("spawn").Pool(2)
+    # so do the streaming phase's workloads (A's 2048 docs, C's other
+    # 8192): made while the build and the merges keep one host core busy,
+    # they are ready when phase 5 starts (43.1 s and a 37.1 s wait on a slow
+    # host when they were made at its start)
+    cfg = STREAM
+    stream_jobs = (Generation(cfg["seed"], cfg["docs"], cfg["ops"]),
+                   Generation(cfg["seed"] + cfg["docs"], cfg["c_docs"] - cfg["docs"], cfg["ops"],
+                              workers=6))
     try:
         jobs = dict(
             essay=pool.apply_async(_essay, (LONGTAIL["essay_seed"], LONGTAIL["essay_ops"])),
             serve_wide=pool.apply_async(_workload, (SERVE["seed"], SERVE["wide"]["docs"],
-                                                    SERVE["wide"]["ops"])))
+                                                    SERVE["wide"]["ops"])),
+            stream=stream_jobs[0], stream_more=stream_jobs[1])
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
             return run_all(device, jobs, Path(tmp))
     finally:
+        for job in stream_jobs:
+            job.close()
         pool.terminate()
         pool.join()
 
@@ -4740,7 +4939,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     pooled, pooled_workloads, pooled_launches = run_pooled(device, workloads, cursors)
     log(f"merges done at {time.perf_counter() - t_start:.1f} s")
     ckpts = {"root": ckpt_root}
-    capture, capture_frames, stream_reports, ctx = run_streaming(device, ckpts)
+    capture, capture_frames, stream_reports, ctx = run_streaming(device, ckpts, jobs)
     log(f"streaming done at {time.perf_counter() - t_start:.1f} s")
     capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx, jobs["essay"],
                                                                        ckpts)
@@ -4822,6 +5021,10 @@ def run_all(device, jobs, ckpt_root) -> int:
     torch.cuda.empty_cache()
     _, demo_paths, captures_demo = run_demos(device)
     log(f"demos done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    script_paths, capture_script = run_scripts(device)
+    log(f"scripts done at {time.perf_counter() - t_start:.1f} s")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
@@ -4863,6 +5066,8 @@ def run_all(device, jobs, ckpt_root) -> int:
                              loop_slots=capture_engine["loop_slots"]))
     rows.append(check_insert("demo_scale_5b_block_round", captures_demo["padded"].pop("args"),
                              loop_slots=captures_demo["padded"]["loop_slots"]))
+    rows.append(check_insert("script_engine_replay_round", capture_script.pop("args"),
+                             loop_slots=capture_script["loop_slots"]))
     del capture, capture_frames, capture_paged, capture_bridge, capture_serve, capture_fleet
     args = synth_args(device, **BATCH_8K, seed=1)
     rows.append(check_insert("batch_8k", args))
@@ -4939,6 +5144,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths.update(fused_paths)
     rga_paths.update(audit_paths)
     rga_paths.update(demo_paths["rga_insert"])
+    rga_paths.update(script_paths)
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})

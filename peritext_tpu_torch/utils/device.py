@@ -8,6 +8,8 @@ device.
 
 from __future__ import annotations
 
+import subprocess
+import sys
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -26,6 +28,40 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "torch path on the CPU"
         )
     return dev
+
+
+def card_line(device: torch.device) -> str:
+    """What a measurement ran on: ``cpu``, or the card's name and power
+    limit as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    gives them (a card below its full power limit runs slower under load)."""
+    if device.type != "cuda":
+        return str(device.type)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i",
+         str(index)], check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+
+
+def script_device(spec: str, prog: str) -> Optional[torch.device]:
+    """A measurement script's ``--device``, resolved and named on the
+    script's first line of output (``device: `` and :func:`card_line`); or
+    None, with the reason on stderr, when it names a card that is not there
+    (a script never falls back to the CPU)."""
+    try:
+        device = resolve_device(spec)
+    except RuntimeError as exc:
+        print(f"{prog}: {exc}", file=sys.stderr)
+        return None
+    print(f"device: {card_line(device)}", flush=True)
+    return device
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU): the
+    host clock of a device measurement ends here."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def pack_int32(arrays: Dict[str, np.ndarray]):

@@ -229,3 +229,44 @@ def test_demos_import_no_jax_or_reference():
             if "import" in line:
                 assert not reference.search(line), f"{path}: {line}"
                 assert not jax.search(line), f"{path}: {line}"
+
+
+#: the port's measurement scripts in scripts/ (twins of the JAX side's and
+#: its own studies); every one keeps the rule
+TORCH_SCRIPTS = ("torch_apply_phase_cost", "torch_bridge_profile", "torch_causal_pairs",
+                 "torch_chaos_soak", "torch_dispatch_latency", "torch_engine_ab",
+                 "torch_engine_profile", "torch_ingest_profile", "torch_roofline",
+                 "torch_scale_layouts", "torch_serve_graph_ab", "torch_stream_profile",
+                 "torch_team_sweep", "torch_weak_scaling")
+
+
+def test_scripts_import_no_jax_or_reference():
+    """Importing every ``scripts/torch_*.py`` (and chip_smoke.py and the
+    modules their entry points import lazily) loads neither jax, the
+    reference package nor its bench, and no line of theirs that imports
+    names any of them."""
+    files = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert tuple(p.stem for p in files) == TORCH_SCRIPTS
+    code = (
+        "import importlib.util, sys\n"
+        f"for name in {TORCH_SCRIPTS!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import chip_smoke\n"
+        "import peritext_tpu_torch.ops.kernel, peritext_tpu_torch.ops.resolve\n"
+        "import peritext_tpu_torch.testing.engine, peritext_tpu_torch.testing.synth\n"
+        "import peritext_tpu_torch.testing.arrival, peritext_tpu_torch.testing.chaos\n"
+        "import peritext_tpu_torch.obs.ledger, peritext_tpu_torch.parallel.mesh\n"
+        "import peritext_tpu_torch.api.batch, peritext_tpu_torch.observability\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'peritext_tpu', 'bench'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+    forbidden = re.compile(r"\bperitext_tpu\b(?!_torch)|\bjax\b|\b(from|import)\s+bench\b")
+    for path in files:
+        for line in path.read_text().splitlines():
+            if "import" in line:
+                assert not forbidden.search(line), f"{path}: {line}"
