@@ -270,16 +270,17 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    session's K1 launches equal its block applies); one chaos drain under
    ``obs.profile_trace``, whose trace must hold an insert-kernel event;
 5n. demos (:data:`DEMOS`), the port's own front doors, each loaded from
-   its file in ``demos/``: (a) config 5b through ``torch_scale_demo.run``
-   at 100,000 docs x 226 ops (the JAX demo's defaults; 13 read blocks,
-   106,496 rows), padded, every assertion of the demo holding (the async
-   digest equals the sync one, every ``read_all`` doc equals the oracle,
-   no fallback, no overflow), its frames parsed and scheduled by the
-   native library, K1 launches = ``streaming.block_applies`` (13 blocks x
-   2 rounds); per round the ingest, drain and digest seconds, the wall and
-   end-to-end ops/s, the sweeps, the peak memory; (b) the same demo at
-   16,384 docs (two read blocks) padded, paged and ragged, one digest, K1
-   launches = the block or group applies, K3 = the ragged applies; (c)
+   its file in ``demos/``: (a) config 5b's session through
+   ``torch_scale_demo.run`` (the JAX demo's fuzz sessions of 226 ops, seed
+   200) at 16,384 docs (two read blocks: the block-chunked serial drain)
+   padded, paged and ragged, every assertion of the demo holding (the
+   async digest equals the sync one, every ``read_all`` doc equals the
+   oracle, no fallback, no overflow), its frames parsed and scheduled by
+   the native library, one digest across the layouts, K1 launches = the
+   block or group applies, K3 = the ragged applies; per round the ingest,
+   drain and digest seconds, the wall and end-to-end ops/s, the sweeps,
+   the peak memory (config 5b at its full 100,000 docs runs in
+   ``scripts/torch_scale_layouts.py``, a chip call of its own); (b)
    ``web/torch_server.Handler`` on 127.0.0.1:0 over
    ``Session(backend="tpu")``: tests/test_web_demo.py's requests and
    ``web_cycles`` edit-and-sync cycles, every answer equal to a scalar
@@ -287,8 +288,8 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    applies = the editors' rounds, each route's latency p50/p99; then
    ``web/torch_essay_server`` with ``backend="tpu"`` playing the whole
    essay trace through ``/step``, both editors equal to a scalar session's
-   essay, steps/s; (d) ``torch_multihost_demo.run``: three TCP hosts
-   converge to one digest; (e) ``torch_two_editors --backend tpu`` on the
+   essay, steps/s; (c) ``torch_multihost_demo.run``: three TCP hosts
+   converge to one digest; (d) ``torch_two_editors --backend tpu`` on the
    card prints what ``--device cpu`` prints; each part's launches counted
    from 0;
 5o. scripts (:data:`SCRIPTS`): the JAX side's measurement scripts as the
@@ -303,6 +304,16 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    K1 launches counted from 0 (each > 0; the ingest profile's = its block
    applies) and, for phase 6, the insert inputs of the engine profile's
    first replayed round;
+5p. smokes (:data:`SMOKES`): the JAX side's CI smokes and append A/Bs as
+   the port's ``scripts/torch_*.py``, each loaded from its file and run
+   through its ``main`` on ``cuda`` at the twin's defaults, each smoke's
+   artifacts written under a temporary directory: obs, paged, ragged,
+   fused, mesh (1/2/4/8 virtual shards of the card), plan, serve, latency,
+   incident, history, fleet and fleet-serve, then the append and flat
+   append A/Bs; every exit code 0, the card named first, each script's
+   launches counted from 0 (K1 and K3 as its layouts give them, none for
+   the host-only fleet episode and the flat A/B), the A/B arms equal, the
+   phase within its time limit;
 6. kernels: each kernel against its plain torch version on the card, bit
    for bit, at the inputs each merge above gives it (for the insert kernel
    the padded slice's, the pooled padded merge's and each paged group's,
@@ -319,7 +330,7 @@ Phases (any failure exits non-zero; no phase's error is passed over):
    the sparse window and the first call of the ragged differential; and
    each the captured round of a mesh shard of phase 5j; for the insert
    kernel also the third replayed round of phase 5k and the first block
-   round of 5n's 100,000-doc session; for the ragged one also the first
+   round of 5n's padded demo session; for the ragged one also the first
    round of a replayed ragged batch of phase 5l and the first round of 5n's
    ragged demo; for the insert kernel also the engine profile's first
    replayed round in phase 5o)
@@ -350,12 +361,17 @@ import json
 import random
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+
+sys.path.insert(0, str(ROOT))
+from peritext_tpu_torch.testing.devtime import (  # noqa: E402
+    Generation, cuda_time_ms, device_time_ms, workload)
 
 #: H100 SXM peaks (NVIDIA data sheet; Hopper white paper for int32): HBM3
 #: bandwidth, and int32 ALU issue (132 SMs x 64 int32 lanes x 1.98 GHz boost)
@@ -557,15 +573,16 @@ CAPTURE_AUDIT = dict(
            ("engine", "apply_batch_compact_rounds"): None},
     seconds=90.0)
 #: phase 5n, the port's demos (``demos/torch_*.py``): ``scale`` is BASELINE
-#: config 5b through ``demos/torch_scale_demo.py`` at the JAX demo's defaults
-#: (``demos/scale_demo.py``: 100,000 docs, each one fuzz session of 220 ops
-#: asked for, 226 made, seed 200, in two arrival rounds of v2 frames; slots
-#: 512, marks 160, tombstones 192, round widths 192/96/96), padded, in read
-#: blocks of 8192 (13 blocks, 106,496 rows); ``arm_docs`` the same demo's padded, paged and ragged runs at two
-#: read blocks; ``web_cycles`` edit-and-sync cycles sent to the two-editor
+#: config 5b's session through ``demos/torch_scale_demo.py`` at the JAX
+#: demo's defaults (``demos/scale_demo.py``: each doc one fuzz session of 220
+#: ops asked for, 226 made, seed 200, in two arrival rounds of v2 frames;
+#: slots 512, marks 160, tombstones 192, round widths 192/96/96; its 100,000
+#: docs run in ``scripts/torch_scale_layouts.py``), read blocks of 8192;
+#: ``arm_docs`` the demo's padded, paged and ragged runs at two read blocks;
+#: ``web_cycles`` edit-and-sync cycles sent to the two-editor
 #: server after tests/test_web_demo.py's requests; ``essay_step`` the trace
 #: events a ``/step`` request of the essay server asks for
-DEMOS = dict(scale=dict(docs=100_000, ops=220, seed=200), arm_docs=16_384, web_cycles=40,
+DEMOS = dict(scale=dict(ops=220, seed=200), arm_docs=16_384, web_cycles=40,
              essay_step=20)
 #: phase 5o, the port's twins of the JAX side's measurement scripts
 #: (``scripts/torch_*.py``), each at the smallest size that still launches
@@ -587,6 +604,28 @@ SCRIPTS = dict(
                                                   "--sizes", "1", "2", "4"]),
           "chaos_soak": ("torch_chaos_soak", ["--seeds", "2"])},
     seconds=45.0)
+#: phase 5p, the port's twins of the JAX side's CI smokes and append A/Bs
+#: (``scripts/torch_*.py``), each at its twin's defaults (its ``main``'s
+#: arguments; ``--device cuda`` is added, and ``--out`` under a temporary
+#: directory for a smoke), with the kernels its layouts launch (``rga``: K1,
+#: ``ragged``: K3; the fleet episode is host work, the flat A/B runs torch
+#: ops only), and the phase's time limit
+SMOKES = dict(
+    runs={"obs": ("torch_obs_smoke", [], ("rga",)),
+          "paged": ("torch_paged_smoke", [], ("rga",)),
+          "ragged": ("torch_ragged_smoke", [], ("rga", "ragged")),
+          "fused": ("torch_fused_smoke", [], ("rga",)),
+          "mesh": ("torch_mesh_smoke", [], ("rga", "ragged")),
+          "plan": ("torch_plan_smoke", [], ("rga",)),
+          "serve": ("torch_serve_smoke", [], ("rga",)),
+          "latency": ("torch_latency_smoke", [], ("rga",)),
+          "incident": ("torch_incident_smoke", [], ("rga",)),
+          "history": ("torch_history_smoke", [], ("rga",)),
+          "fleet": ("torch_fleet_smoke", [], ()),
+          "fleet_serve": ("torch_fleet_serve_smoke", [], ("rga",)),
+          "append_ab": ("torch_append_ab", [], ("rga",)),
+          "append_flat_ab": ("torch_append_flat_ab", [], ())},
+    seconds=75.0)
 #: the reference package's golden key sets of a devprof snapshot
 #: (tests/test_devprof.py), which the port's snapshot keeps
 GOLDEN_DEVPROF_KEYS = {"enabled", "capture_costs", "sites", "occupancy", "occupancy_totals",
@@ -613,20 +652,6 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def _generate_chunk(args):
-    from peritext_tpu_torch.testing.fuzz import generate_workload
-
-    return generate_workload(*args)
-
-
-def _workload(seed: int, docs: int, ops: int):
-    """``generate_workload(seed, docs, ops)`` in one worker process: the
-    serve phase's 2048 sessions, made while the earlier phases run."""
-    from peritext_tpu_torch.testing.fuzz import generate_workload
-
-    return generate_workload(seed, docs, ops)
-
-
 def _essay(seed: int, ops: int):
     """One fuzz doc of ``ops`` ops (seed ``seed``) and its scalar-oracle
     replay: the long-tail session's essay, made in a worker."""
@@ -635,173 +660,6 @@ def _essay(seed: int, ops: int):
 
     workloads = generate_workload(seed, 1, ops)
     return workloads, _oracle_doc(workloads[0])
-
-
-class Generation:
-    """``generate_workload(seed, docs, ops)`` started in up to ``workers``
-    worker processes (doc d is drawn from seed + d alone, so chunks of docs
-    are independent; the result is the same list).  ``result()`` waits for
-    it and ends the pool; ``close()`` ends the pool, cancelling the chunks
-    not started."""
-
-    def __init__(self, seed: int, docs: int, ops: int, workers: int = 8) -> None:
-        import multiprocessing
-        import os
-        from concurrent.futures import ProcessPoolExecutor
-
-        workers = max(1, min(workers, os.cpu_count() or 1, docs // 64))
-        step = -(-docs // (4 * workers))
-        self._pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
-        self._futures = [self._pool.submit(_generate_chunk, (seed + lo, min(step, docs - lo), ops))
-                         for lo in range(0, docs, step)]
-
-    def result(self):
-        try:
-            return [w for f in self._futures for w in f.result()]
-        finally:
-            self.close()
-
-    def close(self) -> None:
-        self._pool.shutdown(wait=True, cancel_futures=True)
-
-
-def generate(seed: int, docs: int, ops: int):
-    """``generate_workload(seed, docs, ops)``, built in worker processes
-    (:class:`Generation`; the pool ends with the call), or in this process
-    below 512 docs, where starting the workers costs more than they save."""
-    if docs < 512:
-        return _generate_chunk((seed, docs, ops))
-    return Generation(seed, docs, ops).result()
-
-
-def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean time per call of ``fn()`` over ``reps`` back-to-back calls from
-    an idle card, by CUDA events: device time, or the host's own time per
-    call where that is longer."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls, with
-    the host kept ahead of the card: a spin kernel holds the stream while
-    the host enqueues the calls, so the events bracket the card's work and
-    not the wrappers' host time.  The spin must outlast the enqueue, else it
-    is retried longer; a call that waits for the card (a device-to-host
-    read) can never get ahead, and fails."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    spin = 2e6  # cycles
-    for _ in range(6):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        marks[0].record()
-        torch.cuda._sleep(int(spin))
-        marks[1].record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        marks[2].record()
-        torch.cuda.synchronize()
-        spin_ms = marks[0].elapsed_time(marks[1])
-        if spin_ms > host_ms:
-            return marks[1].elapsed_time(marks[2]) / reps
-        spin *= 2 * host_ms / max(spin_ms, 1e-3)
-    raise AssertionError(f"the host never got ahead of the card ({host_ms:.3f} ms to enqueue)")
-
-
-def device_events(prof):
-    """The device events (kernels, copies) of a ``torch.profiler`` run,
-    less the device-side copies of user annotations (a
-    ``record_function`` range is projected onto the stream it covers)."""
-    import torch
-
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and getattr(e, "activity_type", None) != "gpu_user_annotation"]
-
-
-def traced_device_ms(prof) -> float:
-    """The summed duration of a ``torch.profiler`` run's device events, in
-    ms: the card's busy time."""
-    return sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e3
-
-
-class DeviceBusy:
-    """Device busy ms per call of several calls, from ONE ``torch.profiler``
-    session (a session's start and its parse cost seconds): inside the
-    ``with`` block, :meth:`measure` launches a marker (a one-cycle spin
-    kernel) and then runs a call ``reps`` times between two CUDA events,
-    ending in a synchronize; after the block, ``ms[name]`` is the summed
-    duration of the device events between that measurement's marker and
-    the next on the device's own clock, over ``reps``.  For calls of many
-    kernels, whose launches overrun the launch queue a spin kernel can hold
-    the host ahead of (:func:`device_time_ms` would wait for the card).
-    Where the session traced fewer markers than measurements (seen late in
-    this script's own run, after its earlier phases; not in a fresh
-    process), ``ms[name]`` is the span between the CUDA events over
-    ``reps`` instead, and ``source`` says so."""
-
-    MARKER = "spin_kernel"
-
-    def __init__(self) -> None:
-        self.ms = {}
-        self.source = "device busy, torch.profiler"
-        self._order = []
-        self._prof = None
-
-    def __enter__(self) -> "DeviceBusy":
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        self._prof.__enter__()
-        return self
-
-    def measure(self, name: str, fn, reps: int) -> None:
-        import torch
-
-        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        torch.cuda._sleep(1)
-        events[0].record()
-        for _ in range(reps):
-            fn()
-        events[1].record()
-        torch.cuda.synchronize()
-        self._order.append((name, reps, events))
-
-    def __exit__(self, *exc) -> None:
-        self._prof.__exit__(*exc)
-        if exc[0] is not None:
-            return
-        events = sorted(device_events(self._prof), key=lambda e: e.time_range.start)
-        at = [i for i, e in enumerate(events) if self.MARKER in e.name]
-        if len(at) != len(self._order):
-            self.source = (f"device span, CUDA events: torch.profiler traced {len(events)} "
-                           f"device events, {len(at)} of {len(self._order)} markers")
-            self.ms = {name: ev[0].elapsed_time(ev[1]) / reps for name, reps, ev in self._order}
-            return
-        for k, (name, reps, _) in enumerate(self._order):
-            end = at[k + 1] if k + 1 < len(at) else len(events)
-            ms = sum(e.time_range.elapsed_us() for e in events[at[k] + 1:end]) / 1e3
-            if ms <= 0:
-                raise AssertionError(f"torch.profiler recorded no device time in {name}")
-            self.ms[name] = ms / reps
 
 
 def replay_ops(elem, num_slots, ins_ref, ins_op, s_loop) -> int:
@@ -1051,18 +909,20 @@ def mixed_streams():
     return [np.concatenate(p)[order] for p in planes]
 
 
-def run_slice(device):
-    """The padded path: one padded merge of BASELINE config 3 on the card."""
+def run_slice(device, job):
+    """The padded path: one padded merge of BASELINE config 3 on the card
+    (its workload from ``job``, a :class:`Generation`)."""
     from peritext_tpu_torch.api.batch import DocBatch
     from peritext_tpu_torch.ops.insert import insert_batch
     from peritext_tpu_torch.testing.fuzz import sample_cursors
 
     cfg = SLICE
     t0 = time.perf_counter()
-    workloads = generate(cfg["seed"], cfg["docs"], cfg["ops"])
+    workloads = job.result()
     cursors = sample_cursors(workloads, 4, cfg["seed"])
-    log(f"slice: generated {cfg['docs']} docs x {cfg['ops']} ops in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"slice: {cfg['docs']} docs x {cfg['ops']} ops ready in "
+        f"{time.perf_counter() - t0:.1f} s after the build")
+    freeze_arrived("slice")
     batch = DocBatch(slot_capacity=cfg["slot_capacity"], mark_capacity=cfg["mark_capacity"],
                      comment_capacity=cfg["comment_capacity"], device=device)
     batch.merge(workloads[:8], cursors[:8])  # warm-up: allocator and library load
@@ -1097,23 +957,25 @@ def check_oracle(phase, workloads, cursors, report, sample) -> None:
     log(f"{phase}: {len(sample)} sampled docs equal the oracle (spans, roots, cursors)")
 
 
-def run_pooled(device, workloads, cursors):
-    """The pooled slice: the same workloads, plus a long tail, through all
-    three layouts; returns the ragged DocBatch, the workloads and each
-    layout's launch counts."""
+def run_pooled(device, workloads, cursors, tail_job):
+    """The pooled slice: the same workloads, plus a long tail (from
+    ``tail_job``, started with the script), through all three layouts;
+    returns the ragged DocBatch, the workloads and each layout's launch
+    counts."""
     from peritext_tpu_torch.api.batch import DocBatch
     from peritext_tpu_torch.ops.insert import SMEM_BUDGET, insert_batch, num_sms
     from peritext_tpu_torch.ops.ragged_insert import ragged_insert, ragged_teams
     from peritext_tpu_torch.store import ragged_plan
-    from peritext_tpu_torch.testing.fuzz import generate_workload, sample_cursors
+    from peritext_tpu_torch.testing.fuzz import sample_cursors
 
     cfg = POOLED
     t0 = time.perf_counter()
-    tail = generate_workload(cfg["tail_seed"], cfg["tail_docs"], cfg["tail_ops"])
+    tail = tail_job.get(timeout=900)
     workloads = workloads + tail
     cursors = cursors + sample_cursors(tail, 4, cfg["tail_seed"])
-    log(f"pooled: generated {cfg['tail_docs']} docs x {cfg['tail_ops']} ops in "
-        f"{time.perf_counter() - t0:.1f} s; {len(workloads)} docs in all")
+    log(f"pooled: {cfg['tail_docs']} docs x {cfg['tail_ops']} ops ready in "
+        f"{time.perf_counter() - t0:.1f} s after the slice; {len(workloads)} docs in all")
+    freeze_arrived("pooled")
     reports, launches, batches = {}, {}, {}
     for layout in ("padded", "paged", "ragged"):
         batch = batches[layout] = DocBatch(
@@ -1163,6 +1025,18 @@ def _oracle_digest(doc, slot_capacity, actor_table) -> int:
     cps, slots = _doc_char_slots(doc)
     return (doc_digest_host(cps, slots, slot_capacity)
             + _doc_full_extras_host(doc, slots, actor_table)) & 0xFFFFFFFF
+
+
+def freeze_arrived(what: str) -> None:
+    """Move every object alive now into the cyclic collector's permanent
+    generation (``gc.freeze``), once ``what`` (workloads, arrivals: millions
+    of tracked objects that live for phases) has arrived, so a collection
+    walks only what was made after it.  Unfrozen, the collector's walks of
+    the workloads took 8.3 and 9.75 s of two of A's 2048-doc sessions and
+    9.99 s for one full collection (an H100 machine's slow host).  A frozen
+    object is still freed when its last reference goes."""
+    gc.freeze()
+    log(f"{what}: {gc.get_freeze_count()} objects frozen")
 
 
 class GcClock:
@@ -1509,6 +1383,7 @@ def run_streaming(device, ckpts, jobs):
                                      wire=cfg["wire"])
     log(f"streaming: {cfg['docs']} docs x {cfg['ops']} ops and their {cfg['wire']} frames "
         f"({wire_bytes} bytes) ready in {time.perf_counter() - t0:.1f} s")
+    freeze_arrived("streaming")
     sample = sorted(random.Random(cfg["seed"]).sample(range(cfg["docs"]), cfg["sample"]))
     return _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sample,
                           jobs["stream_more"])
@@ -1569,6 +1444,7 @@ def _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sam
     del s_c
     wire_c, wire_bytes_c = build_arrival(workloads_c, cfg["rounds"], cfg["seed"], as_frames=True,
                                          wire=cfg["wire"])
+    freeze_arrived("streaming C")
     s_cf, cf = run_stream_session(device, cfg, workloads_c, wire_c, "C_frames",
                                   wire_bytes=wire_bytes_c)
     compare_prefix("C_frames", s_cf, cf, c, "C_scale")
@@ -1584,7 +1460,7 @@ def _run_streaming(device, ckpts, cfg, workloads, arrival, wire, wire_bytes, sam
     return capture, capture_frames, reports + [b, c, cf], ctx
 
 
-def run_stream_layouts(device, ctx, essay_job, ckpts):
+def run_stream_layouts(device, ctx, longtail_jobs, ckpts):
     """The streaming-layouts phase: session A in the paged and the ragged
     layout, by objects and by frames, each equal to A_default on every doc;
     B in the paged layout with a reshard() after its second round (4 read
@@ -1650,7 +1526,7 @@ def run_stream_layouts(device, ctx, essay_job, ckpts):
         f"{ctx['cf']['peak_memory_bytes']})")
     reports.append(cr)
     del s
-    reports += run_longtail(device, essay_job)
+    reports += run_longtail(device, *longtail_jobs)
     return capture_paged, capture_ragged, reports
 
 
@@ -2720,7 +2596,7 @@ def round_need(workloads):
     return need
 
 
-def run_longtail(device, essay_job):
+def run_longtail(device, essay_job, docs_job):
     """The long-tail session (:data:`LONGTAIL`), the reference bench's
     ``longdoc`` shape moved to streaming, by frames, in the padded, paged
     and ragged layouts: paged and ragged must equal padded on every doc and
@@ -2731,7 +2607,7 @@ def run_longtail(device, essay_job):
     cfg = LONGTAIL
     t0 = time.perf_counter()
     essay_workloads, essay_doc = essay_job.get(timeout=900)
-    workloads = generate(cfg["seed"], cfg["docs"], cfg["ops"]) + essay_workloads
+    workloads = docs_job.get(timeout=900) + essay_workloads
     need = round_need(workloads)
     if any(n > c for n, c in zip(need, cfg["round_caps"])):
         raise AssertionError(f"longtail: a change needs {need}, wider than {cfg['round_caps']}")
@@ -3443,6 +3319,7 @@ def run_serve_wide(device, workload_job, capture):
     n_frames = sum(len(p) for p in plans)
     log(f"serve_2048: {cfg['docs']} docs x {cfg['ops']} ops ({n_frames} frames) ready in "
         f"{time.perf_counter() - t0:.1f} s after the earlier phases")
+    freeze_arrived("serve_2048")
     factory = serve_factory(device, cfg["docs"], cfg["ops"], plans)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4639,7 +4516,8 @@ def run_web_demos(device):
 def run_demos(device):
     """Phase 5n (:data:`DEMOS`): the port's demos on the card.  Returns the
     report, each kernel's launches by path and the captured kernel inputs
-    (K1 of the 5b session's first block round, K3 of the ragged arm's)."""
+    (K1 of the padded scale arm's first block round, K3 of the ragged
+    arm's)."""
     import contextlib
     import io
 
@@ -4652,20 +4530,12 @@ def run_demos(device):
     reports = {}
     paths = {"rga_insert": {}, "ragged_insert": {}}
 
-    # 5b: the JAX demo's defaults at 100,000 docs, padded
-    r = reports["scale_5b"] = run_scale_arm(scale, "scale_5b", device, cfg["scale"]["docs"],
-                                            "padded", captures["padded"])
-    paths["rga_insert"]["demo_scale_5b"] = r["launches"]["rga_insert"]
-    log(f"demo scale_5b: K1 launches {r['launches']['rga_insert']} = streaming.block_applies "
-        f"{r['launches']['block_applies']} ({r['blocks']} blocks x {r['rounds']} rounds "
-        f"predicted {r['blocks'] * r['rounds']})")
-
-    # the three layouts at two read blocks
+    # config 5b's session in the three layouts at two read blocks
     digests = {}
     for layout in ("padded", "paged", "ragged"):
         name = f"scale_{cfg['arm_docs']}_{layout}"
         r = reports[name] = run_scale_arm(scale, name, device, cfg["arm_docs"], layout,
-                                          captures["ragged"] if layout == "ragged" else None)
+                                          captures.get(layout))
         kernel = "ragged_insert" if layout == "ragged" else "rga_insert"
         paths[kernel][f"demo_{name}"] = r["launches"][kernel]
         digests[layout] = r["digest"]
@@ -4799,6 +4669,51 @@ def run_scripts(device):
     return paths, record
 
 
+def run_smokes(device, root):
+    """Phase 5p (:data:`SMOKES`): each smoke's and A/B's ``main`` on
+    ``device``, a smoke's artifacts under ``root``.  Returns each script's
+    launches of each kernel."""
+    import contextlib
+    import io
+
+    t_phase = time.perf_counter()
+    paths = {"rga_insert": {}, "ragged_insert": {}}
+    for key, (name, argv, kernels) in SMOKES["runs"].items():
+        mod = _load("scripts", name)
+        argv = [*argv, "--device", str(device)]
+        if name.endswith("_smoke"):
+            argv += ["--out", str(root / key)]
+        start = _phase_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = mod.main(argv)
+        seconds = time.perf_counter() - t0
+        delta = _phase_delta(start)
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            log(f"  | {key}: {line}")
+        if rc != 0:
+            raise AssertionError(f"smokes: {name} {' '.join(argv)} exited {rc}")
+        if not lines or not lines[0].startswith("device: ") or "cpu" in lines[0]:
+            raise AssertionError(f"smokes: {name} did not name the card first: {lines[:1]}")
+        launched = {"rga": delta["rga_insert"], "ragged": delta["ragged_insert"]}
+        if any((n > 0) != (k in kernels) for k, n in launched.items()):
+            raise AssertionError(f"smokes: {name} launched {delta}, expected "
+                                 f"{list(kernels) or 'no kernel'}")
+        if key.startswith("append") and not any(x.startswith(("arms equal", "equivalent outputs"))
+                                                for x in lines):
+            raise AssertionError(f"smokes: {name} did not show its arms equal")
+        paths["rga_insert"][f"smoke_{key}"] = delta["rga_insert"]
+        paths["ragged_insert"][f"smoke_{key}"] = delta["ragged_insert"]
+        log(f"smokes: {key} exit 0 in {seconds:.2f} s; launches {json.dumps(delta)}")
+    seconds = time.perf_counter() - t_phase
+    log(f"smokes: K1 launches {json.dumps(paths['rga_insert'])}; K3 launches "
+        f"{json.dumps(paths['ragged_insert'])}; phase 5p {seconds:.2f} s")
+    if seconds > SMOKES["seconds"]:
+        raise AssertionError(f"smokes: phase 5p took {seconds:.2f} s, over {SMOKES['seconds']} s")
+    return paths
+
+
 def main_path_insert_args(batch, workloads):
     """The insert kernel's inputs exactly as the padded slice's merge gives them."""
     from peritext_tpu_torch.ops.kernel import encoded_arrays_of
@@ -4861,7 +4776,6 @@ def main() -> int:
     if not (ROOT / "peritext_tpu_torch" / "csrc" / "insert.cu").is_file():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     import torch
 
     if not torch.cuda.is_available():
@@ -4870,26 +4784,36 @@ def main() -> int:
     device = torch.device("cuda")
     # the long-tail essay (one doc of thousands of fuzz ops) with its oracle
     # replay, and the serve phase's 2048-session workload, take minutes on
-    # one core each: they start now, in two workers, which end with main
+    # one core each: they start now, in workers which end with main
     import multiprocessing
+    import os
 
     import tempfile
 
-    pool = multiprocessing.get_context("spawn").Pool(2)
-    # so do the streaming phase's workloads (A's 2048 docs, C's other
-    # 8192): made while the build and the merges keep one host core busy,
-    # they are ready when phase 5 starts (43.1 s and a 37.1 s wait on a slow
-    # host when they were made at its start)
+    # each job's workers yield the host's cores to the jobs needed before
+    # theirs (os.nice: the slice's 0, the pool's 1, A's 2, C's 5)
+    pool = multiprocessing.get_context("spawn").Pool(3, initializer=os.nice, initargs=(1,))
+    # so do the slices' workloads, first (the merges wait on them: 69.2 s
+    # and 26.7 s on a slow host when made in phases 3 and 4), and the
+    # streaming phase's (A's 2048 docs, C's other 8192): made while the
+    # build and the merges keep one host core busy, they are ready when
+    # phase 5 starts (43.1 s and a 37.1 s wait on a slow host when they were
+    # made at its start)
     cfg = STREAM
-    stream_jobs = (Generation(cfg["seed"], cfg["docs"], cfg["ops"]),
+    stream_jobs = (Generation(SLICE["seed"], SLICE["docs"], SLICE["ops"]),
+                   Generation(cfg["seed"], cfg["docs"], cfg["ops"], nice=2),
                    Generation(cfg["seed"] + cfg["docs"], cfg["c_docs"] - cfg["docs"], cfg["ops"],
-                              workers=6))
+                              workers=6, nice=5))
     try:
         jobs = dict(
+            tail=pool.apply_async(workload, (POOLED["tail_seed"], POOLED["tail_docs"],
+                                              POOLED["tail_ops"])),
             essay=pool.apply_async(_essay, (LONGTAIL["essay_seed"], LONGTAIL["essay_ops"])),
-            serve_wide=pool.apply_async(_workload, (SERVE["seed"], SERVE["wide"]["docs"],
+            longtail=pool.apply_async(workload, (LONGTAIL["seed"], LONGTAIL["docs"],
+                                                 LONGTAIL["ops"])),
+            serve_wide=pool.apply_async(workload, (SERVE["seed"], SERVE["wide"]["docs"],
                                                     SERVE["wide"]["ops"])),
-            stream=stream_jobs[0], stream_more=stream_jobs[1])
+            slice=stream_jobs[0], stream=stream_jobs[1], stream_more=stream_jobs[2])
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
             return run_all(device, jobs, Path(tmp))
     finally:
@@ -4922,26 +4846,35 @@ def run_all(device, jobs, ckpt_root) -> int:
     # loaded exactly once, whatever the doc mix
     whole = RecompileSentinel().start()
     t0 = time.perf_counter()
-    libs = build_libraries(["insert", "ragged_insert"])
+    # g++ builds the native host library while nvcc builds the kernels
+    host_lib = {}
+    g_build = threading.Thread(target=lambda: host_lib.update(
+        ok=native.available(), seconds=time.perf_counter() - t0))
+    g_build.start()
+    try:
+        libs = build_libraries(["insert", "ragged_insert"])
+    finally:
+        g_build.join()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    if not native.available():
+    if not host_lib.get("ok"):
         raise AssertionError("build: the native host library (g++) did not build or load")
     log(f"build: native host library {native.library_path().name} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{host_lib['seconds']:.2f} s, beside the kernels")
     for path in libs.values():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log("  ptxas:", line.strip())
 
     torch.manual_seed(0)
-    batch, workloads, cursors, launches, slice_report = run_slice(device)
-    pooled, pooled_workloads, pooled_launches = run_pooled(device, workloads, cursors)
+    batch, workloads, cursors, launches, slice_report = run_slice(device, jobs["slice"])
+    pooled, pooled_workloads, pooled_launches = run_pooled(device, workloads, cursors,
+                                                           jobs["tail"])
     log(f"merges done at {time.perf_counter() - t_start:.1f} s")
     ckpts = {"root": ckpt_root}
     capture, capture_frames, stream_reports, ctx = run_streaming(device, ckpts, jobs)
     log(f"streaming done at {time.perf_counter() - t_start:.1f} s")
-    capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx, jobs["essay"],
+    capture_paged, capture_ragged, layout_reports = run_stream_layouts(device, ctx,
+                                                                       (jobs["essay"], jobs["longtail"]),
                                                                        ckpts)
     stream_reports += layout_reports
     log(f"streaming layouts done at {time.perf_counter() - t_start:.1f} s")
@@ -5025,6 +4958,10 @@ def run_all(device, jobs, ckpt_root) -> int:
     torch.cuda.empty_cache()
     script_paths, capture_script = run_scripts(device)
     log(f"scripts done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke_paths = run_smokes(device, ckpt_root / "smokes")
+    log(f"smokes done at {time.perf_counter() - t_start:.1f} s")
 
     rows = [check_insert("main_path", main_path_insert_args(batch, workloads))]
     rows.append(check_insert("pooled_padded", main_path_insert_args(pooled["padded"], pooled_workloads)))
@@ -5064,7 +5001,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     del mesh_args
     rows.append(check_insert("engine_replay_round", capture_engine.pop("args"),
                              loop_slots=capture_engine["loop_slots"]))
-    rows.append(check_insert("demo_scale_5b_block_round", captures_demo["padded"].pop("args"),
+    rows.append(check_insert("demo_scale_padded_block_round", captures_demo["padded"].pop("args"),
                              loop_slots=captures_demo["padded"]["loop_slots"]))
     rows.append(check_insert("script_engine_replay_round", capture_script.pop("args"),
                              loop_slots=capture_script["loop_slots"]))
@@ -5145,6 +5082,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     rga_paths.update(audit_paths)
     rga_paths.update(demo_paths["rga_insert"])
     rga_paths.update(script_paths)
+    rga_paths.update(smoke_paths["rga_insert"])
     ragged_paths = {"pooled_ragged": pooled_launches["ragged"]["ragged_insert"]}
     ragged_paths.update({f"streaming_{r['session']}": r["ragged_insert_launches"]
                          for r in stream_reports if r["layout"] == "ragged"})
@@ -5158,6 +5096,7 @@ def run_all(device, jobs, ckpt_root) -> int:
     ragged_paths.update(fused_ragged_paths)
     ragged_paths.update(audit_ragged_paths)
     ragged_paths.update(demo_paths["ragged_insert"])
+    ragged_paths.update({k: n for k, n in smoke_paths["ragged_insert"].items() if n})
     kernels = [
         dict(record("rga_insert", "peritext_tpu_torch/csrc/insert.cu",
                     "peritext_tpu/ops/pallas_insert.py:94", rga_paths["slice"], rows),

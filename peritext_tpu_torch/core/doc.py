@@ -36,7 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 from ..schema import MARK_SPEC, is_mark_type
 from .errors import CausalityError, IndexOutOfBounds, MissingObject, PeritextError
 from .opids import HEAD, ROOT, ElemRef, ObjectId, OpId
-from .spans import add_characters_to_spans, ops_to_marks
+from .spans import add_characters_to_spans, adding_changes_marks, ops_to_marks
 from .types import (
     AFTER,
     BEFORE,
@@ -581,10 +581,11 @@ class Doc:
                         if gap is not None
                         else self._closest_mark_ops_left(metadata, index, side)
                     )
+                    changed = adding_changes_marks(existing, op)
                     new_ops = dict(existing)
                     new_ops[op.opid] = op
                     setattr(el, prop, new_ops)
-                    if ops_to_marks(existing.values()) != ops_to_marks(new_ops.values()):
+                    if changed:
                         partial = self._partial_patch(op, index_for_patch)
                     op_intersects_item = True
 
@@ -609,7 +610,7 @@ class Doc:
                         partial = None
                     new_ops = dict(gap)
                     new_ops[op.opid] = op
-                    if ops_to_marks(gap.values()) != ops_to_marks(new_ops.values()):
+                    if adding_changes_marks(gap, op):
                         partial = self._partial_patch(op, index_for_patch)
                     setattr(el, prop, new_ops)
 

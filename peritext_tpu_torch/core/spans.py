@@ -69,6 +69,39 @@ def ops_to_marks(ops: Iterable[Operation]) -> MarkMap:
     return marks
 
 
+def adding_changes_marks(ops: Dict, op: Operation) -> bool:
+    """Whether ``ops_to_marks`` of the op set ``ops`` (op ID -> op) plus
+    ``op`` differs from ``ops_to_marks`` of ``ops`` alone, without resolving
+    either: only the winner of ``op``'s key (its mark type, or its comment
+    id) can change, and only to ``op``."""
+    if op.opid in ops:
+        return ops_to_marks(ops.values()) != ops_to_marks({**ops, op.opid: op}.values())
+    mt = op.mark_type
+    if mt is None:
+        return False
+    multiple = MARK_SPEC[mt].allow_multiple
+    key = op.attrs["id"] if multiple else mt
+    prev = None
+    for other in ops.values():
+        omt = other.mark_type
+        if omt is None or MARK_SPEC[omt].allow_multiple != multiple:
+            continue
+        if (other.attrs["id"] if multiple else omt) == key and \
+                (prev is None or other.opid > prev.opid):
+            prev = other
+    if prev is not None and not op.opid > prev.opid:
+        return False
+    return _resolved(prev, mt) != _resolved(op, mt)
+
+
+def _resolved(winner: Optional[Operation], mark_type: str):
+    """What ``ops_to_marks`` shows for a key whose winning op is ``winner``
+    (``None`` for no mark)."""
+    if winner is None or winner.action != "addMark":
+        return None
+    return winner.attrs["url"] if mark_type == "link" else True
+
+
 def add_characters_to_spans(
     characters: List[str], marks: MarkMap, spans: List[FormatSpan]
 ) -> None:

@@ -140,3 +140,17 @@ class RecompileSentinel(logging.Handler):
                 f"{'library or graph' if sum(fresh.values()) == 1 else 'libraries or graphs'}"
                 f": {fresh}"
             )
+
+    def assert_fresh_sessions_steady(self, what: str, graphs_held: int) -> None:
+        """The steady state of sessions made since :meth:`mark` (a graph
+        cache lives and dies with its session, so a fresh session captures
+        each signature it repeats once): no library built or loaded, and no
+        more graph captures than the ``graphs_held`` those sessions' caches
+        still hold (a signature captured twice would exceed them)."""
+        fresh = self.since_mark()
+        built = {k: n for k, n in fresh.items() if not k.startswith("graph.")}
+        captured = sum(n for k, n in fresh.items() if k.startswith("graph."))
+        if built or captured > graphs_held:
+            raise AssertionError(
+                f"{what} built or loaded {built}, and captured {captured} graphs for "
+                f"{graphs_held} held")

@@ -155,6 +155,9 @@ class FrameStager:
                 # handle.wait() returns never sees an undercount
                 self.staged += 1
                 handle._resolve(value)
+            # the idle wait holds nothing of the job (its function may be a
+            # bound method of a session the caller has dropped)
+            job = fn = args = handle = value = None
 
     # -- lifecycle -----------------------------------------------------------
 

@@ -69,6 +69,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import time
+import weakref
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Dict, Iterable, List, Optional, Sequence, Union
@@ -1714,7 +1715,11 @@ class StreamingMerge:
         the worker thread."""
         if self._stager is None or self._stager._closed:
             self._stager = FrameStager()
-            self._stager.span_factory = lambda: self.tracer.span("staging.stage")
+            # weakly: the lane's worker outlives a job by its idle timeout,
+            # and must not keep a dropped session (its device state and
+            # graphs) alive that long
+            session = weakref.ref(self)
+            self._stager.span_factory = lambda: session().tracer.span("staging.stage")
         return self._stager
 
     def _commit_pending(self, pending, chain_digest: bool = False) -> bool:

@@ -4,8 +4,8 @@ server over time.
 Both split each doc's changes into round batches with ``random.Random``
 calls in a fixed sequence, so the same seed gives the same arrival as the
 reference package's helpers (``tests/test_streaming.py`` ``interleave_rounds``
-and ``bench.build_arrival``, shuffle model), and two sessions fed from one
-arrival see identical traffic.  The frame form encodes each round's batch
+and ``bench.build_arrival``, both arrival models), and two sessions fed from
+one arrival see identical traffic.  The frame form encodes each round's batch
 as one wire frame, as a sending host would.
 """
 
@@ -23,16 +23,37 @@ def interleave_rounds(workload: Dict[str, List[Change]], rounds: int,
     within a batch — delivery order must not matter)."""
     changes = [ch for log in workload.values() for ch in log]
     rng.shuffle(changes)
+    return _split_rounds(changes, rounds)
+
+
+def _split_rounds(changes: List[Change], rounds: int) -> List[List[Change]]:
     size = -(-len(changes) // rounds)
     return [changes[i: i + size] for i in range(0, len(changes), size)]
 
 
+def fifo_order(workload: Dict[str, List[Change]], rng: random.Random) -> List[Change]:
+    """One doc's changes as a transport delivers them: each sender's log in
+    its own (FIFO) order, the next change taken from a uniformly random
+    sender that still has one."""
+    logs = {a: list(log) for a, log in workload.items()}
+    actors = sorted(logs)
+    changes = []
+    while True:
+        live = [a for a in actors if logs[a]]
+        if not live:
+            return changes
+        changes.append(logs[rng.choice(live)].pop(0))
+
+
 def build_arrival(workloads: Sequence[Dict[str, List[Change]]], rounds: int, seed,
-                  as_frames: bool = False, wire: str = "v2"):
-    """Per-doc round batches of a session's arrival (the shuffle model: each
-    doc's changes in a random order, per-sender reordering included, a
-    scheduling stress), split into ``rounds`` batches.  One
-    ``random.Random(seed)`` serves every doc, in doc order.
+                  as_frames: bool = False, wire: str = "v2", arrival_model: str = "shuffle"):
+    """Per-doc round batches of a session's arrival, split into ``rounds``
+    batches.  One ``random.Random(seed)`` serves every doc, in doc order.
+
+    ``arrival_model``: ``"shuffle"`` (each doc's changes in a random order,
+    per-sender reordering included, a scheduling stress) or ``"fifo"``
+    (:func:`fifo_order`: per-sender FIFO with a random interleave of
+    senders, what a TCP link and a change queue deliver).
 
     Object form (default): returns the batches of ``Change`` objects.
     ``as_frames=True``: each batch, sorted by ``(actor, seq)`` (senders flush
@@ -44,8 +65,11 @@ def build_arrival(workloads: Sequence[Dict[str, List[Change]]], rounds: int, see
 
     if wire not in ("v2", "v4"):
         raise ValueError(f"unknown wire format: {wire!r}")
+    if arrival_model not in ("shuffle", "fifo"):
+        raise ValueError(f"unknown arrival model: {arrival_model!r}")
     rng = random.Random(seed)
-    arrival = [interleave_rounds(w, rounds, rng) for w in workloads]
+    arrival = [interleave_rounds(w, rounds, rng) if arrival_model == "shuffle"
+               else _split_rounds(fifo_order(w, rng), rounds) for w in workloads]
     if not as_frames:
         return arrival
     frames = []

@@ -396,6 +396,8 @@ class _LinkGate:
         self._sock.listen(16)
         self.address = self._sock.getsockname()
         self._stop = False
+        self._links: set = set()  # every bridged socket still open
+        self._links_lock = threading.Lock()
         self._thread = threading.Thread(target=self._accept_loop, daemon=True)
         self._thread.start()
 
@@ -415,6 +417,16 @@ class _LinkGate:
             self._sock.close()
         except OSError:
             pass
+        # and the bridges still open: shutdown() wakes their pumps' recv, so
+        # no bridge thread outlives the gate
+        with self._links_lock:
+            links = list(self._links)
+        for s in links:
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self._thread.join(timeout=5)
 
     def _accept_loop(self) -> None:
         while not self._stop:
@@ -436,6 +448,12 @@ class _LinkGate:
         except OSError:
             conn.close()
             return
+        with self._links_lock:
+            if self._stop:
+                conn.close()
+                upstream.close()
+                return
+            self._links.update((conn, upstream))
         delay = self.delay if mode == "slow" else 0.0
 
         def pump(src: socket.socket, dst: socket.socket,
@@ -452,7 +470,15 @@ class _LinkGate:
             except OSError:
                 pass
             finally:
+                # shutdown() first: it wakes the other direction's recv,
+                # which close() alone does not on Linux
                 for s in (src, dst):
+                    with self._links_lock:
+                        self._links.discard(s)
+                    try:
+                        s.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
                     try:
                         s.close()
                     except OSError:
@@ -651,6 +677,7 @@ def run_fleet_chaos(
             assert gauge_lines and any(
                 float(ln.rsplit(" ", 1)[1]) > 0 for ln in gauge_lines
             ), "lag gauge absent or all-zero during the partition"
+            report.lag_gauge_seen = True
 
         # -- phase C: heal — most-behind-first drain -----------------------
         for gate in gates.values():

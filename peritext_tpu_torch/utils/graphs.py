@@ -67,6 +67,7 @@ import collections
 import logging
 import time
 import warnings
+import weakref
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -134,7 +135,8 @@ class GraphPool:
     def __init__(self) -> None:
         self.handle = None
         self.stream = None
-        self.caches: list = []
+        #: weakly: a dropped session's cache (and its graphs) goes with it
+        self.caches: "weakref.WeakSet" = weakref.WeakSet()
 
     def release(self) -> None:
         """Let the pool go when no cache of it holds a graph (the allocator
@@ -166,7 +168,7 @@ class GraphCache:
         self._deferring = False
         self._capture_ratio = CAPTURE_COST_RATIO
         self._pool = pool if pool is not None else GraphPool()
-        self._pool.caches.append(self)
+        self._pool.caches.add(self)
         self._stats: Dict[str, Dict[str, int]] = {}
 
     # -- accounting ----------------------------------------------------------

@@ -111,7 +111,7 @@ class Steady:
         if self.device.type != "cuda":
             print("device busy ms per call: not measured (cpu)")
             return
-        from chip_smoke import DeviceBusy
+        from peritext_tpu_torch.testing.devtime import DeviceBusy
 
         with DeviceBusy() as busy:
             for name, (fn, ctx) in self.calls.items():

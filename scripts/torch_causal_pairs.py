@@ -87,7 +87,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("causal pairs: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import STREAM, generate, run_stream_session
+    from chip_smoke import STREAM, run_stream_session
+    from peritext_tpu_torch.testing.devtime import generate
     from peritext_tpu_torch import native
     from peritext_tpu_torch.parallel import causal
     from peritext_tpu_torch.parallel import streaming as streaming_mod

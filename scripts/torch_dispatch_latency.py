@@ -124,7 +124,7 @@ def main(argv=None) -> int:
           f"{per_call['replay']*1e3:.4f} ms, tiny {per_call['tiny']*1e3:.4f} ms; graphs "
           f"{graphs.stats()}")
     if device.type == "cuda":
-        from chip_smoke import DeviceBusy, device_time_ms
+        from peritext_tpu_torch.testing.devtime import DeviceBusy, device_time_ms
 
         with DeviceBusy() as busy:
             busy.measure("eager", lambda: one(state), reps=2)

@@ -65,7 +65,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from chip_smoke import generate
+    from peritext_tpu_torch.testing.devtime import generate
     from peritext_tpu_torch.ops.kernel import apply_batch_compact
     from peritext_tpu_torch.ops.packed import empty_docs
     from peritext_tpu_torch.parallel.streaming import _resolve_block_digest

@@ -67,7 +67,7 @@ class Staged:
     ops its workload holds."""
 
     def __init__(self, device, docs, rounds, opd, slots, marks, round_caps=(256, 128, 128)):
-        from chip_smoke import generate
+        from peritext_tpu_torch.testing.devtime import generate
         from peritext_tpu_torch.ops.packed import empty_docs
         from peritext_tpu_torch.parallel.streaming import StreamingMerge
         from peritext_tpu_torch.testing.arrival import build_arrival
@@ -130,7 +130,7 @@ def _device_ms(device, busy, held=None) -> str:
     with the host kept ahead; on the CPU, "not measured"."""
     if device.type != "cuda":
         return "device busy ms: not measured (cpu)"
-    from chip_smoke import DeviceBusy, device_time_ms
+    from peritext_tpu_torch.testing.devtime import DeviceBusy, device_time_ms
 
     with DeviceBusy() as profiled:
         for name, fn in busy.items():
@@ -222,7 +222,7 @@ def profile_pass(rp: "Staged", path: Path) -> None:
     if device.type != "cuda":
         print(f"profile: trace -> {path}; device time: not measured (cpu)")
         return
-    from chip_smoke import traced_device_ms
+    from peritext_tpu_torch.testing.devtime import traced_device_ms
 
     busy_ms = traced_device_ms(prof)
     if busy_ms > 0:
@@ -315,7 +315,7 @@ def measure_fused_pipeline(device, docs, rounds, opd, slots=384, marks=96):
     alternate) and ``host_parse_s`` (the session's wire-parse wall);
     ``overlap_hidden_s = serialized_s - pipelined_s`` and
     ``parse_overlap_ratio = clamp(hidden / host_parse, 0, 1)``."""
-    from chip_smoke import generate
+    from peritext_tpu_torch.testing.devtime import generate
     from peritext_tpu_torch.parallel.streaming import StreamingMerge
     from peritext_tpu_torch.testing.arrival import build_arrival
 

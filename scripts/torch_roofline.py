@@ -153,7 +153,7 @@ def main(argv=None) -> int:
         print(f"device busy and shares of the published {HBM_BYTES_PER_S/1e12:.2f} TB/s: "
               "not measured (cpu)")
         return 0
-    from chip_smoke import DeviceBusy
+    from peritext_tpu_torch.testing.devtime import DeviceBusy
 
     # one call of each on the card alone: the bandwidth its kernels reach
     # once host enqueue is out of the measure

@@ -156,9 +156,11 @@ def run_arm(arm: str, what: str, parent: Path, frames: str = "") -> dict:
 def make_wide(path: Path) -> None:
     """The 2048 sessions' workload of phases 5e (b) and 5f, made once."""
     cs = _import_checkout(ROOT)
+    from peritext_tpu_torch.testing.devtime import workload
+
     with open(path, "wb") as f:
-        pickle.dump(cs._workload(cs.SERVE["seed"], cs.SERVE["wide"]["docs"],
-                                 cs.SERVE["wide"]["ops"]), f)
+        pickle.dump(workload(cs.SERVE["seed"], cs.SERVE["wide"]["docs"],
+                             cs.SERVE["wide"]["ops"]), f)
 
 
 def make_frames(path: Path) -> None:
@@ -166,10 +168,11 @@ def make_frames(path: Path) -> None:
     restore arm."""
     cs = _import_checkout(ROOT)
     from peritext_tpu_torch.testing.arrival import build_arrival
+    from peritext_tpu_torch.testing.devtime import generate
 
     cfg = cs.STREAM
-    workloads = cs.generate(cfg["seed"], cfg["docs"], cfg["ops"]) + \
-        cs.generate(cfg["seed"] + cfg["docs"], cfg["c_docs"] - cfg["docs"], cfg["ops"])
+    workloads = generate(cfg["seed"], cfg["docs"], cfg["ops"]) + \
+        generate(cfg["seed"] + cfg["docs"], cfg["c_docs"] - cfg["docs"], cfg["ops"])
     wire, nbytes = build_arrival(workloads, cfg["rounds"], cfg["seed"], as_frames=True,
                                  wire=cfg["wire"])
     counts = [sum(len(ch.ops) for log in w.values() for ch in log) for w in workloads]

@@ -56,7 +56,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("stream profile: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import STREAM, generate, run_stream_session
+    from chip_smoke import STREAM, run_stream_session
+    from peritext_tpu_torch.testing.devtime import generate
     from peritext_tpu_torch.testing.arrival import build_arrival
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])

@@ -16,7 +16,7 @@ one NVIDIA card, to choose ``WARP_TEAM_MAX_SLOTS`` (peritext_tpu_torch/ops/inser
    first.
 
 Prints one JSON line per timing (device time by CUDA events with the host
-kept ahead, chip_smoke.device_time_ms: mean over a few launches after a
+kept ahead, testing.devtime.device_time_ms: mean over a few launches after a
 warm-up) and, last, the card's name and power limit and a summary
 object.  Exits non-zero without a card.
 """
@@ -43,7 +43,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("team sweep: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import MIXED_10K, device_time_ms, mixed_streams, ragged_args, synth_args
+    from chip_smoke import MIXED_10K, mixed_streams, ragged_args, synth_args
+    from peritext_tpu_torch.testing.devtime import device_time_ms
     from peritext_tpu_torch.ops import insert as insert_mod
     from peritext_tpu_torch.ops.insert import insert_batch
     from peritext_tpu_torch.ops.ragged_insert import ragged_insert

@@ -81,7 +81,7 @@ def shard_loads(sess, n: int):
 
 
 def run_size(n, mesh, args, probe, device):
-    from chip_smoke import generate
+    from peritext_tpu_torch.testing.devtime import generate
     from peritext_tpu_torch.api.batch import DocBatch
     from peritext_tpu_torch.parallel.codec import encode_frame
     from peritext_tpu_torch.parallel.streaming import StreamingMerge

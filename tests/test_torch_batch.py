@@ -233,10 +233,15 @@ def test_demos_import_no_jax_or_reference():
 
 #: the port's measurement scripts in scripts/ (twins of the JAX side's and
 #: its own studies); every one keeps the rule
-TORCH_SCRIPTS = ("torch_apply_phase_cost", "torch_bridge_profile", "torch_causal_pairs",
-                 "torch_chaos_soak", "torch_dispatch_latency", "torch_engine_ab",
-                 "torch_engine_profile", "torch_ingest_profile", "torch_roofline",
-                 "torch_scale_layouts", "torch_serve_graph_ab", "torch_stream_profile",
+TORCH_SCRIPTS = ("torch_append_ab", "torch_append_flat_ab", "torch_apply_phase_cost",
+                 "torch_bridge_profile", "torch_causal_pairs", "torch_chaos_soak",
+                 "torch_dispatch_latency", "torch_engine_ab", "torch_engine_profile",
+                 "torch_fleet_serve_smoke", "torch_fleet_smoke", "torch_fused_smoke",
+                 "torch_gen_pm_fixtures", "torch_gen_wire_dict", "torch_history_smoke",
+                 "torch_incident_smoke", "torch_ingest_profile", "torch_latency_smoke",
+                 "torch_mesh_smoke", "torch_obs_smoke", "torch_paged_smoke", "torch_plan_smoke",
+                 "torch_ragged_smoke", "torch_roofline", "torch_scale_layouts",
+                 "torch_serve_graph_ab", "torch_serve_smoke", "torch_stream_profile",
                  "torch_team_sweep", "torch_weak_scaling")
 
 
@@ -258,6 +263,8 @@ def test_scripts_import_no_jax_or_reference():
         "import peritext_tpu_torch.testing.arrival, peritext_tpu_torch.testing.chaos\n"
         "import peritext_tpu_torch.obs.ledger, peritext_tpu_torch.parallel.mesh\n"
         "import peritext_tpu_torch.api.batch, peritext_tpu_torch.observability\n"
+        "import peritext_tpu_torch.testing.devtime, peritext_tpu_torch.bridge.pm\n"
+        "import peritext_tpu_torch.serve, peritext_tpu_torch.plan, peritext_tpu_torch.obs.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'peritext_tpu', 'bench'))\n"
         "print(bad)\n"

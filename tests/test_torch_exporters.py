@@ -537,6 +537,6 @@ def test_fleet_chaos_scrapes_metrics_like_the_reference():
     port = chaos.run_fleet_chaos(1, hosts=3, metrics=True)
     ref = ref_chaos.run_fleet_chaos(1, hosts=3, metrics=True)
     for r in (port, ref):
-        assert r.converged and r.divergence_incidents == 0
+        assert r.converged and r.divergence_incidents == 0 and r.lag_gauge_seen
     assert sorted(port.observed_lag.values()) == sorted(ref.observed_lag.values())
     assert (port.partition_rounds, port.final_digest) == (ref.partition_rounds, ref.final_digest)

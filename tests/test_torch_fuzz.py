@@ -171,3 +171,34 @@ def test_cli_module_exit_codes():
     # --mesh takes cards unless --device names the CPU, and there are none
     failed = run("--mesh", "2")
     assert failed.returncode == 1 and "need 2 CUDA devices" in failed.stderr
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_adding_changes_marks_equals_resolving_both_sets(seed):
+    """The span walk's shortcut (does adding one mark op change the resolved
+    marks?) answers as resolving the set with and without it does."""
+    import random
+
+    from peritext_tpu_torch.core.opids import ROOT as OBJ
+    from peritext_tpu_torch.core.spans import adding_changes_marks, ops_to_marks
+    from peritext_tpu_torch.core.types import Operation
+
+    rng = random.Random(seed)
+
+    def mark_op(counter):
+        mark_type = rng.choice(("strong", "em", "link", "comment"))
+        attrs = {"url": rng.choice("ab")} if mark_type == "link" else \
+            {"id": rng.choice("xyz")} if mark_type == "comment" else {}
+        return Operation(action=rng.choice(("addMark", "removeMark")), obj=OBJ,
+                         opid=(counter, rng.choice(("doc1", "doc2"))),
+                         mark_type=mark_type, attrs=attrs)
+
+    for _ in range(400):
+        ops = {}
+        for _ in range(rng.randrange(8)):
+            op = mark_op(rng.randrange(1, 12))
+            ops[op.opid] = op
+        op = rng.choice(list(ops.values())) if ops and rng.random() < 0.1 else \
+            mark_op(rng.randrange(1, 12))
+        expected = ops_to_marks(ops.values()) != ops_to_marks({**ops, op.opid: op}.values())
+        assert adding_changes_marks(ops, op) == expected

@@ -14,12 +14,15 @@ it observed; the port's result must equal the reference's:
 * ``close()``: idempotent, refuses new jobs, lets submitted ones resolve.
 
 Then the port's own pieces: the ``span_factory`` hook, a session's lane
-rebuilt after a close, and the CPU upload of ``CopyLane`` (one host tensor,
-no event, no copy).
+rebuilt after a close, a dropped session freed at once (its lane's idle
+worker and its graph pool hold it neither strongly nor in a cycle), and
+the CPU upload of ``CopyLane`` (one host tensor, no event, no copy).
 """
 
+import gc
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -28,6 +31,8 @@ import torch
 from peritext_tpu.parallel import staging as ref_staging
 from peritext_tpu_torch.parallel import staging as port_staging
 from peritext_tpu_torch.parallel.streaming import StreamingMerge
+from peritext_tpu_torch.testing.fuzz import generate_workload
+from peritext_tpu_torch.utils.graphs import GraphCache, GraphPool
 
 LANES = {"port": port_staging, "ref": ref_staging}
 
@@ -194,6 +199,40 @@ def test_session_rebuilds_a_closed_lane():
     fresh = s._ensure_stager()
     assert fresh is not lane and fresh.submit(lambda: 3).wait() == 3
     fresh.close()
+
+
+@pytest.mark.parametrize("layout", ["padded", "paged", "ragged"])
+def test_a_dropped_session_is_freed_without_the_collector(layout):
+    """A drained session's lane worker idles for ``IDLE_TIMEOUT_SECONDS``
+    after its last job: it must not keep the session (its device state and
+    graphs) alive, and neither may the session's graph pool."""
+    workloads = generate_workload(1, 2, 20)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        s = StreamingMerge(num_docs=2, actors=("doc1", "doc2", "doc3"), slot_capacity=256,
+                           layout=layout, device="cpu")
+        for d, w in enumerate(workloads):
+            s.ingest(d, [ch for log in w.values() for ch in log])
+        s.drain()
+        s.digest()
+        lane = s._stager
+        assert lane is not None and lane.staged > 0
+        ref = weakref.ref(s)
+        del s
+        deadline = time.monotonic() + 5.0
+        while ref() is not None and time.monotonic() < deadline:
+            time.sleep(0.01)  # the worker drops its last job after resolving it
+        assert ref() is None
+        assert lane._thread is not None and lane._thread.is_alive()  # still idling
+    finally:
+        if enabled:
+            gc.enable()
+    pool = GraphPool()
+    cache = GraphCache("cpu", pool=pool)
+    assert list(pool.caches) == [cache]
+    del cache
+    assert not list(pool.caches)
 
 
 def test_copy_lane_on_the_cpu_is_the_host_buffer():
