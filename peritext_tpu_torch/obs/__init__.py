@@ -6,7 +6,9 @@
   ``health_snapshot``;
 * :mod:`.spans` — nested pipeline spans (:class:`Tracer`) with sinks and
   Chrome trace-event export, correlated across hosts by the wire-carried
-  :class:`TraceContext`;
+  :class:`TraceContext`; while a ``torch.profiler`` records, each span is
+  also a profiler range of its name, and :func:`profiler_range` marks the
+  phases inside the device programs (a range then, a flag check else);
 * :mod:`.histograms` — fixed-bucket histograms with percentile readout,
   and the rolling window behind the supervisor's deadline autotuning and
   the serve mux's batching window;
@@ -93,6 +95,7 @@ from .spans import (
     ambient_parent,
     current_span,
     merge_traces,
+    profiler_range,
 )
 from .stats import MergeStats, stage_timer
 from .timeseries import (
@@ -151,6 +154,7 @@ __all__ = [
     "occupancy_key",
     "occupancy_distribution",
     "profile_trace",
+    "profiler_range",
     "prometheus_text",
     "replay_segments",
     "stage_timer",

@@ -20,6 +20,18 @@ enabled (bounded buffer, for the Perfetto dump) or has sinks (e.g. a
 :class:`~.recorder.FlightRecorder` ring).  A span measures the host wall
 of its region without synchronizing the card: an apply span is the
 dispatch, not the device work.
+
+Profiler ranges: while a ``torch.profiler`` records, every span also opens
+a ``record_function`` range of the same name, so the program's spans and
+the device operations they launched share the profiler's clock in any
+trace it writes (the profiler links each kernel to the host operation
+that launched it, nested inside the span's range).  With no profiler
+recording, a span pays one flag check for this.  :func:`profiler_range`
+is the profiler-only form for phases inside the device programs (the
+resolve's anchor match, cover plane, comment scatter and visibility; the
+per-doc hashes): a range while a profiler records, else one flag check;
+it reads no clock, retains nothing and calls no sink, so it may run
+inside a CUDA-graph capture.
 """
 
 from __future__ import annotations
@@ -33,6 +45,10 @@ import time
 import zlib
 from collections import deque
 from typing import Dict, Iterator, List, NamedTuple, Optional
+
+import torch
+
+from ..utils.capture import captured
 
 
 class TraceContext(NamedTuple):
@@ -232,12 +248,17 @@ class Tracer:
         t0 = time.perf_counter()
         stack = _stack()
         stack.append(sp)
+        rf = torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else None
+        if rf is not None:
+            rf.__enter__()
         try:
             yield sp
         except BaseException as exc:  # graftlint: boundary(annotate the span for the timeline; always re-raised)
             sp.args.setdefault("error", repr(exc))
             raise
         finally:
+            if rf is not None:
+                rf.__exit__(None, None, None)
             sp.duration = time.perf_counter() - t0
             if stack and stack[-1] is sp:
                 stack.pop()
@@ -293,6 +314,19 @@ def merge_traces(*traces: Dict) -> Dict:
         events.extend(t.get("traceEvents", []) if isinstance(t, dict) else t)
     events.sort(key=lambda e: (e.get("ph") != "M", e.get("ts", 0)))
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+@captured(static=("name",))
+def profiler_range(name: str):
+    """A ``record_function`` range named ``name`` while a
+    ``torch.profiler`` records, else a shared no-op context: the phase
+    markers inside the device programs (module doc)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
 
 
 #: default process-wide tracer: inactive (spans still measure, nothing is

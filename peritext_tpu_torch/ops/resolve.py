@@ -35,6 +35,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from ..obs.spans import profiler_range
 from ..schema import ALL_MARKS, MARK_INDEX
 from ..utils.capture import captured
 from .packed import (
@@ -141,58 +142,64 @@ def resolve(state: PackedDocs, comment_capacity: int = 32,
         attr = row(state.m_attr)
         live = action != 0
 
-        s_gap, s_ok = anchor_gap(row(state.m_start_kind), row(state.m_start_elem))
-        e_gap, e_ok = anchor_gap(row(state.m_end_kind), row(state.m_end_elem))
+        # the phase markers (obs/spans.py) are profiler ranges, no-ops
+        # unless a profiler records
+        with profiler_range("resolve.anchors"):
+            s_gap, s_ok = anchor_gap(row(state.m_start_kind), row(state.m_start_elem))
+            e_gap, e_ok = anchor_gap(row(state.m_end_kind), row(state.m_end_elem))
+            error = error | (live & ~(s_ok & e_ok)).any(dim=1)
 
-        cover = (
-            live[:, :, None]
-            & (s_gap[:, :, None] <= gap_before[:, None, :])
-            & (gap_before[:, None, :] < e_gap[:, :, None])
-            & occupied[:, None, :]
-        )  # (D, J, S)
-        val = (op.to(torch.int64) << 1) | (action == MA_ADD).to(torch.int64)
-        val_col = val[:, :, None]
+        with profiler_range("resolve.cover"):
+            cover = (
+                live[:, :, None]
+                & (s_gap[:, :, None] <= gap_before[:, None, :])
+                & (gap_before[:, None, :] < e_gap[:, :, None])
+                & occupied[:, None, :]
+            )  # (D, J, S)
+            val = (op.to(torch.int64) << 1) | (action == MA_ADD).to(torch.int64)
+            val_col = val[:, :, None]
 
-        for t in range(NUM_TYPES):
-            if t == COMMENT_TYPE:
-                continue
-            sel = cover & (mtype == t)[:, :, None]
-            chunk_val = torch.where(sel, val_col, 0).amax(dim=1)  # (D, S)
-            if t == LINK_TYPE:
-                # attr of the chunk winner (duplicate rows tie with equal
-                # attrs); gated on add at the output
-                chunk_attr = torch.where(
-                    sel & (val_col == chunk_val[:, None, :]), attr[:, :, None], 0
-                ).amax(dim=1)
-                link_attr = torch.where(chunk_val > lww_val[:, t], chunk_attr, link_attr)
-            lww_val[:, t] = torch.maximum(lww_val[:, t], chunk_val)
+            for t in range(NUM_TYPES):
+                if t == COMMENT_TYPE:
+                    continue
+                sel = cover & (mtype == t)[:, :, None]
+                chunk_val = torch.where(sel, val_col, 0).amax(dim=1)  # (D, S)
+                if t == LINK_TYPE:
+                    # attr of the chunk winner (duplicate rows tie with equal
+                    # attrs); gated on add at the output
+                    chunk_attr = torch.where(
+                        sel & (val_col == chunk_val[:, None, :]), attr[:, :, None], 0
+                    ).amax(dim=1)
+                    link_attr = torch.where(chunk_val > lww_val[:, t], chunk_attr, link_attr)
+                lww_val[:, t] = torch.maximum(lww_val[:, t], chunk_val)
 
         is_comment = mtype == COMMENT_TYPE
         if with_comments:
-            data = torch.where(cover & is_comment[:, :, None], val_col, 0)  # (D, J, S)
-            in_range = (attr >= 0) & (attr < c_cap)
-            index = torch.where(in_range, attr, c_cap).to(torch.int64)
-            c_val = c_val.scatter_reduce(
-                1, index[:, :, None].expand(-1, -1, s_cap), data, "amax",
-                include_self=True,
-            )
+            with profiler_range("resolve.comments"):
+                data = torch.where(cover & is_comment[:, :, None], val_col, 0)  # (D, J, S)
+                in_range = (attr >= 0) & (attr < c_cap)
+                index = torch.where(in_range, attr, c_cap).to(torch.int64)
+                c_val = c_val.scatter_reduce(
+                    1, index[:, :, None].expand(-1, -1, s_cap), data, "amax",
+                    include_self=True,
+                )
 
-        error = error | (live & ~(s_ok & e_ok)).any(dim=1)
         error = error | (live & is_comment & (attr >= comment_capacity)).any(dim=1)
 
-    # Visibility: occupied and not tombstoned.
-    visible = occupied & ~_row_isin(elem, state.tomb_id, state.tomb_id != 0)
+    with profiler_range("resolve.visible"):
+        # Visibility: occupied and not tombstoned.
+        visible = occupied & ~_row_isin(elem, state.tomb_id, state.tomb_id != 0)
 
-    lww_active = (lww_val & 1) == 1
-    if with_comments:
-        # pack per-id verdicts into 32-bit words: (C, S) -> (W, S)
-        active = c_val[:, :c_cap] & 1
-        padded = torch.zeros((d, c_words * 32, s_cap), dtype=torch.int64, device=dev)
-        padded[:, :c_cap] = active
-        weights = (1 << torch.arange(32, dtype=torch.int64, device=dev))[None, None, :, None]
-        comment_bits = (padded.reshape(d, c_words, 32, s_cap) * weights).sum(dim=2)
-    else:
-        comment_bits = torch.zeros((d, 0, s_cap), dtype=torch.int64, device=dev)
+        lww_active = (lww_val & 1) == 1
+        if with_comments:
+            # pack per-id verdicts into 32-bit words: (C, S) -> (W, S)
+            active = c_val[:, :c_cap] & 1
+            padded = torch.zeros((d, c_words * 32, s_cap), dtype=torch.int64, device=dev)
+            padded[:, :c_cap] = active
+            weights = (1 << torch.arange(32, dtype=torch.int64, device=dev))[None, None, :, None]
+            comment_bits = (padded.reshape(d, c_words, 32, s_cap) * weights).sum(dim=2)
+        else:
+            comment_bits = torch.zeros((d, 0, s_cap), dtype=torch.int64, device=dev)
     return ResolvedDocs(
         char=state.char,
         visible=visible,

@@ -68,7 +68,6 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import time
 import weakref
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -90,6 +89,7 @@ from ..obs import (
     MergeStats,
     TraceContext,
     occupancy_key,
+    profiler_range,
 )
 from ..ops.decode import CompactBlock, decode_doc_spans
 from ..ops.encode import MAP_STREAM_COLS, MARK_COLS, DocEncoder, _DocStreams
@@ -157,26 +157,27 @@ def _per_doc_full_digest(state, resolved, row_mask, sess_attr, sess_key,
     into ``obj_attr``/``obj_key``), so digests compare across sessions with
     different intern orders.  Masked or overflowed rows contribute ZERO
     (their host-side replay hash is summed in instead)."""
-    d = row_map.shape[0]
-    if obj_attr.shape[0]:
-        safe = row_map.to(torch.int64).clamp(0, obj_attr.shape[0] - 1)
-        is_obj = (row_map >= 0)[:, None]
-        attr_hash = torch.where(is_obj, obj_attr[safe], sess_attr[None, :])
-        key_hash = torch.where(is_obj, obj_key[safe], sess_key[None, :])
-    else:
-        attr_hash = sess_attr[None, :].expand(d, -1)
-        key_hash = sess_key[None, :].expand(d, -1)
-    mask = row_mask & ~resolved.overflow
-    per_doc = per_doc_text_digest(resolved.char, resolved.visible)
-    per_doc = per_doc + per_doc_format_digest(
-        resolved.visible, resolved.lww_active, resolved.link_attr,
-        resolved.comment_bits, attr_hash, comment_hash, COMMENT_TYPE, LINK_TYPE,
-    )
-    per_doc = per_doc + per_doc_register_digest(
-        state.r_obj, state.r_key, state.r_op, state.r_kind, state.r_val,
-        key_hash, VK_DELETED, VK_STR,
-    )
-    return torch.where(mask, per_doc & M32, 0)
+    with profiler_range("digest.hash"):
+        d = row_map.shape[0]
+        if obj_attr.shape[0]:
+            safe = row_map.to(torch.int64).clamp(0, obj_attr.shape[0] - 1)
+            is_obj = (row_map >= 0)[:, None]
+            attr_hash = torch.where(is_obj, obj_attr[safe], sess_attr[None, :])
+            key_hash = torch.where(is_obj, obj_key[safe], sess_key[None, :])
+        else:
+            attr_hash = sess_attr[None, :].expand(d, -1)
+            key_hash = sess_key[None, :].expand(d, -1)
+        mask = row_mask & ~resolved.overflow
+        per_doc = per_doc_text_digest(resolved.char, resolved.visible)
+        per_doc = per_doc + per_doc_format_digest(
+            resolved.visible, resolved.lww_active, resolved.link_attr,
+            resolved.comment_bits, attr_hash, comment_hash, COMMENT_TYPE, LINK_TYPE,
+        )
+        per_doc = per_doc + per_doc_register_digest(
+            state.r_obj, state.r_key, state.r_op, state.r_kind, state.r_val,
+            key_hash, VK_DELETED, VK_STR,
+        )
+        return torch.where(mask, per_doc & M32, 0)
 
 
 @captured
@@ -543,7 +544,8 @@ class StreamingMerge:
         self.docs = [_DocSession() for _ in range(num_docs)]
         self._quarantine: Dict[int, QuarantineRecord] = {}
         self.rounds = 0
-        #: cumulative host seconds in the wire parse of frame ingest
+        #: cumulative host seconds in the wire parse of frame ingest: the
+        #: sum of the ``ingest.parse`` spans' durations
         self.host_parse_seconds = 0.0
         self._patch_base: Dict[int, list] = {}
         #: doc -> (history size, scalar replay) of docs read by replay
@@ -737,75 +739,75 @@ class StreamingMerge:
                 self._frame_mode[d] = True
             text_objs.setdefault(d, sess.text_obj)
 
-        t0 = time.perf_counter()
-        parsed, f_ch_off, status = parse_frames_bulk(
-            b"".join(frames), frame_off, self._actor_table, self._frame_attrs, doc_ids,
-            text_objs, keys=self._map_keys,
-        )
-        self.host_parse_seconds += time.perf_counter() - t0
-
-        # comment-mark attr ids: from the session table to PER-DOC dense ids
-        # (they index capacity-C planes), interned only for rows of frames
-        # that passed every corrupt/demote check — a discarded frame must not
-        # spend a doc's comment-id space
-        ops = parsed.ops
-        sel = np.nonzero((ops[:, 0] == KIND_MARK) & (ops[:, 4] == MARK_INDEX["comment"])
-                         & (ops[:, 9] > 0))[0]
-        if len(sel):
-            ch_idx = np.searchsorted(parsed.ops_off, sel, side="right") - 1
-            f_idx = np.searchsorted(f_ch_off, ch_idx, side="right") - 1
-            ok = status[f_idx] == FRAME_OK
-            sel, ch_idx, f_idx = sel[ok], ch_idx[ok], f_idx[ok]
-        if len(sel):
-            docs_of_rows = doc_ids[f_idx].astype(np.int64)
-            keycode = (docs_of_rows << 32) | ops[sel, 9].astype(np.int64)
-            uniq, inv = np.unique(keycode, return_inverse=True)
-            local_ids = np.empty(len(uniq), np.int32)
-            for j, kc in enumerate(uniq):
-                doc, gid = int(kc >> 32), int(kc & 0xFFFFFFFF)
-                table = self._doc_comment_ids.setdefault(doc, Interner())
-                local_ids[j] = table.intern(self._frame_attrs.lookup(gid))
-            ops[sel, 9] = local_ids[inv]
-
-        # per-frame bookkeeping in arrival order: a demotion mid-call routes
-        # the same doc's later frames to the object path (its pooled changes
-        # drop at gather time; the frame-history replay covers them)
-        corrupt: List[int] = []
-        keep_frame = np.zeros(len(items), bool)
-        for f, (d, data) in enumerate(items):
-            d = int(d)
-            sess = self.docs[d]
-            if not sess.frame_mode:  # demoted earlier in this call
-                try:
-                    self.ingest(d, decode_frame(data))
-                except ValueError:
-                    corrupt.append(d)
-                continue
-            if status[f] == FRAME_CORRUPT:
-                corrupt.append(d)
-            elif status[f] == FRAME_DEMOTE:
-                try:
-                    extra = decode_frame(data)
-                except ValueError:
-                    # natively parseable but not object-decodable: corrupt
-                    # semantics, the doc's state is kept
-                    corrupt.append(d)
-                    continue
-                self._demote_frame_doc(d, extra=extra, reason=REASON_SCHEDULE,
-                                       detail="frame parseable but not device-expressible")
-            else:
-                sess.frames.append(data)
-                sess.text_obj = text_objs[d]
-                keep_frame[f] = True
-
-        counts = np.diff(f_ch_off).astype(np.int64)
-        if keep_frame.all() and parsed.num_changes:
-            self._pool.append((np.repeat(doc_ids, counts), parsed))
-        elif parsed.num_changes:
-            sel = np.nonzero(np.repeat(keep_frame, counts))[0]
+        with self.tracer.span("ingest.parse") as psp:
+            parsed, f_ch_off, status = parse_frames_bulk(
+                b"".join(frames), frame_off, self._actor_table, self._frame_attrs, doc_ids,
+                text_objs, keys=self._map_keys,
+            )
+        self.host_parse_seconds += psp.duration
+        with self.tracer.span("ingest.pool"):
+            # comment-mark attr ids: from the session table to PER-DOC dense ids
+            # (they index capacity-C planes), interned only for rows of frames
+            # that passed every corrupt/demote check — a discarded frame must not
+            # spend a doc's comment-id space
+            ops = parsed.ops
+            sel = np.nonzero((ops[:, 0] == KIND_MARK) & (ops[:, 4] == MARK_INDEX["comment"])
+                             & (ops[:, 9] > 0))[0]
             if len(sel):
-                self._pool.append((np.repeat(doc_ids, counts)[sel], parsed.select(sel)))
-        return corrupt
+                ch_idx = np.searchsorted(parsed.ops_off, sel, side="right") - 1
+                f_idx = np.searchsorted(f_ch_off, ch_idx, side="right") - 1
+                ok = status[f_idx] == FRAME_OK
+                sel, ch_idx, f_idx = sel[ok], ch_idx[ok], f_idx[ok]
+            if len(sel):
+                docs_of_rows = doc_ids[f_idx].astype(np.int64)
+                keycode = (docs_of_rows << 32) | ops[sel, 9].astype(np.int64)
+                uniq, inv = np.unique(keycode, return_inverse=True)
+                local_ids = np.empty(len(uniq), np.int32)
+                for j, kc in enumerate(uniq):
+                    doc, gid = int(kc >> 32), int(kc & 0xFFFFFFFF)
+                    table = self._doc_comment_ids.setdefault(doc, Interner())
+                    local_ids[j] = table.intern(self._frame_attrs.lookup(gid))
+                ops[sel, 9] = local_ids[inv]
+
+            # per-frame bookkeeping in arrival order: a demotion mid-call routes
+            # the same doc's later frames to the object path (its pooled changes
+            # drop at gather time; the frame-history replay covers them)
+            corrupt: List[int] = []
+            keep_frame = np.zeros(len(items), bool)
+            for f, (d, data) in enumerate(items):
+                d = int(d)
+                sess = self.docs[d]
+                if not sess.frame_mode:  # demoted earlier in this call
+                    try:
+                        self.ingest(d, decode_frame(data))
+                    except ValueError:
+                        corrupt.append(d)
+                    continue
+                if status[f] == FRAME_CORRUPT:
+                    corrupt.append(d)
+                elif status[f] == FRAME_DEMOTE:
+                    try:
+                        extra = decode_frame(data)
+                    except ValueError:
+                        # natively parseable but not object-decodable: corrupt
+                        # semantics, the doc's state is kept
+                        corrupt.append(d)
+                        continue
+                    self._demote_frame_doc(d, extra=extra, reason=REASON_SCHEDULE,
+                                           detail="frame parseable but not device-expressible")
+                else:
+                    sess.frames.append(data)
+                    sess.text_obj = text_objs[d]
+                    keep_frame[f] = True
+
+            counts = np.diff(f_ch_off).astype(np.int64)
+            if keep_frame.all() and parsed.num_changes:
+                self._pool.append((np.repeat(doc_ids, counts), parsed))
+            elif parsed.num_changes:
+                sel = np.nonzero(np.repeat(keep_frame, counts))[0]
+                if len(sel):
+                    self._pool.append((np.repeat(doc_ids, counts)[sel], parsed.select(sel)))
+            return corrupt
 
     # -- quarantine ----------------------------------------------------------
 
@@ -1013,6 +1015,61 @@ class StreamingMerge:
         GLOBAL_COUNTERS.add("streaming.schedule_passes")
         GLOBAL_COUNTERS.add("streaming.docs_scanned", len(self._object_pending))
         GLOBAL_COUNTERS.add("streaming.docs_skipped", len(self._object_waiting))
+        if self._object_pending:
+            with self.tracer.span("schedule.objects"):
+                scheduled = self._schedule_objects(obj_streams, (ki, kd, km, kp))
+
+        pool = self._gather_pool()
+        if scheduled == 0 and pool is None:
+            return None, None, 0
+        # adaptive widths: a power-of-two bucket per stream kind for trickle
+        # rounds; block-chunked and static-round sessions keep the
+        # configured widths (a mesh is one logical block, as the
+        # reference's mesh session, whose one block is the padded batch)
+        if self._one_block() and not self.static_rounds:
+            with self.tracer.span("schedule.widths"):
+                ki, kd, km, kp = self._round_widths(pool, obj_streams, ki, kd, km, kp)
+
+        enc = _RoundBuffers(self._padded_docs, ki, kd, km, kp)
+        for i, streams in obj_streams.items():
+            r = int(self._row_of[i])
+            if streams.ins:
+                arr = np.asarray(streams.ins, np.int32)
+                enc.ins_ref[r, : len(arr)] = arr[:, 0]
+                enc.ins_op[r, : len(arr)] = arr[:, 1]
+                enc.ins_char[r, : len(arr)] = arr[:, 2]
+            if streams.dels:
+                enc.del_target[r, : len(streams.dels)] = streams.dels
+            if streams.marks:
+                arr = np.asarray(streams.marks, np.int32)
+                for c, col in enumerate(MARK_COLS):
+                    enc.marks[col][r, : len(arr)] = arr[:, c]
+                enc.mark_count[r] = len(arr)
+            if streams.maps:
+                arr = np.asarray(streams.maps, np.int32)
+                for c, col in enumerate(MAP_STREAM_COLS):
+                    enc.map_ops[col][r, : len(arr)] = arr[:, c]
+                enc.map_count[r] = len(arr)
+            enc.ins_count[r] = len(streams.ins)
+            enc.del_count[r] = len(streams.dels)
+            enc.num_ops[r] = (len(streams.ins) + len(streams.dels)
+                              + len(streams.marks) + len(streams.maps))
+
+        # the frame pass: ONE native call schedules and splits every frame
+        # doc's pooled changes into its padded row
+        if pool is not None:
+            scheduled += self._step_frame_docs(pool, enc, (ki, kd, km, kp))
+        if scheduled == 0:
+            return None, None, 0
+        GLOBAL_COUNTERS.add("streaming.scheduled_changes", scheduled)
+        return enc, (ki, kd, km, kp), scheduled
+
+    def _schedule_objects(self, obj_streams: Dict[int, _DocStreams], caps) -> int:
+        """The object-doc pass of a round: each pending doc's longest causal
+        prefix that fits the widths, encoded into ``obj_streams``.  Returns
+        the changes admitted."""
+        ki, kd, km, kp = caps
+        scheduled = 0
         for i in sorted(self._object_pending):
             sess = self.docs[i]
             if sess.fallback:
@@ -1052,50 +1109,7 @@ class StreamingMerge:
                 # a clock that only an ingest() to this doc can move
                 self._object_pending.discard(i)
                 self._object_waiting.add(i)
-
-        pool = self._gather_pool()
-        if scheduled == 0 and pool is None:
-            return None, None, 0
-        # adaptive widths: a power-of-two bucket per stream kind for trickle
-        # rounds; block-chunked and static-round sessions keep the
-        # configured widths (a mesh is one logical block, as the
-        # reference's mesh session, whose one block is the padded batch)
-        if self._one_block() and not self.static_rounds:
-            ki, kd, km, kp = self._round_widths(pool, obj_streams, ki, kd, km, kp)
-
-        enc = _RoundBuffers(self._padded_docs, ki, kd, km, kp)
-        for i, streams in obj_streams.items():
-            r = int(self._row_of[i])
-            if streams.ins:
-                arr = np.asarray(streams.ins, np.int32)
-                enc.ins_ref[r, : len(arr)] = arr[:, 0]
-                enc.ins_op[r, : len(arr)] = arr[:, 1]
-                enc.ins_char[r, : len(arr)] = arr[:, 2]
-            if streams.dels:
-                enc.del_target[r, : len(streams.dels)] = streams.dels
-            if streams.marks:
-                arr = np.asarray(streams.marks, np.int32)
-                for c, col in enumerate(MARK_COLS):
-                    enc.marks[col][r, : len(arr)] = arr[:, c]
-                enc.mark_count[r] = len(arr)
-            if streams.maps:
-                arr = np.asarray(streams.maps, np.int32)
-                for c, col in enumerate(MAP_STREAM_COLS):
-                    enc.map_ops[col][r, : len(arr)] = arr[:, c]
-                enc.map_count[r] = len(arr)
-            enc.ins_count[r] = len(streams.ins)
-            enc.del_count[r] = len(streams.dels)
-            enc.num_ops[r] = (len(streams.ins) + len(streams.dels)
-                              + len(streams.marks) + len(streams.maps))
-
-        # the frame pass: ONE native call schedules and splits every frame
-        # doc's pooled changes into its padded row
-        if pool is not None:
-            scheduled += self._step_frame_docs(pool, enc, (ki, kd, km, kp))
-        if scheduled == 0:
-            return None, None, 0
-        GLOBAL_COUNTERS.add("streaming.scheduled_changes", scheduled)
-        return enc, (ki, kd, km, kp), scheduled
+        return scheduled
 
     #: fraction of frame-pool docs whose whole pending need must fit the
     #: round width; the skewed tail above it defers to later rounds instead
@@ -1131,46 +1145,49 @@ class StreamingMerge:
         docs' entries (their frame-history replay covers them)."""
         if not self._pool:
             return None
-        chunks = self._pool
-        self._pool = []
-        doc_of = chunks[0][0] if len(chunks) == 1 else np.concatenate([d for d, _ in chunks])
-        parsed = ParsedChanges.concat_many([p for _, p in chunks])
-        keep = self._frame_mode[doc_of]
-        if not keep.all():
-            idx = np.nonzero(keep)[0]
-            if not len(idx):
-                return None
-            doc_of, parsed = doc_of[idx], parsed.select(idx)
-        if np.any(doc_of[:-1] > doc_of[1:]):
-            order = np.argsort(doc_of, kind="stable")
-            doc_of, parsed = doc_of[order], parsed.select(order)
-        return doc_of, parsed
+        with self.tracer.span("schedule.gather"):
+            chunks = self._pool
+            self._pool = []
+            doc_of = chunks[0][0] if len(chunks) == 1 else np.concatenate([d for d, _ in chunks])
+            parsed = ParsedChanges.concat_many([p for _, p in chunks])
+            keep = self._frame_mode[doc_of]
+            if not keep.all():
+                idx = np.nonzero(keep)[0]
+                if not len(idx):
+                    return None
+                doc_of, parsed = doc_of[idx], parsed.select(idx)
+            if np.any(doc_of[:-1] > doc_of[1:]):
+                order = np.argsort(doc_of, kind="stable")
+                doc_of, parsed = doc_of[order], parsed.select(order)
+            return doc_of, parsed
 
     def _step_frame_docs(self, pool, enc: _RoundBuffers, caps) -> int:
         """Schedule every frame doc's pooled changes into its padded row in
         one native call; deferred changes go back to the pool as one chunk.
         Returns the changes admitted."""
         doc_of, parsed = pool
-        frame_docs = np.unique(doc_of)
-        frame_rows = self._row_of[frame_docs]
-        ch_off = np.concatenate(
-            [np.searchsorted(doc_of, frame_docs), [len(doc_of)]]).astype(np.int32)
-        # the scheduled docs' clock rows, scattered back after the call
-        clock = np.ascontiguousarray(self._clock_mat[frame_docs], np.int32)
-        text_obj = np.asarray([self.docs[int(i)].text_obj for i in frame_docs], np.int32)
-        _, n_ins, n_del, n_mark, n_map, n_admitted, admitted, status = native.schedule_split_batch(
-            len(self._actor_table), ch_off, frame_rows.astype(np.int32), text_obj,
-            (parsed.ch_actor, parsed.ch_seq, parsed.dep_off, parsed.dep_actor,
-             parsed.dep_seq, parsed.ops_off, parsed.ops),
-            clock, caps, (enc.ins_ref, enc.ins_op, enc.ins_char), enc.del_target,
-            enc.marks, enc.map_ops,
-        )
-        self._clock_mat[frame_docs] = clock
-        enc.ins_count[frame_rows] = n_ins
-        enc.del_count[frame_rows] = n_del
-        enc.mark_count[frame_rows] = n_mark
-        enc.map_count[frame_rows] = n_map
-        enc.num_ops[frame_rows] = n_ins + n_del + n_mark + n_map
+        with self.tracer.span("schedule.split"):
+            frame_docs = np.unique(doc_of)
+            frame_rows = self._row_of[frame_docs]
+            ch_off = np.concatenate(
+                [np.searchsorted(doc_of, frame_docs), [len(doc_of)]]).astype(np.int32)
+            # the scheduled docs' clock rows, scattered back after the call
+            clock = np.ascontiguousarray(self._clock_mat[frame_docs], np.int32)
+            text_obj = np.asarray([self.docs[int(i)].text_obj for i in frame_docs], np.int32)
+            _, n_ins, n_del, n_mark, n_map, n_admitted, admitted, status = \
+                native.schedule_split_batch(
+                    len(self._actor_table), ch_off, frame_rows.astype(np.int32), text_obj,
+                    (parsed.ch_actor, parsed.ch_seq, parsed.dep_off, parsed.dep_actor,
+                     parsed.dep_seq, parsed.ops_off, parsed.ops),
+                    clock, caps, (enc.ins_ref, enc.ins_op, enc.ins_char), enc.del_target,
+                    enc.marks, enc.map_ops,
+                )
+            self._clock_mat[frame_docs] = clock
+            enc.ins_count[frame_rows] = n_ins
+            enc.del_count[frame_rows] = n_del
+            enc.mark_count[frame_rows] = n_mark
+            enc.map_count[frame_rows] = n_map
+            enc.num_ops[frame_rows] = n_ins + n_del + n_mark + n_map
         scheduled = int(n_admitted.sum())
         demoted = frame_docs[status != 0] if status.any() else None
         if demoted is not None:
@@ -1185,8 +1202,9 @@ class StreamingMerge:
         if demoted is not None:
             defer &= ~np.isin(doc_of, demoted)
         if defer.any():
-            idx = np.nonzero(defer)[0]
-            self._pool.append((doc_of[idx], parsed.select(idx)))
+            with self.tracer.span("schedule.defer"):
+                idx = np.nonzero(defer)[0]
+                self._pool.append((doc_of[idx], parsed.select(idx)))
         return scheduled
 
     @staticmethod
@@ -1892,11 +1910,12 @@ class StreamingMerge:
         """(block,) bool: rows currently served by the device (a real doc's
         row, and that doc not fallback)."""
         lo, hi = self._block_bounds(block_index)
-        on_device = np.zeros(hi - lo, bool)
-        for local, d in enumerate(self._doc_at[lo:hi]):
-            if d >= 0:
-                on_device[local] = not self.docs[d].fallback
-        return on_device
+        with self.tracer.span("digest.masks"):
+            on_device = np.zeros(hi - lo, bool)
+            for local, d in enumerate(self._doc_at[lo:hi]):
+                if d >= 0:
+                    on_device[local] = not self.docs[d].fallback
+            return on_device
 
     def _resolution(self, block_index: int) -> _BlockResolution:
         """Per-round cached resolution + full-state digest vector of one doc
@@ -1926,9 +1945,10 @@ class StreamingMerge:
     def _block_resolve_digest(self, block_index: int, row_mask: torch.Tensor):
         """The program :meth:`_resolution` caches: one block's resolution
         and its per-doc full-state hash vector."""
-        lo, hi = self._block_bounds(block_index)
-        return _resolve_block_digest(self._state_block(block_index), self.comment_capacity,
-                                     row_mask, *self._digest_tables(lo, hi))
+        tables = self._digest_tables(*self._block_bounds(block_index))
+        with self.tracer.span("digest.launch"):
+            return _resolve_block_digest(self._state_block(block_index), self.comment_capacity,
+                                         row_mask, *tables)
 
     def _block_text_digest(self, block_index: int, row_mask: torch.Tensor):
         """One block's text-only digest and overflow vector."""
@@ -2190,49 +2210,51 @@ class StreamingMerge:
         hashes.  Widths are power-of-two buckets, as the reference sizes
         them (an id past a table's width clips to its last column).  Cached
         until an interner grows or the object docs change."""
-        sess_attr = self._frame_attrs.content_hashes()
-        sess_keys = self._map_keys.content_hashes()
-        enc = {
-            row: self.docs[d].encoder
-            for row in range(lo, hi)
-            if (d := int(self._doc_at[row])) >= 0 and not self.docs[d].frame_mode
-            and self.docs[d].encoder is not None
-        }
-        comments = {
-            int(self._row_of[d]) - lo: t for d, t in sorted(self._doc_comment_ids.items())
-            if lo <= int(self._row_of[d]) < hi and self.docs[d].frame_mode
-        }
-        key = (len(sess_attr), len(sess_keys), self._placement_epoch,
-               tuple((row, len(e.attrs), len(e.keys)) for row, e in sorted(enc.items())),
-               tuple((row, len(t)) for row, t in comments.items()))
-        cached = self._digest_tables_cache.get((lo, hi))
-        if cached is not None and cached[0] == key:
-            return cached[1]
-        tables = self._hash_tables(hi - lo, sess_attr, sess_keys,
-                                   {row - lo: e for row, e in enc.items()}, comments,
-                                   _width_bucket(len(enc)) if enc else 0,
-                                   self._block_device(lo // self._read_chunk))
-        self._digest_tables_cache[(lo, hi)] = (key, tables)
-        return tables
+        with self.tracer.span("digest.tables"):
+            sess_attr = self._frame_attrs.content_hashes()
+            sess_keys = self._map_keys.content_hashes()
+            enc = {
+                row: self.docs[d].encoder
+                for row in range(lo, hi)
+                if (d := int(self._doc_at[row])) >= 0 and not self.docs[d].frame_mode
+                and self.docs[d].encoder is not None
+            }
+            comments = {
+                int(self._row_of[d]) - lo: t for d, t in sorted(self._doc_comment_ids.items())
+                if lo <= int(self._row_of[d]) < hi and self.docs[d].frame_mode
+            }
+            key = (len(sess_attr), len(sess_keys), self._placement_epoch,
+                   tuple((row, len(e.attrs), len(e.keys)) for row, e in sorted(enc.items())),
+                   tuple((row, len(t)) for row, t in comments.items()))
+            cached = self._digest_tables_cache.get((lo, hi))
+            if cached is not None and cached[0] == key:
+                return cached[1]
+            tables = self._hash_tables(hi - lo, sess_attr, sess_keys,
+                                       {row - lo: e for row, e in enc.items()}, comments,
+                                       _width_bucket(len(enc)) if enc else 0,
+                                       self._block_device(lo // self._read_chunk))
+            self._digest_tables_cache[(lo, hi)] = (key, tables)
+            return tables
 
     def _digest_tables_rows(self, rows: np.ndarray, n_real: int, device: torch.device):
         """:meth:`_digest_tables` for a GATHERED row subset, by position in
         ``rows``, on ``device``; only the first ``n_real`` positions are
         real (the rest is power-of-two padding whose table entries stay
         zero)."""
-        enc, comments = {}, {}
-        for i in range(n_real):
-            d = int(self._doc_at[rows[i]])
-            if d < 0:
-                continue
-            if self.docs[d].frame_mode:
-                if d in self._doc_comment_ids:
-                    comments[i] = self._doc_comment_ids[d]
-            elif self.docs[d].encoder is not None:
-                enc[i] = self.docs[d].encoder
-        return self._hash_tables(len(rows), self._frame_attrs.content_hashes(),
-                                 self._map_keys.content_hashes(), enc, comments,
-                                 _width_bucket(len(enc)) if enc else 0, device)
+        with self.tracer.span("digest.tables"):
+            enc, comments = {}, {}
+            for i in range(n_real):
+                d = int(self._doc_at[rows[i]])
+                if d < 0:
+                    continue
+                if self.docs[d].frame_mode:
+                    if d in self._doc_comment_ids:
+                        comments[i] = self._doc_comment_ids[d]
+                elif self.docs[d].encoder is not None:
+                    enc[i] = self.docs[d].encoder
+            return self._hash_tables(len(rows), self._frame_attrs.content_hashes(),
+                                     self._map_keys.content_hashes(), enc, comments,
+                                     _width_bucket(len(enc)) if enc else 0, device)
 
     def _hash_tables(self, n_rows: int, sess_attr, sess_keys, enc: Dict[int, DocEncoder],
                      comments: Dict[int, Interner], n_obj: int, device: torch.device):
@@ -2267,11 +2289,12 @@ class StreamingMerge:
     def _on_device_mask(self) -> np.ndarray:
         """(padded,) bool: rows backed by device state (their doc not
         fallback)."""
-        on_dev = np.zeros(self._padded_docs, bool)
-        for d, s in enumerate(self.docs):
-            if not s.fallback:
-                on_dev[self._row_of[d]] = True
-        return on_dev
+        with self.tracer.span("digest.masks"):
+            on_dev = np.zeros(self._padded_docs, bool)
+            for d, s in enumerate(self.docs):
+                if not s.fallback:
+                    on_dev[self._row_of[d]] = True
+            return on_dev
 
     def _rows_digest_parts(self, rest: np.ndarray) -> list:
         """``[(rows, per_doc, overflow), ...]``: the sub-batch hash programs
@@ -2299,9 +2322,11 @@ class StreamingMerge:
         local[: len(rest)] -= self._block_bounds(bi)[0]
         idx = torch.from_numpy(local).to(dev)
         state = self._state_block(bi) if self.mesh is not None else self.state
-        sub = PackedDocs(*(x[idx] for x in state))
-        return _rows_digest(sub, self.comment_capacity, torch.from_numpy(mask).to(dev),
-                            *self._digest_tables_rows(rows_idx, len(rest), dev))
+        tables = self._digest_tables_rows(rows_idx, len(rest), dev)
+        with self.tracer.span("digest.launch"):
+            sub = PackedDocs(*(x[idx] for x in state))
+            return _rows_digest(sub, self.comment_capacity, torch.from_numpy(mask).to(dev),
+                                *tables)
 
     def _refresh_digest_rows(self) -> np.ndarray:
         """Bring the carried per-row hash plane current for every on-device
@@ -2316,15 +2341,18 @@ class StreamingMerge:
             lo, hi = self._block_bounds(bi)
             if int(need[lo:hi].sum()) > (hi - lo) // 4:
                 entry = self._digest_resolution(bi)
-                self._digest_plane[lo:hi] = entry.digest_per_doc
-                self._digest_ov[lo:hi] = entry.overflow
+                with self.tracer.span("digest.fetch"):
+                    self._digest_plane[lo:hi] = entry.digest_per_doc
+                    self._digest_ov[lo:hi] = entry.overflow
                 self._digest_row_valid[lo:hi] = on_dev[lo:hi] & (self._doc_at[lo:hi] >= 0)
                 need[lo:hi] = False
         rest = np.nonzero(need)[0]
         if len(rest):
             for rows, per_doc, ov in self._rows_digest_parts(rest):
-                self._digest_plane[rows] = per_doc.cpu().numpy()[: len(rows)].astype(np.uint32)
-                self._digest_ov[rows] = ov.cpu().numpy()[: len(rows)]
+                with self.tracer.span("digest.fetch"):
+                    self._digest_plane[rows] = \
+                        per_doc.cpu().numpy()[: len(rows)].astype(np.uint32)
+                    self._digest_ov[rows] = ov.cpu().numpy()[: len(rows)]
             self._digest_row_valid[rest] = True
         return on_dev
 
@@ -2372,8 +2400,10 @@ class StreamingMerge:
                     for r in np.nonzero(ov & on_device_all[lo:hi])[0]
                     if int(self._doc_at[int(r) + lo]) >= 0
                 )
-        for i in replay_docs:
-            total = (total + self._host_digest(i, full)) & M32
+        if replay_docs:
+            with self.tracer.span("digest.replay", docs=len(replay_docs)):
+                for i in replay_docs:
+                    total = (total + self._host_digest(i, full)) & M32
         return total
 
     def _host_digest(self, doc_index: int, full: bool = True) -> int:
@@ -2396,24 +2426,25 @@ class StreamingMerge:
         ``wait()`` before further ingestion when such docs exist.  A round
         or reshard before ``wait()`` keeps the fetched hashes out of the
         carried plane (they describe rows that have since changed)."""
-        on_dev = self._on_device_mask()
-        need = ~self._digest_row_valid & on_dev & (self._doc_at >= 0)
-        parts = []
-        for bi in range(self._n_blocks()):
-            lo, hi = self._block_bounds(bi)
-            if int(need[lo:hi].sum()) > (hi - lo) // 4:
-                entry = self._digest_resolution(bi)
-                # only the vectors: the resolved planes stay evictable
-                parts.append((np.arange(lo, hi), entry.digest_dev, entry.device.overflow))
-                need[lo:hi] = False
-        rest = np.nonzero(need)[0]
-        if len(rest):
-            parts.extend(self._rows_digest_parts(rest))
-        snapshot = (
-            self._digest_plane.copy(), self._digest_ov.copy(), self._digest_row_valid.copy(),
-            on_dev, self._doc_at.copy(), [i for i, s in enumerate(self.docs) if s.fallback],
-        )
-        return _PendingDigest(self, parts, snapshot, self.rounds, self._placement_epoch)
+        with self.tracer.span("streaming.digest_async"):
+            on_dev = self._on_device_mask()
+            need = ~self._digest_row_valid & on_dev & (self._doc_at >= 0)
+            parts = []
+            for bi in range(self._n_blocks()):
+                lo, hi = self._block_bounds(bi)
+                if int(need[lo:hi].sum()) > (hi - lo) // 4:
+                    entry = self._digest_resolution(bi)
+                    # only the vectors: the resolved planes stay evictable
+                    parts.append((np.arange(lo, hi), entry.digest_dev, entry.device.overflow))
+                    need[lo:hi] = False
+            rest = np.nonzero(need)[0]
+            if len(rest):
+                parts.extend(self._rows_digest_parts(rest))
+            snapshot = (
+                self._digest_plane.copy(), self._digest_ov.copy(), self._digest_row_valid.copy(),
+                on_dev, self._doc_at.copy(), [i for i, s in enumerate(self.docs) if s.fallback],
+            )
+            return _PendingDigest(self, parts, snapshot, self.rounds, self._placement_epoch)
 
     def doc_digest(self, doc_index: int) -> int:
         """ONE doc's full-state convergence hash — exactly the per-doc term
@@ -2639,27 +2670,34 @@ class _PendingDigest:
         if self._value is not None:
             return self._value
         s = self._session
-        plane, ovp, valid, on_dev, doc_at, fallback_docs = self._snapshot
-        writeback = s.rounds == self._stamp and s._placement_epoch == self._epoch
-        for rows, vec_dev, ov_dev in self._parts:
-            vec = vec_dev.cpu().numpy()[: len(rows)].astype(np.uint32)
-            ov = ov_dev.cpu().numpy()[: len(rows)]
-            plane[rows], ovp[rows] = vec, ov
-            valid[rows] = on_dev[rows] & (doc_at[rows] >= 0)
-            if writeback:
-                s._digest_plane[rows] = vec
-                s._digest_ov[rows] = ov
-                s._digest_row_valid[rows] = valid[rows]
-        ok = valid & on_dev & ~ovp & (doc_at >= 0)
-        total = int(plane[ok].sum(dtype=np.uint32))
-        replay_docs = list(fallback_docs)
-        replay_docs.extend(int(doc_at[r]) for r in np.nonzero(ovp & on_dev & (doc_at >= 0))[0])
-        for i in replay_docs:
-            total = (total + s._host_digest(i)) & M32
-        self._value = total
-        self._parts = ()  # release the device refs
-        self._snapshot = None
-        return total
+        with s.tracer.span("streaming.digest_wait"):
+            plane, ovp, valid, on_dev, doc_at, fallback_docs = self._snapshot
+            writeback = s.rounds == self._stamp and s._placement_epoch == self._epoch
+            fetched = []
+            if self._parts:
+                with s.tracer.span("digest.fetch"):
+                    fetched = [(rows, vec_dev.cpu().numpy()[: len(rows)].astype(np.uint32),
+                                ov_dev.cpu().numpy()[: len(rows)])
+                               for rows, vec_dev, ov_dev in self._parts]
+            for rows, vec, ov in fetched:
+                plane[rows], ovp[rows] = vec, ov
+                valid[rows] = on_dev[rows] & (doc_at[rows] >= 0)
+                if writeback:
+                    s._digest_plane[rows] = vec
+                    s._digest_ov[rows] = ov
+                    s._digest_row_valid[rows] = valid[rows]
+            ok = valid & on_dev & ~ovp & (doc_at >= 0)
+            total = int(plane[ok].sum(dtype=np.uint32))
+            replay_docs = list(fallback_docs)
+            replay_docs.extend(int(doc_at[r]) for r in np.nonzero(ovp & on_dev & (doc_at >= 0))[0])
+            if replay_docs:
+                with s.tracer.span("digest.replay", docs=len(replay_docs)):
+                    for i in replay_docs:
+                        total = (total + s._host_digest(i)) & M32
+            self._value = total
+            self._parts = ()  # release the device refs
+            self._snapshot = None
+            return total
 
 
 def _doc_text_list_id(doc: Doc):

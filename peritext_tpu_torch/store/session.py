@@ -410,12 +410,13 @@ class PagedStreamingMerge(StreamingMerge):
         return self._slot_capacity - int(state.elem_id.shape[1])
 
     def _block_resolve_digest(self, block_index: int, row_mask: torch.Tensor):
-        lo, hi = self._block_bounds(block_index)
-        state = self._state_block(block_index)
-        resolved, per_doc = _resolve_block_digest(state, self.comment_capacity, row_mask,
-                                                  *self._digest_tables(lo, hi))
-        return resolved, _pad_corrected(per_doc, row_mask & ~resolved.overflow,
-                                        self._pad_slots(state))
+        tables = self._digest_tables(*self._block_bounds(block_index))
+        with self.tracer.span("digest.launch"):
+            state = self._state_block(block_index)
+            resolved, per_doc = _resolve_block_digest(state, self.comment_capacity, row_mask,
+                                                      *tables)
+            return resolved, _pad_corrected(per_doc, row_mask & ~resolved.overflow,
+                                            self._pad_slots(state))
 
     def _block_text_digest(self, block_index: int, row_mask: torch.Tensor):
         state = self._state_block(block_index)
@@ -441,10 +442,11 @@ class PagedStreamingMerge(StreamingMerge):
         g = self._store.width_for_rows(rest)
         sub = self._store.materialize_rows(rest, g, pad_rows_to=k)
         dev = sub.elem_id.device
-        mask_t = torch.from_numpy(mask).to(dev)
-        per_doc, ov = _rows_digest(sub, self.comment_capacity, mask_t,
-                                   *self._digest_tables_rows(rows_idx, len(rest), dev))
-        return _pad_corrected(per_doc, mask_t & ~ov, self._pad_slots(sub)), ov
+        tables = self._digest_tables_rows(rows_idx, len(rest), dev)
+        with self.tracer.span("digest.launch"):
+            mask_t = torch.from_numpy(mask).to(dev)
+            per_doc, ov = _rows_digest(sub, self.comment_capacity, mask_t, *tables)
+            return _pad_corrected(per_doc, mask_t & ~ov, self._pad_slots(sub)), ov
 
     # -- placement: pages are the load -----------------------------------------
 
